@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's N-body main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's N-body and boids main paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -24,7 +25,26 @@ failure exits non-zero.  Phases, each printed with its seconds:
    steps, then lists frozen to tau = 23; limits 5% fresh, 8% at tau=23),
    and for the main path's own last interval (reported);
 6. the recorder CLI at 1M (bar_galaxy, 10 frames) and 8K (tiny_galaxy,
-   30 frames, the all-pairs engine), last frames decoded.
+   30 frames, the all-pairs engine), last frames decoded;
+7. kernel 3 (boids Morton window) against its plain version on the 500K
+   ``Flock``'s initial state and again after 48 steps: pass 1 (no dedup)
+   and pass 2 (dedup against pass 1's window), max|d|/max|ref| per
+   accumulator group (limit 2e-4) and the share of boids whose counts
+   differ (limit 1e-4), CUDA-event times;
+8. the boids main path with every kernel launch counted from zero:
+   ``Flock(num_boids=500_000)`` and ``Flock(num_boids=100_000)`` at the
+   default config, 96 steps each at dt 1/30 (2 launches a step, 15
+   re-sorts), under ``bench.py``'s metric names, and the 20K grid mode
+   (no kernel, 10 steps);
+9. the 500K flock after those 96 steps: window forces against the exact
+   grid (``cell_capacity`` at the largest cell occupancy), the share of
+   boids whose force agrees at atol 1e-4 and the share of neighbour pairs
+   the window captures (both >= 0.99);
+10. where the device time goes, under ``torch.profiler``: the 500K flock
+    over 12 more steps (2 re-sorts), and the 1M N-body window engine over
+    the 3 steps around a rebuild and 20 steps between rebuilds: wall and
+    device-busy milliseconds, the idle share, the kernels by device time
+    (the profiler adds host time, so the idle share is an upper bound).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -48,6 +68,15 @@ N_SAMPLE = 4096
 AP_STEPS = 10
 TOL_ALLPAIRS = 1e-5    # rsqrtf (~2 ulp) + FMA contraction vs plain rsqrt/div
 TOL_WINDOW = 1e-4      # same, summed over ~4K sources in another order
+N_BOIDS = 500_000
+BOIDS_DT = 1.0 / 30.0
+BOIDS_STEPS = 96
+TOL_BOIDS = 2e-4       # the JAX package's bar for its kernel vs XLA form
+TOL_BOIDS_COUNTS = 1e-4   # share of boids whose counts may differ
+# H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the tensor
+# cores, HBM3 bandwidth.  A bound is the larger of ops/peak, bytes/peak.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def require(cond, what):
@@ -85,19 +114,84 @@ def kernel_errors(got, want):
     return abs_err, abs_err / float(want.abs().max())
 
 
-def record_kernel(kernels, name, abs_err, rel_err, ms, plain_ms):
-    """Keep the worst error over a kernel's checks and its first timing."""
-    rec = kernels.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0,
-                                        ms=ms, plain_ms=plain_ms))
+def bound(ops, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``ops`` FP32 operations on ``nbytes`` read once and written once."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes"))
+
+
+def record_kernel(kernels, name, abs_err, rel_err, ms, plain_ms, ops,
+                  nbytes):
+    """Keep the worst error over a kernel's checks, and its first timing
+    with the bound of that call's work."""
+    bound_ms, bound_by = bound(ops, nbytes)
+    rec = kernels.setdefault(name, dict(
+        max_abs_err=0.0, max_rel_err=0.0, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
     rec["max_rel_err"] = max(rec["max_rel_err"], rel_err)
+
+
+def boids_pass_inputs(state, cfg):
+    """Pass-1 and pass-2 kernel inputs of a boids window state, built as
+    the frozen window step builds them."""
+    from spatialsim_tpu_torch.ops.boids_ops import pass1_inputs, pass2_inputs
+    s1 = pass1_inputs(state.pos, state.vel, state.col, state.p21.numel())
+    return ((*s1, None),
+            pass2_inputs(*s1, state.p21, state.pos.shape[1], cfg.group_size))
+
+
+def window_pairs(ng, gsz, wg):
+    """Pairs one window pass evaluates: every group's in-range window
+    groups, gsz x gsz pairs each."""
+    import numpy as np
+    g = np.arange(ng)
+    groups = np.minimum(g + wg, ng - 1) - np.maximum(g - wg, 0) + 1
+    return int(groups.sum()) * gsz * gsz
+
+
+def profile_steps(label, step, steps):
+    """Run ``step`` ``steps`` times under torch.profiler; print the wall
+    and device-busy milliseconds, the idle share and the kernels that took
+    the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):          # union of the device intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_ms = busy_us / 1e3
+    print(f"    {label}: wall {wall_ms:.3f} ms under the profiler, device "
+          f"busy {busy_ms:.3f} ms ({1 - busy_ms / wall_ms:.1%} idle), "
+          f"{len(spans)} device events")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    for name, (us, n) in top:
+        print(f"      {us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}")
 
 
 def galaxy(n, seed, device):
     import numpy as np
     import torch
-    from spatialsim_tpu import distributions
-    from spatialsim_tpu.config.nbody import NBODY
+    from spatialsim_tpu_torch import distributions
+    from spatialsim_tpu_torch.config.nbody import NBODY
     p, v, m = distributions.generate_distribution(
         "galaxy", n, NBODY.spawn_radius, NBODY.G, seed=seed)
     return (torch.as_tensor(np.ascontiguousarray(p.T, np.float32),
@@ -174,7 +268,7 @@ def run_recorder(args, rec_root):
 
 def check_frame(rec_dir, frame, n):
     import numpy as np
-    from spatialsim_tpu.io import codec
+    from spatialsim_tpu_torch.io import codec
     p, c = codec.load_frame(rec_dir, frame)
     require(p.shape == (n, 3) and c.shape == (n, 3), (p.shape, c.shape))
     require(np.isfinite(p).all(), "non-finite positions in recorded frame")
@@ -197,7 +291,12 @@ def main() -> int:
         window_eval_pool, window_eval_pool_reference)
     from spatialsim_tpu_torch.ops import bh_window as bw
     from spatialsim_tpu_torch.models.nbody import NBodySimulation
-    from spatialsim_tpu.config.nbody import NBODY, resolve_config
+    from spatialsim_tpu_torch.config.nbody import NBODY, resolve_config
+    from spatialsim_tpu_torch.config.boids import BOIDS
+    from spatialsim_tpu_torch.models.boids import Flock
+    from spatialsim_tpu_torch.ops import boids_ops as bo
+    from spatialsim_tpu_torch.ops.boids_window_kernel import (
+        boids_window_accumulate)
     import numpy as np
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -241,7 +340,10 @@ def main() -> int:
               f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  kernel "
               f"{n * n / ms / 1e6:.1f} Gpairs/s")
         require(err <= TOL_ALLPAIRS, f"allpairs error {err}")
-        record_kernel(kernels, "allpairs", abs_err, err, ms, plain_ms)
+        # 19 FP32 operations a pair (FMA as 2) and one rsqrt; pos and
+        # mass read once, acc written once.
+        record_kernel(kernels, "allpairs", abs_err, err, ms, plain_ms,
+                      19.0 * n * n, 4 * n * (4 + 3))
     done(t0)
 
     # ---- 3. kernel 2 vs plain on the 1M lists ---------------------------
@@ -298,8 +400,13 @@ def main() -> int:
               f"(tol {TOL_WINDOW})  kernel {ms:.4f} ms  plain "
               f"{plain_ms:.4f} ms  kernel {pairs / ms / 1e6:.1f} Gpairs/s")
         require(err <= TOL_WINDOW, f"window eval error {err}")
+        # 18 FP32 operations a pair; the sorted bodies, the whole pool and
+        # the per-group tables read once, accelerations written once.
+        nbytes = 4 * (s_pos.numel() + s_mass.numel() + lists.pool.numel()
+                      + lists.pstart.numel() + lists.far_n.numel()
+                      + got.numel())
         record_kernel(kernels, "window_eval_pool", abs_err, err, ms,
-                      plain_ms)
+                      plain_ms, 18.0 * pairs, nbytes)
     del st, lists, acc, s_pos, s_mass, got, want
     done(t0)
 
@@ -308,6 +415,7 @@ def main() -> int:
     torch.cuda.synchronize()
     allpairs_accel.launches = 0
     window_eval_pool.launches = 0
+    boids_window_accumulate.launches = 0
     # The all-pairs engine at its threshold (N <= 32,768)...
     sim_ap = NBodySimulation(num_bodies=32_768, device="cuda")
     for _ in range(AP_STEPS):
@@ -424,6 +532,195 @@ def main() -> int:
         check_frame(rec_root / "smoke_8k", 29, 8_000)
     done(t0)
 
+    # ---- 7. boids kernel vs plain ----------------------------------------
+    t0 = phase("7. boids window kernel vs plain, 500K Flock state")
+    bcfg = BOIDS
+    gsz, wg1 = bcfg.group_size, bcfg.window_groups
+    wg2 = bcfg.pass2_window_groups or wg1
+    kw1 = dict(gsz=gsz, wg=wg1, perception_sq=bcfg.perception_radius ** 2,
+               separation_sq=bcfg.separation_radius ** 2)
+    kw2 = dict(kw1, wg=wg2, prev_wg=wg1)
+    flock = Flock(num_boids=N_BOIDS, device="cuda")
+    npad = flock.state.p21.numel()
+    ng = npad // gsz
+    pairs = window_pairs(ng, gsz, wg1) + window_pairs(ng, gsz, wg2)
+    print(f"    npad {npad} ({ng} groups of {gsz}); pairs a step: "
+          f"{window_pairs(ng, gsz, wg1):.4e} (pass 1, wg {wg1}) + "
+          f"{window_pairs(ng, gsz, wg2):.4e} (pass 2, wg {wg2}) = "
+          f"{pairs:.4e}")
+    for label, steps in (("initial state", 0), ("after 48 steps", 48)):
+        for _ in range(steps):
+            flock.update(BOIDS_DT)
+        ms = plain_ms = nb_pairs = abs_err = rel_err = 0.0
+        for ps, args, kw in zip((1, 2), boids_pass_inputs(flock.state, bcfg),
+                                (kw1, kw2)):
+            got = boids_window_accumulate(*args, **kw)
+            want = bo.window_accumulate_reference(*args, **kw)
+            torch.cuda.synchronize()
+            got, want = got[:, :N_BOIDS], want[:, :N_BOIDS]
+            errs = []
+            for r, nm in zip(range(0, 12, 3), ("sep", "align", "coh",
+                                               "csum")):
+                d = float((got[r:r + 3] - want[r:r + 3]).abs().max())
+                ref = float(want[r:r + 3].abs().max())
+                errs.append(f"{nm} {d / ref:.3e}")
+                require(d <= TOL_BOIDS * ref,
+                        f"boids pass {ps} {nm}: {d} vs max {ref}")
+                rel_err = max(rel_err, d / ref)
+            abs_err = max(abs_err, float((got - want).abs().max()))
+            differ = float((got[12:] != want[12:]).any(0).float().mean())
+            require(differ <= TOL_BOIDS_COUNTS,
+                    f"boids pass {ps}: counts differ for {differ:.3e}")
+            nb_pairs += float(want[13].sum())
+            k_ms = cuda_ms(lambda: boids_window_accumulate(*args, **kw), 20)
+            p_ms = cuda_ms(lambda: bo.window_accumulate_reference(
+                *args, **kw), 10)
+            ms, plain_ms = ms + k_ms, plain_ms + p_ms
+            print(f"    {label}, pass {ps}: max|d|/max|ref| {', '.join(errs)}"
+                  f" (tol {TOL_BOIDS}); counts differ for {differ:.3e} of "
+                  f"boids (tol {TOL_BOIDS_COUNTS}); neighbour pairs "
+                  f"{int(want[13].sum())}; kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms")
+        # One step's work: both passes.  ~10 FP32 operations for a pair's
+        # distance test, ~30 more for a neighbour pair; each pass reads
+        # its 9-10 input rows once and writes its 14 rows once.
+        ops = 10.0 * pairs + 30.0 * nb_pairs
+        nbytes = 4 * npad * ((9 + 14) + (10 + 14))
+        print(f"    {label}, both passes: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound(ops, nbytes)[0]:.4f} ms "
+              f"({bound(ops, nbytes)[1]}); kernel "
+              f"{pairs / ms / 1e6:.1f} Gpairs/s; by the TPU kernel's cost "
+              f"model (40 flops a pair) the bound is "
+              f"{40.0 * pairs / PEAK_FP32 * 1e3:.4f} ms")
+        record_kernel(kernels, "boids_window", abs_err, rel_err, ms,
+                      plain_ms, ops, nbytes)
+    del flock, got, want
+    torch.cuda.empty_cache()
+    done(t0)
+
+    # ---- 8. boids main path ----------------------------------------------
+    t0 = phase("8. boids main path: Flock at 500K and 100K, default config")
+    torch.cuda.synchronize()
+    allpairs_accel.launches = 0
+    window_eval_pool.launches = 0
+    boids_window_accumulate.launches = 0
+    interval = bcfg.resort_interval
+    want_resorts = (BOIDS_STEPS - 1) // interval
+    for n in (N_BOIDS, 100_000):
+        torch.cuda.reset_peak_memory_stats()
+        before = boids_window_accumulate.launches
+        t = time.perf_counter()
+        flock = Flock(num_boids=n, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        step_s = []
+        for _ in range(BOIDS_STEPS):
+            t = time.perf_counter()
+            flock.update(BOIDS_DT)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+        launched = boids_window_accumulate.launches - before
+        # Re-sorts run before steps interval+1, 2*interval+1, ... (1-based).
+        resort = [s_ for k, s_ in enumerate(step_s)
+                  if k >= interval and k % interval == 0]
+        plain = [s_ for k, s_ in enumerate(step_s)
+                 if not (k >= interval and k % interval == 0)]
+        print(f"    boids_steps_per_sec_{n // 1000}k = "
+              f"{BOIDS_STEPS / sum(step_s):.3f} steps/s ({BOIDS_STEPS} steps "
+              f"in {sum(step_s):.4f} s, re-sorts included)")
+        print(f"    N={n}: init {init_s:.3f} s; median step "
+              f"{float(np.median(step_s)) * 1e3:.4f} ms; median plain step "
+              f"{float(np.median(plain)) * 1e3:.4f} ms; median re-sort step "
+              f"{float(np.median(resort)) * 1e3:.4f} ms ({len(resort)} "
+              f"re-sort steps); kernel launches {launched}; re-sorts "
+              f"{flock.resorts}; peak device memory GB "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        require(flock.neighbor_mode == "window", flock.neighbor_mode)
+        require(launched == 2 * BOIDS_STEPS, f"launches {launched}")
+        require(flock.resorts == want_resorts, f"re-sorts {flock.resorts}")
+        for name in ("pos", "vel", "col"):
+            t_ = getattr(flock.state, name)
+            require(t_.shape == (3, n) and bool(torch.isfinite(t_).all()),
+                    f"boids {name} finite, shape {tuple(t_.shape)}")
+        if n == N_BOIDS:
+            flock500 = flock
+    grid = Flock(num_boids=20_000, device="cuda")
+    before = boids_window_accumulate.launches
+    for _ in range(10):
+        grid.update(BOIDS_DT)
+    torch.cuda.synchronize()
+    require(grid.neighbor_mode == "grid", grid.neighbor_mode)
+    require(boids_window_accumulate.launches == before, "grid launched")
+    require(bool(torch.isfinite(grid.state.pos).all()), "grid state")
+    print(f"    N=20000 grid mode: 10 steps, finite, no kernel launch")
+    launches["boids_window"] = boids_window_accumulate.launches
+    print(f"    launches in the boids main path: boids_window "
+          f"{launches['boids_window']}, allpairs {allpairs_accel.launches},"
+          f" window_eval_pool {window_eval_pool.launches}")
+    require(launches["boids_window"] == 4 * BOIDS_STEPS, launches)
+    del grid, flock
+    done(t0)
+
+    # ---- 9. boids accuracy vs the exact grid ------------------------------
+    t0 = phase("9. boids window vs exact grid, 500K after 96 steps")
+    st = flock500.state
+    gkw = dict(cell_size=bcfg.cell_size, grid_dim=bcfg.grid_dim,
+               offset=bcfg.bounds + bcfg.cell_size)
+    fkw = dict(perception_radius=bcfg.perception_radius,
+               separation_radius=bcfg.separation_radius,
+               separation_weight=bcfg.separation_weight,
+               alignment_weight=bcfg.alignment_weight,
+               cohesion_weight=bcfg.cohesion_weight,
+               max_speed=bcfg.max_speed, max_force=bcfg.max_force)
+    occupancy = int(torch.bincount(bo.cell_index(st.pos, **gkw).long()).max())
+    fw, cw, nw = bo.flocking_forces_window_frozen(
+        st.pos, st.vel, st.col, st.p21, st.s21, group_size=gsz,
+        window_groups=wg1, pass2_window_groups=bcfg.pass2_window_groups,
+        second_pass=bcfg.second_pass, return_counts=True, **fkw)
+    fe, ce, ne = bo.flocking_forces(
+        st.pos, st.vel, st.col, cell_range=1, cell_capacity=occupancy,
+        return_counts=True, **gkw, **fkw)
+    agree = float(torch.isclose(fw, fe, rtol=1e-5, atol=1e-4).all(0)
+                  .float().mean())
+    captured, exact = int(nw.sum()), int(ne.sum())
+    # The same grid in float64 on the same float32 state: how far each
+    # float32 path sits from the exact sums (reported, no limit).
+    f64 = bo.flocking_forces(
+        st.pos.double(), st.vel.double(), st.col.double(), cell_range=1,
+        cell_capacity=occupancy, **gkw, **fkw)[0]
+    for name, f in (("window", fw), ("grid", fe)):
+        share = float(torch.isclose(f.double(), f64, rtol=1e-5, atol=1e-4)
+                      .all(0).float().mean())
+        print(f"    {name} (float32) vs the float64 grid: forces agreeing "
+              f"at atol 1e-4 for {share:.6f} of boids; max|d| "
+              f"{float((f.double() - f64).abs().max()):.3e}")
+    print(f"    steps since re-sort {st.steps_since}; largest cell occupancy "
+          f"{occupancy} (grid cell_capacity); forces agreeing at atol 1e-4: "
+          f"{agree:.6f} of boids (limit 0.99); neighbour pairs window "
+          f"{captured} / grid {exact} = {captured / exact:.6f} (limit 0.99)")
+    require(bool((nw <= ne).all()), "window counted a pair twice")
+    require(agree >= 0.99 and captured >= 0.99 * exact, (agree, captured))
+    done(t0)
+
+    # ---- 10. device profile ------------------------------------------------
+    t0 = phase("10. where the device time goes (torch.profiler)")
+    resorts = flock500.resorts
+    profile_steps("boids 500K, 12 steps", lambda: flock500.update(BOIDS_DT),
+                  12)
+    print(f"      (re-sorts in the window: {flock500.resorts - resorts})")
+    del flock500, st
+    sim = NBodySimulation(num_bodies=N_MAIN, device="cuda")
+    for _ in range(23):
+        sim.update(DT)
+    profile_steps("N-body 1M, steps 24-26 (one rebuild)",
+                  lambda: sim.update(DT), 3)
+    require(sim.rebuilds == 1, sim.rebuilds)
+    profile_steps("N-body 1M, steps 27-46 (between rebuilds)",
+                  lambda: sim.update(DT), 20)
+    require(sim.rebuilds == 1, sim.rebuilds)
+    del sim
+    done(t0)
+
     print(f"\ntotal seconds: {time.perf_counter() - wall0:.3f}")
     src = "spatialsim_tpu_torch/csrc"
     summary = {"kernels": [
@@ -435,6 +732,11 @@ def main() -> int:
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:313",
              launches=launches["window_eval_pool"],
              **kernels["window_eval_pool"]),
+        dict(name="boids_window", route="cuda",
+             source=f"{src}/boids_window.cu",
+             replaces="spatialsim_tpu/ops/boids_window_kernel.py:45",
+             launches=launches["boids_window"],
+             **kernels["boids_window"]),
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,8 @@ SIGNATURES = {
     "spatialsim_allpairs": (_P, _P, _P, _I, _F, _F, _P),
     "spatialsim_window_eval_pool": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _F, _F, _F, _F, _P),
+    "spatialsim_boids_window": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                                _P),
 }
 
 _lib = None

@@ -1,4 +1,4 @@
-"""Carry the JAX package's window-engine state into the port.
+"""Carry the JAX package's window-engine and boids states into the port.
 
 Arrays come in as numpy (or anything ``np.asarray`` takes, such as a JAX
 array, without importing jax here) and go out as tensors of the port's
@@ -8,6 +8,7 @@ into the port's eval, which holds eval parity apart from build parity.
     lists = lists_from_numpy(jl.order, jl.inv_order, jl.far_n, jl.ref_pos,
                              jl.pool, jl.pstart, int(jl.steps_since),
                              int(jl.steps_build))
+    state = boids_window_state_from_numpy(*jax_boids_window_state)
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spatialsim_tpu_torch.models.boids import BoidsWindowState
 from spatialsim_tpu_torch.ops.bh_window import BHLists, WindowBHState
 
 
@@ -48,3 +50,13 @@ def window_state_from_numpy(pos, vel, mass, lists: BHLists, acc=None, *,
         mass=_t(mass, torch.float32, device),
         lists=lists,
         acc=None if acc is None else _t(acc, torch.float32, device))
+
+
+def boids_window_state_from_numpy(pos, vel, col, order1, inv1, p21, s21,
+                                  steps_since: int = 0, *,
+                                  device="cpu") -> BoidsWindowState:
+    """A boids :class:`BoidsWindowState` from the JAX package's fields
+    (pass-1-sorted ``(3, n)`` state, int orders, ``steps_since``)."""
+    f32 = (_t(a, torch.float32, device) for a in (pos, vel, col))
+    i64 = (_t(a, torch.int64, device) for a in (order1, inv1, p21, s21))
+    return BoidsWindowState(*f32, *i64, int(steps_since))

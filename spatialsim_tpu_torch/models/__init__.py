@@ -1,1 +1,1 @@
-"""Simulation models of the port (N-body only in this slice)."""
+"""Simulation models of the port: N-body and boids."""

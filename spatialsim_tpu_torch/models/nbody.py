@@ -7,8 +7,8 @@ engine (``ops/bh_window.py``) above it.  State lives on ``device`` as
 component-major ``(3, N)`` float32 tensors; the window engine keeps it
 Morton-sorted and maps back through ``lists.inv_order`` for every
 host-facing read.  Initial conditions come from the numpy generators in
-``spatialsim_tpu.distributions`` with their ``seed``; the step itself has
-no randomness.
+the port's ``distributions`` (a copy of the JAX package's, bit-identical
+for a ``seed``); the step itself has no randomness.
 """
 
 from __future__ import annotations
@@ -18,8 +18,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from spatialsim_tpu import distributions
-from spatialsim_tpu.config.nbody import NBODY, NBodyConfig, resolve_config
+from spatialsim_tpu_torch import distributions
+from spatialsim_tpu_torch.config.nbody import (NBODY, NBodyConfig,
+                                               resolve_config)
 from spatialsim_tpu_torch.ops.allpairs import allpairs_accel
 from spatialsim_tpu_torch.ops.colors import colors_by_velocity
 from spatialsim_tpu_torch.ops.integrator import integrate

@@ -802,7 +802,7 @@ def make_window_step(config, n: int, substeps: int = 1):
     device read); then evaluates, integrates and bumps the counters.  The
     returned callable counts its rebuilds in ``step.rebuilds``.
     """
-    from spatialsim_tpu.config.nbody import resolve_config
+    from spatialsim_tpu_torch.config.nbody import resolve_config
     config = resolve_config(config, n)
     if getattr(config, "refresh_interval", 0):
         raise NotImplementedError(f"refresh_interval is {_ROADMAP}")
@@ -873,7 +873,7 @@ def init_window_state(pos, vel, mass, config) -> WindowBHState:
     (the first interval advances ballistically); later rebuilds use the
     previous step's accelerations carried in the state.
     """
-    from spatialsim_tpu.config.nbody import resolve_config
+    from spatialsim_tpu_torch.config.nbody import resolve_config
     config = resolve_config(config, pos.shape[1])
     n = pos.shape[1]
     advance2 = getattr(config, "advance_order", 2) >= 2
@@ -963,7 +963,7 @@ def calibrate_config(config, pos, vel, mass, rounds=3, headroom=1.5):
     the JAX package at 1M bodies, ``ROADMAP.md`` Queue 3); otherwise the
     worklist caps and the pool stay at their defaults, as in JAX.
     """
-    from spatialsim_tpu.config.nbody import resolve_config
+    from spatialsim_tpu_torch.config.nbody import resolve_config
     config = resolve_config(config, pos.shape[1])
     if not getattr(config, "tree_caps", ()):
         config = config.replace(tree_caps=_measure_tree_caps(config, pos))

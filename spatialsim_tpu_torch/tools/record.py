@@ -2,12 +2,12 @@
 ``spatialsim_tpu/tools/record.py``).
 
 Same session layout, codec, checkpoint cadence (every 50 frames),
-resume/extend contract and CLI flags as the JAX recorder, whose
-framework-neutral helpers (presets, ``config_from_preset``, progress
-bars, ``--status``) it reuses; frames are byte-compatible with the JAX
-recordings, so the JAX package's playback and export read them as they
-are.  ``--device`` (default ``cuda``) picks the torch device; there is no
-silent CPU fallback.
+resume/extend contract and CLI flags as the JAX recorder, with the port's
+own copies of its framework-neutral helpers (presets,
+``config_from_preset``, progress bars, ``--status``); frames are
+byte-compatible with the JAX recordings, so the JAX package's playback and
+export read them as they are.  ``--device`` (default ``cuda``) picks the
+torch device; there is no silent CPU fallback.
 
     python -m spatialsim_tpu_torch.tools.record --preset bar_galaxy \\
         --bodies 1m --frames 10 --name demo
@@ -20,15 +20,78 @@ import sys
 import time
 from typing import Optional
 
-from spatialsim_tpu import presets as presets_lib
-from spatialsim_tpu.io import (
+from spatialsim_tpu_torch import presets as presets_lib
+from spatialsim_tpu_torch.config.nbody import NBodyConfig
+from spatialsim_tpu_torch.io import (
     BackgroundCompressor, find_latest_state, get_completed_frames,
-    get_recording_dir, load_metadata, load_state, save_frame, save_metadata,
-    save_state)
-from spatialsim_tpu.io.session import STATE_INTERVAL
-from spatialsim_tpu.tools.record import (
-    RECORD_MAX_SPEED_COLOR, config_from_preset, extend_session, format_time,
-    print_progress, print_status, select_preset_interactive)
+    get_recording_dir, list_recordings, load_metadata, load_state,
+    save_frame, save_metadata, save_state)
+from spatialsim_tpu_torch.io.session import STATE_INTERVAL
+
+RECORD_MAX_SPEED_COLOR = 15.0
+
+
+def config_from_preset(preset: dict) -> NBodyConfig:
+    """Map a preset dict onto the physics config."""
+    return NBodyConfig(
+        num_bodies=int(preset["num_bodies"]),
+        theta=float(preset["theta"]),
+        G=float(preset["G"]),
+        softening=float(preset["softening"]),
+        damping=float(preset["damping"]),
+        spawn_radius=float(preset["spawn_radius"]),
+        distribution=preset.get("distribution", "galaxy"),
+    )
+
+
+def format_time(seconds: float) -> str:
+    seconds = int(seconds)
+    if seconds < 60:
+        return f"{seconds}s"
+    if seconds < 3600:
+        return f"{seconds // 60}m{seconds % 60:02d}s"
+    return f"{seconds // 3600}h{(seconds % 3600) // 60:02d}m"
+
+
+def _bar(frac: float, width: int = 40) -> str:
+    filled = int(frac * width)
+    return "█" * filled + "░" * (width - filled)
+
+
+def print_progress(frame: int, total: int, frame_time: float, elapsed: float,
+                   eta: float, comp_stats: dict, first: bool) -> None:
+    """Nested render + compression bars (ANSI cursor reuse).
+
+    Mirrors the reference recorder's two-bar display with a compression
+    ETA derived from its rolling timing ring
+    (the reference's ``tools/record.py:598-677``): the second bar tracks
+    the background compressor through the frames rendered so far, ETA =
+    backlog x average per-frame pack time.
+    """
+    frac = (frame + 1) / total
+    render = (f"Render:   {frac * 100:5.1f}% | frame {frame + 1:5d}/{total}"
+              f" | {frame_time * 1000:6.1f} ms/frame"
+              f" | elapsed {format_time(elapsed):>6s} | ETA "
+              f"{format_time(eta):>6s}")
+    done = comp_stats["compressed"]
+    if done:
+        backlog = max(0, (frame + 1) - done)
+        comp_eta = backlog * comp_stats["avg_time"]
+        comp = (f"Compress: {done / total * 100:5.1f}% | frame {done:5d}"
+                f"/{total} | {comp_stats['avg_time'] * 1000:6.1f} ms/frame"
+                f" | backlog {backlog:5d} | ETA {format_time(comp_eta):>6s}")
+        if comp_stats.get("failures"):
+            comp += f" | {comp_stats['failures']} kept raw"
+    else:
+        comp = "Compress: waiting for first batch..."
+    if not first:
+        sys.stdout.write("\033[4A")
+    sys.stdout.write(f"\033[K[{_bar(frac)}]\n\033[K{render}\n"
+                     f"\033[K[{_bar(done / total)}]\n\033[K{comp}\n")
+    sys.stdout.flush()
+
+
+
 
 
 def _device_name(device) -> str:
@@ -138,6 +201,119 @@ def record(config: dict, resume: bool = False, device="cuda") -> None:
         compressor.stop()
         print(f"[Record] To resume: python -m spatialsim_tpu_torch.tools."
               f"record --resume {config['session_name']}")
+
+
+def select_preset_interactive(input_fn=input) -> Optional[dict]:
+    """Preset menu with per-field overrides and a confirm step.
+
+    Mirrors the reference's interactive flow
+    (the reference's ``tools/record.py:1020-1113``): select by index,
+    show the config, prompt for bodies/frames/theta overrides (Enter
+    keeps the preset value; theta clamped to 0.1-2.0), confirm before
+    returning (no wall-clock estimate: the JAX recorder's anchors are
+    not this port's).  ``input_fn`` is injectable for
+    tests.  Returns None on quit/EOF.
+    """
+    presets_lib.print_preset_menu()
+    max_idx = len(presets_lib.get_preset_list()) - 1
+    while True:
+        try:
+            choice = input_fn("\n  Selection: ").strip().lower()
+        except (EOFError, KeyboardInterrupt):
+            print("\n  Cancelled.")
+            return None
+        if choice in ("q", "quit", "exit", ""):
+            print("\n  Cancelled.")
+            return None
+        try:
+            idx = int(choice)
+        except ValueError:
+            print(f"  Invalid input. Enter a number 0-{max_idx} or 'q'.")
+            continue
+        key, preset = presets_lib.get_preset_by_index(idx)
+        if key is None:
+            print(f"  Invalid selection. Enter 0-{max_idx} or 'q' to quit.")
+            continue
+        config = presets_lib.get_preset_config(key)
+        print(f"\n  Selected: [{idx}] {preset.get('name', key)}")
+        print(f"  Distribution: {config['distribution']}")
+        print(f"  Bodies: {config['num_bodies']:,}")
+        print(f"  Frames: {config['total_frames']}")
+        print(f"  Theta: {config['theta']}")
+        print("\n  --- Optional Overrides (press Enter to skip) ---")
+        try:
+            raw = input_fn(f"  Bodies [{config['num_bodies']:,}]: ").strip()
+            if raw:
+                try:
+                    val = presets_lib.parse_number(raw)
+                    if val > 0:
+                        config["num_bodies"] = val
+                        print(f"    -> Bodies set to {val:,}")
+                except ValueError:
+                    print(f"    -> Invalid, keeping {config['num_bodies']:,}")
+            raw = input_fn(f"  Frames [{config['total_frames']}]: ").strip()
+            if raw:
+                try:
+                    val = int(raw)
+                    if val > 0:
+                        config["total_frames"] = val
+                        print(f"    -> Frames set to {val}")
+                except ValueError:
+                    print(f"    -> Invalid, keeping {config['total_frames']}")
+            raw = input_fn(f"  Theta [{config['theta']}]: ").strip()
+            if raw:
+                try:
+                    val = float(raw)
+                    if 0.1 <= val <= 2.0:
+                        config["theta"] = val
+                        print(f"    -> Theta set to {val}")
+                    else:
+                        print(f"    -> Theta must be 0.1-2.0, keeping "
+                              f"{config['theta']}")
+                except ValueError:
+                    print(f"    -> Invalid, keeping {config['theta']}")
+        except (EOFError, KeyboardInterrupt):
+            print("\n  Cancelled.")
+            return None
+        print("\n  --- Final Configuration ---")
+        print(f"  Bodies: {config['num_bodies']:,}")
+        print(f"  Frames: {config['total_frames']}")
+        print(f"  Theta: {config['theta']}")
+        try:
+            confirm = input_fn("\n  Start recording? [Y/n]: ").strip().lower()
+        except (EOFError, KeyboardInterrupt):
+            print("\n  Cancelled.")
+            return None
+        if confirm in ("", "y", "yes"):
+            return config
+        presets_lib.print_preset_menu()
+
+
+def print_status() -> None:
+    rows = list_recordings()
+    if not rows:
+        print("No recordings found")
+        return
+    print(f"{'session':<28} {'frames':>12} {'bodies':>10} {'distribution':<14}")
+    print("-" * 70)
+    for name, meta, done, total in rows:
+        print(f"{name:<28} {done:>5}/{total:<6} "
+              f"{meta.get('num_bodies', 0):>10,} "
+              f"{meta.get('distribution', '?'):<14}")
+
+
+def extend_session(session: str, extra_frames: int) -> Optional[dict]:
+    """Raise total_frames in metadata and return the updated config."""
+    rec_dir = get_recording_dir(session, create=False)
+    if not (rec_dir / "metadata.json").exists():
+        print(f"[Record] Unknown session {session}")
+        return None
+    meta = load_metadata(rec_dir)
+    meta["total_frames"] = int(meta["total_frames"]) + extra_frames
+    save_metadata(rec_dir, meta, meta.get("start_time"))
+    print(f"[Record] Extended {session} to {meta['total_frames']} frames")
+    return meta
+
 
 
 def main(argv=None) -> int:

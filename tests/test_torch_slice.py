@@ -6,10 +6,11 @@
 * ``NBodySimulation`` getters in original body order, and the all-pairs
   engine against the JAX model;
 * the recorder CLI, decoded with ``spatialsim_tpu.io.codec``;
-* the port's main path imports no jax; ``device="cuda"`` without a card
-  raises instead of falling back.
+* the port imports neither jax nor the JAX package; ``device="cuda"``
+  without a card raises instead of falling back.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -175,21 +176,34 @@ def test_recorder_cli_frames_decode(tmp_path, monkeypatch):
     assert rc == 0 and session.get_completed_frames(rec_dir) == 5
 
 
-def test_main_path_imports_no_jax():
+def test_main_path_imports_no_jax(tmp_path):
+    """Every port module, both models and the recorder CLI run, and neither
+    jax nor any module of the JAX package is loaded."""
     code = (
-        "import sys\n"
-        "from spatialsim_tpu_torch.models.nbody import NBodySimulation\n"
-        "import spatialsim_tpu_torch.tools.record\n"
-        "import spatialsim_tpu_torch.convert\n"
-        "import spatialsim_tpu_torch.ops.bh_eval_kernel\n"
+        "import importlib, pkgutil, sys\n"
+        "import spatialsim_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from spatialsim_tpu_torch import Flock, NBodySimulation\n"
+        "from spatialsim_tpu_torch.config.boids import BoidsConfig\n"
+        "from spatialsim_tpu_torch.tools import record\n"
         "sim = NBodySimulation(num_bodies=400, device='cpu')\n"
         "sim.update(0.02)\n"
         "assert sim.get_positions().shape == (400, 3)\n"
+        "flock = Flock(config=BoidsConfig(num_boids=2048,\n"
+        "              neighbor_mode='window', group_size=128),\n"
+        "              device='cpu')\n"
+        "flock.update(1 / 30)\n"
+        "assert flock.get_positions().shape == (2048, 3)\n"
+        "assert record.main(['--preset', 'tiny_galaxy', '--bodies', '1k',\n"
+        "                    '--frames', '2', '--name', 'imports',\n"
+        "                    '--device', 'cpu']) == 0\n"
         "bad = [m for m in sys.modules\n"
-        "       if m == 'jax' or m.startswith('jax.')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'spatialsim_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+    env = dict(os.environ, SPATIALSIM_RECORDINGS=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
