@@ -44,7 +44,27 @@ failure exits non-zero.  Phases, each printed with its seconds:
     over 12 more steps (2 re-sorts), and the 1M N-body window engine over
     the 3 steps around a rebuild and 20 steps between rebuilds: wall and
     device-busy milliseconds, the idle share, the kernels by device time
-    (the profiler adds host time, so the idle share is an upper bound).
+    (the profiler adds host time, so the idle share is an upper bound);
+11. kernel 4 (dense window eval) against its plain version (limit 1e-4
+    of max|a|): the 1M quadrupole lists (R = 16) at steps_since 0 and 23,
+    the 1M galaxy's dense lists from ranges emission (R = 10), the same
+    with a seeded near table (K = 4), and the 50M ``extreme_50m_galaxy``
+    lists (R = 8) on 512 seeded groups; CUDA-event times, pairs a second
+    and the bound.  The 50M ``NBodySimulation`` is built here and stepped
+    in phase 13;
+12. the dense path at 1M: dense and pooled lists of one calibrated
+    config (equal ``far_n`` in every group, evals within 1e-4 of
+    max|a|); the quadrupole main path (``NBodySimulation(num_bodies=
+    1_000_000, config=NBODY.replace(use_quadrupole=True))``, 48 steps at
+    dt 0.02, launches counted from zero); and phase 5's protocol with
+    fresh quadrupole and monopole lists of one state (median error ratio
+    <= 0.55, quadrupole rms <= 5%);
+13. the 50M preset through ``NBodySimulation``: set-up seconds, 26 steps
+    at the preset's dt (one rebuild, launches counted from zero), peak
+    memory, per-group mass conservation after both builds (1e-4), force
+    error on 4,096 bodies against a direct sum (the run's lists and fresh
+    ones), a ``torch.profiler`` breakdown of the next rebuild step and 4
+    plain steps, and the recorder CLI for 2 frames (last frame decoded).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -73,6 +93,8 @@ BOIDS_DT = 1.0 / 30.0
 BOIDS_STEPS = 96
 TOL_BOIDS = 2e-4       # the JAX package's bar for its kernel vs XLA form
 TOL_BOIDS_COUNTS = 1e-4   # share of boids whose counts may differ
+PRESET_50M = "extreme_50m_galaxy"
+STEPS_50M = 26         # at rebuild interval 24: one rebuild, at step 25
 # H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the tensor
 # cores, HBM3 bandwidth.  A bound is the larger of ops/peak, bytes/peak.
 PEAK_FP32 = 67e12
@@ -228,6 +250,141 @@ def direct_accel(targets, pos, mass, G, softening, chunk=64):
     return torch.cat(out, 1)
 
 
+def rebuilt_lists(bw, st, config, acc):
+    """Lists rebuilt from a sorted window state with accelerations ``acc``
+    (so the order-2 acc rows are live), ``order`` relative to the original
+    body ids."""
+    return bw._resort_state(st.pos, st.vel, st.mass, st.lists.order,
+                            st.lists.inv_order, bw._build_kw(config),
+                            acc=acc)[3]
+
+
+def padded_sorted(st):
+    """A window state's sorted (3, n)/(n,) -> the (3, npad)/(npad,) kernel
+    input, padded as ``eval_accel_sorted`` pads it."""
+    import torch
+    n = st.pos.shape[1]
+    pad = st.lists.order.shape[0] - n
+    return (torch.cat([st.pos, st.pos[:, -1:].expand(3, pad)], 1)
+            .contiguous(), torch.cat([st.mass, st.mass.new_zeros(pad)]))
+
+
+def dense_work(lists, gsz, wg, near):
+    """(window pairs, far pairs, bytes) of one dense eval over all groups:
+    every in-range window group and valid near group is gsz x gsz pairs,
+    every live far entry gsz pairs.  Bytes: the bodies, the live far
+    entries, far_n and the near table read once, accelerations written
+    once."""
+    import torch
+    far_n = lists.far_n.long()
+    ng = far_n.shape[0]
+    g = torch.arange(ng, device=far_n.device)
+    n_src = torch.clamp(g + wg, max=ng - 1) - torch.clamp(g - wg, min=0) + 1
+    if near is not None:
+        n_src = n_src + ((near >= 0) & (near < ng)).sum(1)
+    live = int(far_n.sum())
+    nbytes = 4 * (ng * gsz * (4 + 3) + lists.far.shape[1] * live + ng
+                  + (0 if near is None else near.numel()))
+    return int(n_src.sum()) * gsz * gsz, live * gsz, nbytes
+
+
+def check_dense(kernels, label, lists, s_pos, s_mass, near, steps_since,
+                kw, groups=None):
+    """The dense kernel against its plain version on one set of lists
+    (only ``groups``' bodies, when given): error, CUDA-event times, pairs a
+    second and the bound; the first call's timing is the one the summary
+    keeps."""
+    import torch
+    from spatialsim_tpu_torch.ops.bh_eval_kernel import (
+        far_layout, window_eval, window_eval_reference)
+    gsz = kw["group_size"]
+    args = (s_pos, s_mass, lists.far, lists.far_n, near, steps_since, DT)
+    got = window_eval(*args, **kw)
+    want = window_eval_reference(*args, groups=groups, **kw)
+    torch.cuda.synchronize()
+    if groups is not None:
+        got = got[:, (groups[:, None] * gsz
+                      + torch.arange(gsz, device=groups.device)).reshape(-1)]
+    abs_err, err = kernel_errors(got, want)
+    ms = cuda_ms(lambda: window_eval(*args, **kw), 5)
+    plain_ms = cuda_ms(lambda: window_eval_reference(*args, groups=groups,
+                                                     **kw), 1)
+    win, far, nbytes = dense_work(lists, gsz, kw["window_groups"], near)
+    # FP32 operations a pair, counted from the kernel's body (FMA as 2,
+    # rsqrt and the gate not counted): 18 for the monopole law, 49 for the
+    # quadrupole law.
+    ops = 18.0 * win + (49.0 if far_layout(lists.far.shape[1])[0]
+                        else 18.0) * far
+    b_ms, b_by = bound(ops, nbytes)
+    plain_of = "all groups" if groups is None else f"{len(groups)} groups"
+    print(f"    {label}: max|da| = {abs_err:.3e}, max|da|/max|a| = "
+          f"{err:.3e} (tol {TOL_WINDOW})  kernel {ms:.4f} ms for "
+          f"{win + far:.4e} pairs ({win:.4e} window, {far:.4e} far) = "
+          f"{(win + far) / ms / 1e6:.1f} Gpairs/s; bound {b_ms:.4f} ms "
+          f"({b_by}); plain {plain_ms:.4f} ms ({plain_of})")
+    require(err <= TOL_WINDOW, f"{label}: dense window eval error {err}")
+    record_kernel(kernels, "window_eval", abs_err, err, ms, plain_ms, ops,
+                  nbytes)
+
+
+def timed_steps(step, steps, dt):
+    """Host seconds of each of ``steps`` calls of ``step(dt)``, each ended
+    by a device synchronise."""
+    import torch
+    out = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        step(dt)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t)
+    return out
+
+
+def report_steps(label, step_s):
+    """Print steps/s over the run, the median step and the rebuild step
+    (the slowest)."""
+    total = sum(step_s)
+    plain = sorted(step_s)[len(step_s) // 2]
+    rebuild = max(step_s)
+    print(f"    {label}: {len(step_s)} steps in {total:.3f} s = "
+          f"{len(step_s) / total:.3f} steps/s (rebuild included); median "
+          f"step {plain * 1e3:.3f} ms; rebuild step {rebuild * 1e3:.3f} ms "
+          f"(step {step_s.index(rebuild) + 1})")
+
+
+def require_mass_conserved(st, config, label):
+    """Every group's window mass plus its far entries' mass (row 6, up to
+    far_n) equals the total mass within 1e-4 relative: each body lies in
+    exactly one of window, entry, sliver or residual."""
+    import torch
+    lists = st.lists
+    gsz, wg = config.group_size, config.window_groups
+    ng, L = lists.far_n.shape[0], lists.far.shape[2]
+    n = st.mass.shape[0]
+    gm = torch.zeros(ng * gsz, dtype=torch.float64, device=st.mass.device)
+    gm[:n] = st.mass.double()
+    gm = gm.reshape(ng, gsz).sum(1)
+    c = torch.cat([gm.new_zeros(1), gm.cumsum(0)])
+    g = torch.arange(ng, device=gm.device)
+    window = (c[torch.clamp(g + wg, max=ng - 1) + 1]
+              - c[torch.clamp(g - wg, min=0)])
+    live = (torch.arange(L, device=gm.device)[None, :]
+            < lists.far_n.long()[:, None])
+    far_m = torch.where(live, lists.far[:, 6], 0.0)
+    far = far_m.sum(1, dtype=torch.float64)
+    total = float(gm.sum())
+    rel = float(((window + far) - total).abs().max()) / total
+    # Residual entries are the live slots without a body range.
+    res = torch.where(lists.far_range[:, 1] <= lists.far_range[:, 0],
+                      far_m, 0.0).amax(1)
+    print(f"    mass conservation ({label}): max over {ng} groups of "
+          f"|window + far - total| / total = {rel:.3e} (limit 1e-4); the "
+          f"heaviest residual holds {float(res.max()) / total:.4f} of the "
+          f"total mass, {int((res > 2 ** 24).sum())} residuals exceed "
+          f"2^24")
+    require(rel <= 1e-4, f"{label}: per-group mass off by {rel}")
+
+
 def force_errors(approx, exact):
     """(rms, median) of the per-body relative error |da_i| / |a_i| -- the
     statistic of the JAX package's accuracy table -- and the ratio
@@ -288,10 +445,12 @@ def main() -> int:
     from spatialsim_tpu_torch.ops.allpairs import (
         allpairs_accel, allpairs_accel_reference)
     from spatialsim_tpu_torch.ops.bh_eval_kernel import (
-        window_eval_pool, window_eval_pool_reference)
+        window_eval, window_eval_pool, window_eval_pool_reference)
     from spatialsim_tpu_torch.ops import bh_window as bw
     from spatialsim_tpu_torch.models.nbody import NBodySimulation
     from spatialsim_tpu_torch.config.nbody import NBODY, resolve_config
+    from spatialsim_tpu_torch.presets import get_preset_config
+    from spatialsim_tpu_torch.tools.record import config_from_preset
     from spatialsim_tpu_torch.config.boids import BOIDS
     from spatialsim_tpu_torch.models.boids import Flock
     from spatialsim_tpu_torch.ops import boids_ops as bo
@@ -415,6 +574,7 @@ def main() -> int:
     torch.cuda.synchronize()
     allpairs_accel.launches = 0
     window_eval_pool.launches = 0
+    window_eval.launches = 0
     boids_window_accumulate.launches = 0
     # The all-pairs engine at its threshold (N <= 32,768)...
     sim_ap = NBodySimulation(num_bodies=32_768, device="cuda")
@@ -440,6 +600,9 @@ def main() -> int:
             st47 = sim.state
     launches = {"allpairs": allpairs_accel.launches,
                 "window_eval_pool": window_eval_pool.launches}
+    require(window_eval.launches == 0,
+            f"the pooled default launched the dense kernel "
+            f"{window_eval.launches} times")
     total = sum(step_s)
     order = sorted(step_s)
     plain_step = order[len(order) // 2]
@@ -719,6 +882,264 @@ def main() -> int:
                   lambda: sim.update(DT), 20)
     require(sim.rebuilds == 1, sim.rebuilds)
     del sim
+    torch.cuda.empty_cache()
+    done(t0)
+
+    # ---- 11. dense kernel vs plain ------------------------------------------
+    t0 = phase("11. dense window-eval kernel vs plain: 1M quadrupole, 1M "
+               "dense, near table, 50M sampled groups")
+    ekw = dict(G=cal.G, softening=cal.softening, group_size=cal.group_size,
+               window_groups=cal.window_groups,
+               tau_clamp=float(cal.advance_tau_clamp))
+    pos, vel, mass = galaxy(N_MAIN, 0, dev)
+
+    # (1) The quadrupole main path's lists (R = 16), rebuilt with real
+    # accelerations so the acc rows are live, as phase 3 does.
+    qcal = bw.calibrate_config(
+        resolve_config(NBODY.replace(num_bodies=N_MAIN, use_quadrupole=True),
+                       N_MAIN), pos, vel, mass)
+    st = bw.init_window_state(pos, vel, mass, qcal)
+    acc = bw.eval_accel_sorted(st.lists, st.pos, st.mass, DT, **ekw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    qlists = rebuilt_lists(bw, st, qcal, acc)
+    torch.cuda.synchronize()
+    print(f"    1M quadrupole: list build seconds "
+          f"{time.perf_counter() - t:.3f}  far {tuple(qlists.far.shape)}  "
+          f"far_n mean {float(qlists.far_n.float().mean()):.1f} max "
+          f"{int(qlists.far_n.max())}")
+    s_pos, s_mass = sorted_padded(qlists, pos, mass)
+    for ss in (0, 23):
+        check_dense(kernels, f"1M quadrupole R=16, steps_since={ss}",
+                    qlists, s_pos, s_mass, None, ss, ekw)
+    del st, acc, qlists
+
+    # (2) The 1M galaxy's calibrated config with the pool off and ranges
+    # emission (R = 10): the 50M path's build and eval code at 1M.  The
+    # pooled lists from the same state and accelerations are kept for
+    # phase 12 (a).
+    dcal = cal.replace(pool_tile=0, traversal_emit="ranges")
+    st = bw.init_window_state(pos, vel, mass, cal)
+    acc = bw.eval_accel_sorted(st.lists, st.pos, st.mass, DT, **ekw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dlists = rebuilt_lists(bw, st, dcal, acc)
+    torch.cuda.synchronize()
+    print(f"    1M dense (ranges): list build seconds "
+          f"{time.perf_counter() - t:.3f}  far {tuple(dlists.far.shape)}")
+    plists = rebuilt_lists(bw, st, cal, acc)
+    del st, acc
+    s_pos, s_mass = sorted_padded(dlists, pos, mass)
+    check_dense(kernels, "1M dense R=10, steps_since=23", dlists, s_pos,
+                s_mass, None, 23, ekw)
+
+    # (3) The same lists with a seeded near table: K = 4 ids outside each
+    # window, ~10% of slots empty (-1).
+    ng = dlists.far_n.shape[0]
+    wg = cal.window_groups
+    rng = np.random.default_rng(11)
+    near = (np.arange(ng)[:, None]
+            + rng.integers(wg + 1, ng - wg, (ng, 4))) % ng
+    near[rng.random((ng, 4)) < 0.1] = -1
+    near = torch.as_tensor(near, dtype=torch.int32, device=dev)
+    check_dense(kernels, "1M dense R=10 + near K=4, steps_since=23",
+                dlists, s_pos, s_mass, near, 23, ekw)
+    del near
+
+    # (4) The 50M EXTREME preset: its simulation is built here (phase 13
+    # steps it) and the kernel is held to the plain version on 512 seeded
+    # groups, the first and the last among them.
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # the 1M lists of (2)
+    cfg50 = config_from_preset(get_preset_config(PRESET_50M))
+    t = time.perf_counter()
+    sim50 = NBodySimulation(config=cfg50, device="cuda")
+    torch.cuda.synchronize()
+    print(f"    {PRESET_50M}: NBodySimulation seconds "
+          f"{time.perf_counter() - t:.3f}; "
+          + ", ".join(f"{k} {v:.3f} s"
+                      for k, v in sim50.setup_seconds.items()))
+    print(f"    resolved: depth {sim50.config.max_depth}, group "
+          f"{sim50.config.group_size}, list cap {sim50.config.list_capacity},"
+          f" advance order {sim50.config.advance_order}, pool_tile "
+          f"{sim50.config.pool_tile}, emit {sim50.config.traversal_emit!r}, "
+          f"tree_caps {sim50.config.tree_caps}, wl_caps "
+          f"{sim50.config.wl_caps}")
+    l50 = sim50.state.lists
+    require(sim50.engine == "window" and l50.pool is None
+            and tuple(l50.far.shape) == (48_829, 8, 2048),
+            f"50M dense lists {tuple(l50.far.shape)}")
+    print(f"    far {tuple(l50.far.shape)}  far_n mean "
+          f"{float(l50.far_n.float().mean()):.1f} max {int(l50.far_n.max())}"
+          f"  groups at the list cap "
+          f"{int((l50.far_n >= l50.far.shape[2]).sum())}"
+          f"  peak device memory GB of the set-up "
+          f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.3f}")
+    ng50 = l50.far_n.shape[0]
+    groups = torch.as_tensor(np.sort(np.concatenate([
+        [0, ng50 - 1], np.random.default_rng(5).choice(
+            np.arange(1, ng50 - 1), 510, replace=False)])), device=dev)
+    s_pos, s_mass = padded_sorted(sim50.state)
+    kw50 = bw._eval_kw(sim50.config)
+    for ss in (0, 23):
+        check_dense(kernels, f"50M R=8 on 512 groups, steps_since={ss}",
+                    l50, s_pos, s_mass, None, ss, kw50, groups=groups)
+    del s_pos, s_mass, l50
+    done(t0)
+
+    # ---- 12. the dense path at 1M ------------------------------------------
+    t0 = phase("12. the dense path at 1M: dense vs pooled lists, the "
+               "quadrupole main path, quadrupole accuracy")
+    # (a) Dense vs pooled lists of one calibrated config.
+    require(torch.equal(plists.order, dlists.order), "orders differ")
+    same = int((plists.far_n == dlists.far_n).sum())
+    print(f"    far_n equal in {same} of {ng} groups")
+    require(same == ng, f"far_n differs in {ng - same} groups")
+    s_pos, s_mass = sorted_padded(dlists, pos, mass)
+    for ss in (0, 23):
+        a_pool = window_eval_pool(s_pos, s_mass, plists.pool, plists.pstart,
+                                  plists.far_n, ss, DT, **ekw)
+        a_dense = window_eval(s_pos, s_mass, dlists.far, dlists.far_n, None,
+                              ss, DT, **ekw)
+        torch.cuda.synchronize()
+        abs_err, err = kernel_errors(a_dense, a_pool)
+        print(f"    steps_since={ss}: dense vs pooled max|da| = "
+              f"{abs_err:.3e}, max|da|/max|a| = {err:.3e} "
+              f"(tol {TOL_WINDOW})")
+        require(err <= TOL_WINDOW, f"dense vs pooled {err}")
+    del plists, dlists, s_pos, s_mass, a_pool, a_dense
+
+    # (b) The quadrupole main path, every kernel launch counted from zero.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # the 50M simulation, mostly
+    for fn in (allpairs_accel, window_eval_pool, window_eval,
+               boids_window_accumulate):
+        fn.launches = 0
+    qsim = NBodySimulation(num_bodies=N_MAIN,
+                           config=NBODY.replace(use_quadrupole=True),
+                           device="cuda")
+    torch.cuda.synchronize()
+    print("    init: " + ", ".join(f"{k} {v:.3f} s"
+                                   for k, v in qsim.setup_seconds.items()))
+    step_s = timed_steps(qsim.update, STEPS, DT)
+    quad_launches = window_eval.launches
+    print(f"    launches in the quadrupole main path: window_eval "
+          f"{quad_launches}, window_eval_pool {window_eval_pool.launches}")
+    report_steps("1M quadrupole", step_s)
+    require(qsim.engine == "window" and qsim.state.lists.pool is None
+            and qsim.state.lists.far.shape[1] == 16, "quadrupole layout")
+    require(quad_launches == STEPS and window_eval_pool.launches == 0,
+            (quad_launches, window_eval_pool.launches))
+    require(qsim.rebuilds == 1, f"rebuilds {qsim.rebuilds}")
+    for name, t_ in (("pos", qsim.state.pos), ("vel", qsim.state.vel)):
+        require(t_.shape == (3, N_MAIN) and bool(torch.isfinite(t_).all()),
+                f"quadrupole {name} finite, shape {tuple(t_.shape)}")
+    print(f"    peak device memory GB above the {held / 1e9:.3f} GB held "
+          f"before: {(torch.cuda.max_memory_allocated() - held) / 1e9:.3f}")
+    del qsim
+
+    # (c) Phase 5's protocol (5 warm-up steps at interval 4 so the lists
+    # carry real cell accelerations), then fresh quadrupole and monopole
+    # lists of the same state against a direct sum.
+    st = bw.init_window_state(pos, vel, mass, qcal)
+    st = bw.make_window_step(qcal.replace(rebuild_interval=4), N_MAIN,
+                             substeps=5)(st, DT)
+    inv = st.lists.inv_order.long()
+    pos_o, vel_o, mass_o = st.pos[:, inv], st.vel[:, inv], st.mass[inv]
+    exact = direct_accel(pos_o[:, idx], pos_o, mass_o, cal.G, cal.softening)
+    errs = {}
+    for label, c in (("quadrupole", qcal), ("monopole", cal)):
+        fl = bw.build_lists(pos_o, vel_o, mass_o, **bw._build_kw(c))
+        errs[label] = force_errors(
+            bw.eval_accel(fl, pos_o, mass_o, 0.0, **ekw)[:, idx], exact)
+        rms, med, ratio = errs[label]
+        layout = "pooled" if fl.pool is not None else "dense"
+        print(f"    fresh {label} lists ({layout}): rms of |da|/|a| "
+              f"{rms:.4%}  median {med:.4%}  rms|da|/rms|a| {ratio:.4%}")
+        del fl
+    q_rms, q_med, _ = errs["quadrupole"]
+    m_med = errs["monopole"][1]
+    print(f"    median ratio quadrupole / monopole {q_med / m_med:.4f} "
+          f"(limit 0.55); quadrupole fresh rms limit 5%")
+    require(q_med <= 0.55 * m_med and q_rms <= 0.05, errs)
+    del st, pos_o, vel_o, mass_o, exact, pos, vel, mass
+    torch.cuda.empty_cache()
+    done(t0)
+
+    # ---- 13. 50M, the EXTREME preset ---------------------------------------
+    t0 = phase(f"13. 50M bodies: {PRESET_50M} through NBodySimulation")
+    preset = get_preset_config(PRESET_50M)
+    dt50 = float(preset["dt_per_frame"]) / int(preset["substeps"])
+    n50 = sim50.num_bodies
+    print(f"    set-up: " + ", ".join(f"{k} {v:.3f} s"
+                                      for k, v in sim50.setup_seconds.items()))
+    require_mass_conserved(sim50.state, sim50.config, "first build")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (allpairs_accel, window_eval_pool, window_eval,
+               boids_window_accumulate):
+        fn.launches = 0
+    step_s = timed_steps(sim50.step_raw, STEPS_50M, dt50)
+    launches_50m = window_eval.launches
+    print(f"    launches in the 50M main path: window_eval {launches_50m}, "
+          f"window_eval_pool {window_eval_pool.launches}")
+    report_steps(f"50M at the preset's dt {dt50}", step_s)
+    print(f"    peak device memory GB over the steps: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.3f}")
+    require(launches_50m == STEPS_50M and window_eval_pool.launches == 0,
+            (launches_50m, window_eval_pool.launches))
+    require(sim50.rebuilds == 1, f"rebuilds {sim50.rebuilds}")
+    for name, t_ in (("pos", sim50.state.pos), ("vel", sim50.state.vel)):
+        require(t_.shape == (3, n50) and bool(torch.isfinite(t_).all()),
+                f"50M {name} finite, shape {tuple(t_.shape)}")
+    require_mass_conserved(sim50.state, sim50.config, "rebuild at step 25")
+
+    # Force error on 4,096 bodies: the run's own lists, and fresh lists of
+    # the same state (no staleness: what theta 1.5 and list cap 2048 give).
+    st = sim50.state
+    inv = st.lists.inv_order.long()
+    pos_o, vel_o, mass_o = st.pos[:, inv], st.vel[:, inv], st.mass[inv]
+    idx50 = torch.as_tensor(np.sort(np.random.default_rng(1).choice(
+        n50, N_SAMPLE, replace=False)), device=dev)
+    t = time.perf_counter()
+    exact = direct_accel(pos_o[:, idx50], pos_o, mass_o, sim50.config.G,
+                         sim50.config.softening, chunk=4)
+    print(f"    direct sum on {N_SAMPLE} bodies: "
+          f"{time.perf_counter() - t:.3f} s")
+    fresh = bw.build_lists(pos_o, vel_o, mass_o,
+                           **bw._build_kw(sim50.config))
+    for label, lists, dt_ in (
+            (f"lists {st.lists.steps_since} steps old", st.lists, dt50),
+            ("fresh lists", fresh, 0.0)):
+        rms, med, ratio = force_errors(
+            bw.eval_accel(lists, pos_o, mass_o, dt_, **kw50)[:, idx50],
+            exact)
+        print(f"    force error, {label}: rms of |da|/|a| {rms:.4%}  "
+              f"median {med:.4%}  rms|da|/rms|a| {ratio:.4%}")
+        require(np.isfinite([rms, med, ratio]).all(), (rms, med, ratio))
+    del st, inv, pos_o, vel_o, mass_o, exact, fresh
+
+    # Where the device time goes: the next rebuild step, then 4 plain steps.
+    for _ in range(sim50.config.rebuild_interval - 2):
+        sim50.step_raw(dt50)
+    require(sim50.state.lists.steps_build
+            == sim50.config.rebuild_interval, sim50.state.lists.steps_build)
+    profile_steps("N-body 50M, the rebuild step",
+                  lambda: sim50.step_raw(dt50), 1)
+    profile_steps("N-body 50M, 4 steps between rebuilds",
+                  lambda: sim50.step_raw(dt50), 4)
+    require(sim50.rebuilds == 2, sim50.rebuilds)
+    del sim50
+    torch.cuda.empty_cache()
+
+    # The recorder CLI: 2 frames, staged in a directory removed after.
+    with tempfile.TemporaryDirectory(prefix=".smoke_rec_", dir=ROOT) as tmp:
+        rec_root = Path(tmp)
+        run_recorder(["--preset", PRESET_50M, "--frames", "2", "--name",
+                      "smoke_50m"], rec_root)
+        check_frame(rec_root / "smoke_50m", 1, n50)
     done(t0)
 
     print(f"\ntotal seconds: {time.perf_counter() - wall0:.3f}")
@@ -737,6 +1158,11 @@ def main() -> int:
              replaces="spatialsim_tpu/ops/boids_window_kernel.py:45",
              launches=launches["boids_window"],
              **kernels["boids_window"]),
+        dict(name="window_eval", route="cuda",
+             source=f"{src}/window_eval.cu",
+             replaces="spatialsim_tpu/ops/bh_eval_kernel.py:432",
+             launches=quad_launches + launches_50m,
+             **kernels["window_eval"]),
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +37,8 @@ SIGNATURES = {
     "spatialsim_allpairs": (_P, _P, _P, _I, _F, _F, _P),
     "spatialsim_window_eval_pool": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _F, _F, _F, _F, _P),
+    "spatialsim_window_eval": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _F, _F, _F, _P),
     "spatialsim_boids_window": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                                 _P),
 }
@@ -73,6 +75,7 @@ def _key() -> str:
 def build(force: bool = False, verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into the cached shared library; return its path.
 
+    One ``nvcc -c`` per source, all started together, then one link.
     ``force`` rebuilds even when a library for these sources exists;
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills per
     kernel) and keeps the compiler's output in ``build_info["log"]``.
@@ -82,17 +85,41 @@ def build(force: bool = False, verbose: bool = False) -> Path:
         build_info["path"] = str(so)
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+               "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = so.with_name(f"{so.name}.{tag}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_info.update(seconds=time.perf_counter() - t0, path=str(so),
-                      log=proc.stdout + proc.stderr)
+                      log="".join(log))
     return so
 
 

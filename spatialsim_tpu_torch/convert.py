@@ -8,6 +8,9 @@ into the port's eval, which holds eval parity apart from build parity.
     lists = lists_from_numpy(jl.order, jl.inv_order, jl.far_n, jl.ref_pos,
                              jl.pool, jl.pstart, int(jl.steps_since),
                              int(jl.steps_build))
+    dense = dense_lists_from_numpy(jl.order, jl.inv_order, jl.far,
+                                   jl.far_n, jl.far_range, jl.near,
+                                   jl.ref_pos, int(jl.steps_since))
     state = boids_window_state_from_numpy(*jax_boids_window_state)
 """
 
@@ -37,6 +40,29 @@ def lists_from_numpy(order, inv_order, far_n, ref_pos, pool, pstart,
         ref_pos=_t(ref_pos, torch.float32, device),
         pool=_t(pool, torch.float32, device),
         pstart=_t(pstart, torch.int32, device),
+        steps_since=int(steps_since),
+        steps_build=int(steps_since if steps_build is None else steps_build))
+
+
+def dense_lists_from_numpy(order, inv_order, far, far_n, far_range, near,
+                           ref_pos, steps_since: int = 0,
+                           steps_build: Optional[int] = None, *,
+                           device="cpu") -> BHLists:
+    """A dense :class:`BHLists` (``far`` ``(ng, R, L)``) from the JAX
+    package's arrays; ``far_range`` may be None, and a ``near`` table with
+    no columns (the JAX default) becomes None."""
+    near_t = None
+    if near is not None and np.asarray(near).shape[1] > 0:
+        near_t = _t(near, torch.int32, device)
+    return BHLists(
+        order=_t(order, torch.int32, device),
+        inv_order=_t(inv_order, torch.int32, device),
+        far_n=_t(far_n, torch.int32, device),
+        ref_pos=_t(ref_pos, torch.float32, device),
+        far=_t(far, torch.float32, device),
+        far_range=(None if far_range is None
+                   else _t(far_range, torch.int32, device)),
+        near=near_t,
         steps_since=int(steps_since),
         steps_build=int(steps_since if steps_build is None else steps_build))
 

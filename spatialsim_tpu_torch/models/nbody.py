@@ -13,6 +13,7 @@ for a ``seed``); the step itself has no randomness.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -71,6 +72,13 @@ def make_step_fn(config: NBodyConfig, n: int, substeps: int = 1,
     return step
 
 
+def _clock(device: torch.device) -> float:
+    """Host seconds after the device's queued work is done."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
 def _device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -88,6 +96,9 @@ class NBodySimulation:
     ``get_colors()``, ``get_masses()``, plus ``state`` for the recorder.
     ``device`` (default ``"cuda"``) holds every tensor; it raises when CUDA
     is asked for and absent -- there is no silent CPU fallback.
+    ``setup_seconds`` holds the host seconds of the set-up phases
+    ("initial_conditions" with the copy to the device, and for the window
+    engine "calibration" and "first_build").
     """
 
     def __init__(self, num_bodies: Optional[int] = None,
@@ -99,10 +110,11 @@ class NBodySimulation:
             self.config = self.config.replace(num_bodies=num_bodies)
         self.num_bodies = self.config.num_bodies
         self.substeps = substeps
+        t0 = time.perf_counter()
         pos, vel, mass = distributions.generate_distribution(
             self.config.distribution, self.num_bodies,
             self.config.spawn_radius, self.config.G, seed=seed)
-        self._init_state(pos, vel, mass)
+        self._init_state(pos, vel, mass, t0)
 
     @classmethod
     def from_state(cls, positions, velocities, masses=None,
@@ -126,20 +138,26 @@ class NBodySimulation:
             arr = np.ascontiguousarray(arr.T)
         return torch.as_tensor(arr, device=self.device)
 
-    def _init_state(self, pos, vel, mass):
+    def _init_state(self, pos, vel, mass, t0=None):
         """Device state + step for the engine the body count selects."""
+        t0 = time.perf_counter() if t0 is None else t0
         pos = self._tensor(pos, transpose=True)
         vel = self._tensor(vel, transpose=True)
         mass = self._tensor(mass)
         self.config = resolve_config(self.config, self.num_bodies)
         self.engine = resolve_engine(self.config, self.num_bodies)
+        t1 = _clock(self.device)
+        self.setup_seconds = {"initial_conditions": t1 - t0}
         if self.engine == "window":
             from spatialsim_tpu_torch.ops.bh_window import (
                 calibrate_config, init_window_state)
             # Demand-calibrate tree/worklist/pool caps on the real initial
             # conditions (a no-op for the worklist when the defaults fit).
             self.config = calibrate_config(self.config, pos, vel, mass)
+            t2 = _clock(self.device)
             self.state = init_window_state(pos, vel, mass, self.config)
+            self.setup_seconds.update(calibration=t2 - t1,
+                                      first_build=_clock(self.device) - t2)
         else:
             self.state = NBodyState(pos=pos, vel=vel, mass=mass)
         self._step = make_step_fn(self.config, self.num_bodies,

@@ -1,4 +1,4 @@
-"""Production Barnes-Hut engine: amortized lists + per-step pooled eval.
+"""Production Barnes-Hut engine: amortized lists + per-step window eval.
 
 Port of ``spatialsim_tpu/ops/bh_window.py`` (the JAX module's docstring
 has the full design notes).  In short:
@@ -9,16 +9,28 @@ has the full design notes).  In short:
   skin-dilated bounding box (``s/d < theta``) and against the group's
   Morton window; accepted cells become far entries, straddling leaves
   become range slivers, overflow folds into a per-group mass-conserving
-  residual.  The cell-id finish then writes every group's far list into a
-  compacted tile pool of ``(16, tile)`` blocks.
-* **Every step**: one fused evaluation per group -- the Morton window of
-  ``2*window_groups+1`` groups exactly, plus the group's pooled far tiles
-  advanced to now as ``com + v*tau + a*coef2`` -- by the CUDA kernel in
-  :mod:`spatialsim_tpu_torch.ops.bh_eval_kernel`; then the integrator.
+  residual.  Two far layouts:
 
-This slice ports the default path only: pool on, cell-id emission,
-monopole, ``near_groups=0``, no moment refresh.  Everything else raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+  - **pooled** (the default, ``pool_tile > 0``): cell-id emission, then
+    the cell-id finish writes every group's far list into a compacted
+    tile pool of ``(16, tile)`` blocks;
+  - **dense** (``pool_tile == 0``: above 20.5M bodies, and whenever
+    ``use_quadrupole``): one ``(ng, R, L)`` tensor with ``R`` rows per
+    :func:`far_layout`.  Quadrupole builds emit the moment values during
+    the traversal ("values"); monopole builds may emit body ranges only
+    ("ranges") and materialise the moments from compensated prefix sums
+    in group chunks, so only the ``(ng, R, L)`` output is ever whole.
+
+* **Every step**: one fused evaluation per group -- the Morton window of
+  ``2*window_groups+1`` groups exactly, plus the group's far entries
+  advanced to now as ``com + v*tau (+ a*coef2)`` -- by a CUDA kernel in
+  :mod:`spatialsim_tpu_torch.ops.bh_eval_kernel` (pooled or dense); then
+  the integrator.
+
+Not ported yet, each raising ``NotImplementedError`` naming the
+``ROADMAP.md`` item: ``near_groups > 0`` (the near-group build; the eval
+already reads a near table), moment refresh, the pooled ranges/values and
+compact finishes, and the sharded (rangeless) build.
 
 Conventions kept from the JAX package, for parity: ``(3, N)``
 component-major state; every static capacity (worklist caps, tree caps,
@@ -26,8 +38,9 @@ list cap, ``SLIVER_CAP``, pool cap) and its fold-to-residual rule; stable
 sorts; compensated prefix sums for sliver moments; integer body ranges in
 pool rows 10-13 as exact 16-bit halves.  JAX's out-of-range "drop" scatters
 become writes to one spare slot past the end that is sliced off.
-Integer bookkeeping runs in int64; the tensors the kernel reads
-(``pstart``, ``far_n``) and the permutations are int32.
+Integer bookkeeping runs in int64; the tensors the kernels read
+(``pstart``, ``far_n``, ``near``), the permutations and the stored dense
+``far_range`` are int32.
 """
 
 from __future__ import annotations
@@ -37,6 +50,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from spatialsim_tpu_torch.ops.bh_eval_kernel import (
+    far_layout, window_eval, window_eval_pool)
 from spatialsim_tpu_torch.ops.bounds import compute_bounds
 from spatialsim_tpu_torch.ops.integrator import integrate
 from spatialsim_tpu_torch.ops.morton import morton_encode
@@ -60,23 +75,34 @@ _COMP_SEG_CHUNK = 1 << 22
 
 
 class BHLists(NamedTuple):
-    """Amortized interaction structure of the pooled window engine.
+    """Amortized interaction structure, pooled or dense.
 
-    The step counters are Python ints: the rebuild policy is a host-side
-    check and needs no device read per step.
+    Pooled lists carry ``pool``/``pstart`` and leave ``far``/``far_range``
+    None; dense lists the other way round.  The step counters are Python
+    ints: the rebuild policy is a host-side check and needs no device read
+    per step.
     """
 
     order: torch.Tensor       # (npad,) int32 sorted slot -> original id
     inv_order: torch.Tensor   # (n,) int32 original id -> sorted slot
     far_n: torch.Tensor       # (ng,) int32 entries per group (+residual)
     ref_pos: torch.Tensor     # (3, n) sorted positions at build
-    # (cap_tiles, 16, tile) f32 rows [com3, vel3, mass, acc3, fs_hi,
-    # fs_lo, fe_hi, fe_lo, 0, 0]; group g owns tiles
+    # Pooled: (cap_tiles, 16, tile) f32 rows [com3, vel3, mass, acc3,
+    # fs_hi, fs_lo, fe_hi, fe_lo, 0, 0]; group g owns tiles
     # [pstart[g], pstart[g] + ceil(far_n[g] / tile)).
-    pool: torch.Tensor
-    pstart: torch.Tensor      # (ng,) int32 first pool tile
+    pool: Optional[torch.Tensor] = None
+    pstart: Optional[torch.Tensor] = None   # (ng,) int32 first pool tile
     steps_since: int = 0      # steps since the lists were built (tau)
     steps_build: int = 0      # steps since the last full rebuild
+    # Dense: (ng, R, L) f32 entries, rows per far_layout(R); slots past
+    # far_n[g] are zero.
+    far: Optional[torch.Tensor] = None
+    # Dense: (ng, 2, L) int32 sorted body range [start, end) behind each
+    # entry, (0, 0) for the residual and unused slots.
+    far_range: Optional[torch.Tensor] = None
+    # (ng, K) int32 near-group ids read as extra exact sources (-1 or
+    # >= ng = none); None when K = 0.
+    near: Optional[torch.Tensor] = None
 
 
 def _excl(x):
@@ -128,6 +154,28 @@ def _comp_seg(pref2: torch.Tensor, s: torch.Tensor, e: torch.Tensor):
     return out
 
 
+def _pack_levels(tree, quadrupole, with_acc):
+    """One f32 value table per level for values emission.
+
+    Rows [com3, vel3, mass, (traceless Q6), (acc3)]: the traceless
+    conversion ``3*M2 - tr(M2)*I`` happens here once per cell instead of
+    once per visited (group, cell) pair.
+    """
+    packed = []
+    for lv in tree.levels:
+        rows = [lv.com[0], lv.com[1], lv.com[2],
+                lv.vel[0], lv.vel[1], lv.vel[2], lv.mass]
+        if quadrupole:
+            tr = lv.m2[0] + lv.m2[1] + lv.m2[2]
+            rows += [3.0 * lv.m2[0] - tr, 3.0 * lv.m2[1] - tr,
+                     3.0 * lv.m2[2] - tr, 3.0 * lv.m2[3],
+                     3.0 * lv.m2[4], 3.0 * lv.m2[5]]
+        if with_acc:
+            rows += [lv.acc[0], lv.acc[1], lv.acc[2]]
+        packed.append(torch.stack(rows))
+    return packed
+
+
 def _pack_levels_geo(tree):
     """One f32 geometry table per level for single-gather traversal.
 
@@ -151,8 +199,9 @@ def _unhl(hi, lo):
 
 def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
                      gsz, intervals, list_cap, n_levels, wl_caps,
-                     with_acc=False, level_offsets=None, ablate=()):
-    """Global-worklist traversal (geometry-only emission).
+                     with_acc=False, quadrupole=False, emit_values=False,
+                     level_offsets=None, ablate=()):
+    """Global-worklist traversal.
 
     All (group, cell) pairs of one octree level live in one flat,
     group-major worklist of static capacity ``wl_caps[level]``.  Per slot:
@@ -163,14 +212,17 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
     overflow into a mass-conserving residual; worklist overflow emits the
     cell coarsely instead of opening it.
 
-    Emission: with ``level_offsets`` (cell-id mode, the build) each entry
-    is one global cell id, ``(ng, L)``; without it (ranges mode, the
-    calibration probe) each entry is its ``[start, end)`` body range,
-    ``(ng, 2, L)``.  ``ablate=("emit", "sliver")`` replaces both phases
-    with counts only (the cheap demand probe).
+    Emission: with ``level_offsets`` (cell-id mode, the pooled build)
+    each entry is one global cell id, ``(ng, L)``; without it (ranges mode)
+    each entry is its ``[start, end)`` body range, ``(ng, 2, L)``.
+    ``emit_values`` (values mode, the dense quadrupole build) also writes
+    every entry's moment rows (:func:`_pack_levels`) and returns them as
+    the dense ``(ng, R, L)`` tensor, ``R`` per :func:`far_layout`.
+    ``ablate=("emit", "sliver")`` replaces both phases with counts only
+    (the cheap demand probe).
 
-    Returns (far_range, far_n, sl_start, sl_end, sl_n, res, wl) with
-    ``wl`` the stacked [fills | pre-clamp demands] per level.
+    Returns (far | None, far_range, far_n, sl_start, sl_end, sl_n, res,
+    wl) with ``wl`` the stacked [fills | pre-clamp demands] per level.
     """
     levels = tree.levels
     dev = bbox_min.device
@@ -186,6 +238,11 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
     bounds = torch.cat([(bbox_min - skin).T, (bbox_max + skin).T])  # (6, ng)
     iv_pack = intervals.reshape(ng, 2 * M).T                       # (2M, ng)
     emit_on = "emit" not in ablate
+    if emit_values:
+        assert level_offsets is None
+        val_levels = _pack_levels(tree, quadrupole, with_acc)
+        n_cols = val_levels[0].shape[0]
+        far_cols = [_spare(ng * L, 0.0, _F32, dev) for _ in range(n_cols)]
 
     cellid = level_offsets is not None
     if cellid:
@@ -198,7 +255,11 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
     sl_start = _spare(ng * SLIVER_CAP, 0, _I64, dev)
     sl_end = _spare(ng * SLIVER_CAP, 0, _I64, dev)
     sl_n = torch.zeros((ng,), dtype=_I64, device=dev)
-    res_cols = [torch.zeros((ng + 1,), dtype=_F32, device=dev)
+    # The residual accumulates in float64: at 50M bodies one group's
+    # residual can hold over half the total mass, past 2^24 unit masses,
+    # where float32 sums of its thousands of folded cells drift by ~1e-4
+    # of the total.
+    res_cols = [torch.zeros((ng + 1,), dtype=torch.float64, device=dev)
                 for _ in range(n_res)]
 
     # Init: every group x every start-level cell, group-major.
@@ -302,6 +363,10 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
             else:
                 fr_s[flat] = cstart
                 fr_e[flat] = cend
+            if emit_values:
+                A = val_levels[li][:, cidx]                # (n_cols, W)
+                for r, fc in enumerate(far_cols):
+                    fc[flat] = A[r]
             if bool(over.any()):
                 # Entries past the per-group cap fold into the residual.
                 res_idx = torch.where(over, gidx, torch.full_like(gidx, ng))
@@ -312,7 +377,7 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
                 if with_acc:
                     contribs += [MV[4] * w, MV[5] * w, MV[6] * w]
                 for rc, c in zip(res_cols, contribs):
-                    rc.index_add_(0, res_idx, c)
+                    rc.index_add_(0, res_idx, c.double())
             counts = torch.zeros((ng,), dtype=_I64, device=dev)
             counts.index_add_(0, gidx, ok.to(_I64))
             far_n = torch.clamp(far_n + counts, max=L - 1)
@@ -356,8 +421,17 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
     else:
         far_range = torch.stack([fr_s[:ng * L].reshape(ng, L),
                                  fr_e[:ng * L].reshape(ng, L)], dim=1)
-    res = torch.stack([rc[:ng] for rc in res_cols], dim=1)        # (ng, R)
-    return (far_range, far_n,
+    far = None
+    if emit_values:
+        # Rows are exactly the emitted columns (far_layout): 7 monopole
+        # columns get one zero pad row, 10/13/16 stand as they are.
+        grid = [fc[:ng * L].reshape(ng, L) for fc in far_cols]
+        if n_cols == 7:
+            grid.append(torch.zeros((ng, L), dtype=_F32, device=dev))
+        far = torch.stack(grid, dim=1)                           # (ng, R, L)
+        del far_cols, grid
+    res = torch.stack([rc[:ng] for rc in res_cols], dim=1).to(_F32)
+    return (far, far_range, far_n,
             sl_start[:ng * SLIVER_CAP].reshape(ng, SLIVER_CAP),
             sl_end[:ng * SLIVER_CAP].reshape(ng, SLIVER_CAP), sl_n, res,
             torch.stack(wl_sizes + wl_demand))
@@ -493,19 +567,36 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
                 list_cap=2048, worklist_budget=0, quadrupole=False,
                 near_groups=0, with_ranges=True, pool_tile=0, pool_cap=0,
                 emit_mode="auto", wl_caps=(), tree_caps=()) -> BHLists:
-    """Morton sort + octree + global-worklist traversal + cell-id pool.
+    """Morton sort + octree + global-worklist traversal + finish.
 
     ``pos``/``vel``/``acc``: ``(3, n)`` f32; ``mass``: ``(n,)`` f32, all on
-    one device.  Only the default pooled cell-id path is ported: a dense
-    layout (``pool_tile=0``), another ``emit_mode``, ``near_groups > 0``
-    or ``quadrupole`` raise ``NotImplementedError``.
+    one device.  The emission mode and finish follow the JAX package:
+
+    * ``pool_tile > 0``, monopole, ``emit_mode`` "auto"/"cellid": cell-id
+      emission and the pooled cell-id finish (the default path);
+    * ``pool_tile == 0``: the dense ``(ng, R, L)`` layout, from "values"
+      emission when ``quadrupole`` (or ``emit_mode`` is not "ranges"), else
+      from "ranges" emission with the moments materialised by
+      :func:`_finish_lists` in group chunks (the EXTREME path).
+
+    ``near_groups > 0``, ``with_ranges=False``, the pooled ranges/values
+    finishes and compact emission raise ``NotImplementedError``; a pooled
+    quadrupole raises ``ValueError`` (the pool is monopole-only, as in the
+    JAX package).
     """
-    if quadrupole or near_groups or not pool_tile or not with_ranges \
-            or emit_mode not in ("auto", "cellid"):
+    pooled = bool(pool_tile)
+    if pooled and quadrupole:
+        raise ValueError("the pooled far layout is monopole-only: "
+                         "quadrupole lists need pool_tile=0")
+    cellid = (emit_mode in ("cellid", "auto") and with_ranges
+              and not quadrupole and pooled)
+    emit_ranges = (with_ranges and not quadrupole
+                   and (emit_mode == "ranges" or cellid))
+    if near_groups or not with_ranges or (pooled and not cellid):
         raise NotImplementedError(
             f"build_lists(quadrupole={quadrupole}, near_groups="
-            f"{near_groups}, pool_tile={pool_tile}, emit_mode={emit_mode!r})"
-            f" is {_ROADMAP}")
+            f"{near_groups}, with_ranges={with_ranges}, pool_tile="
+            f"{pool_tile}, emit_mode={emit_mode!r}) is {_ROADMAP}")
     n = pos.shape[1]
     gsz = group_size
     half, order, order_pad, s_codes, s_pos, s_vel, s_mass, s_acc = \
@@ -514,7 +605,8 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
 
     tree = build_octree(s_codes, s_pos, s_mass, half, max_depth=max_depth,
                         start_level=2, n=npad, sorted_vel=s_vel,
-                        sorted_acc=s_acc, level_caps=tuple(tree_caps or ()))
+                        sorted_acc=s_acc, with_quadrupole=quadrupole,
+                        level_caps=tuple(tree_caps or ()))
     n_levels = len(tree.levels)
     ng = npad // gsz
     gpos = s_pos.reshape(3, ng, gsz)
@@ -533,24 +625,146 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
                         for li, c in enumerate(wl_caps))
     else:
         wl_caps = _default_wl_caps(ng, n_levels, budget, c0=c0)
-    offs, tot = [], 0
-    for lv in tree.levels:
-        offs.append(tot)
-        tot += lv.code.shape[0]
-    level_offs = tuple(offs + [tot])
+    level_offs = None
+    if cellid:
+        offs, tot = [], 0
+        for lv in tree.levels:
+            offs.append(tot)
+            tot += lv.code.shape[0]
+        level_offs = tuple(offs + [tot])
 
-    fr_id, far_n, sl_start, sl_end, sl_n, res, _ = _traverse_global(
+    far, far_range, far_n, sl_start, sl_end, sl_n, res, _ = _traverse_global(
         tree, bbox_min, bbox_max, ng, theta=float(theta),
         soft_sq=float(softening) ** 2, skin=float(skin), gsz=gsz,
         intervals=intervals, list_cap=list_cap, n_levels=n_levels,
-        wl_caps=wl_caps, with_acc=acc is not None, level_offsets=level_offs)
+        wl_caps=wl_caps, with_acc=acc is not None, quadrupole=quadrupole,
+        emit_values=not emit_ranges, level_offsets=level_offs)
+    if not cellid:
+        del tree
+        return _finish_lists(far, far_range, far_n, sl_start, sl_end, sl_n,
+                             res, s_pos, s_vel, s_mass, order, order_pad,
+                             pos, n, list_cap, s_acc=s_acc)
     cap = pool_cap or pool_cap_tiles(
         budget, ng, pool_tile, npad,
         caps_total=sum(wl_caps) if explicit_caps else 0)
     return _finish_pool_cellid(
-        tree, level_offs, fr_id, far_n, sl_start, sl_end, sl_n, res, s_pos,
-        s_vel, s_mass, order, order_pad, pos, n, list_cap, tile=pool_tile,
-        cap_tiles=cap, s_acc=s_acc)
+        tree, level_offs, far_range, far_n, sl_start, sl_end, sl_n, res,
+        s_pos, s_vel, s_mass, order, order_pad, pos, n, list_cap,
+        tile=pool_tile, cap_tiles=cap, s_acc=s_acc)
+
+
+def _finish_lists(far, far_range, far_n, sl_start, sl_end, sl_n, res,
+                  s_pos, s_vel, s_mass, order, order_pad, pos, n, list_cap,
+                  s_acc=None) -> BHLists:
+    """Dense finish: sliver moments, the residual entry, the BHLists.
+
+    ``far``: the ``(ng, R, L)`` values-emission tensor, or None after
+    ranges emission -- then every entry's monopole moments are segment
+    sums over ``far_range`` of compensated prefix sums of the sorted
+    state, materialised ``_COMP_SEG_CHUNK // L`` groups at a time so that
+    only the ``(ng, R, L)`` output is ever whole (at 50M bodies the flat
+    segment sums and their stacked rows would otherwise coexist with it).
+    Slivers (window-boundary fragments) append after the real entries,
+    monopole in Q but carrying mean velocity/acceleration; slot ``L - 1``
+    stays reserved, and what does not fit folds into the residual, which
+    appends right after the last entry.
+    """
+    dev = s_pos.device
+    ng = far_n.shape[0]
+    L = list_cap
+    SC = SLIVER_CAP
+    with_acc = s_acc is not None
+    n_rows = far.shape[1] if far is not None else (10 if with_acc else 8)
+    quad, acc0 = far_layout(n_rows)
+
+    w = s_mass[None, :]
+    cols = [s_mass[None, :], s_pos * w, s_vel * w]
+    if with_acc:
+        cols.append(s_acc * w)
+    pref = _comp_prefix(torch.cat(cols, dim=0))           # (2P, npad+1)
+    del cols
+
+    if far is None:
+        far = torch.empty((ng, n_rows, L), dtype=_F32, device=dev)
+        CHG = max(1, _COMP_SEG_CHUNK // L)
+        for g0 in range(0, ng, CHG):
+            g1 = min(ng, g0 + CHG)
+            C = g1 - g0
+            segf = _comp_seg(pref, far_range[g0:g1, 0].reshape(C * L),
+                             far_range[g0:g1, 1].reshape(C * L))
+            fm = segf[0]
+            finv = torch.where(fm > 0, 1.0 / torch.clamp(fm, min=1e-30),
+                               torch.zeros_like(fm))
+            frows = [segf[r] * finv for r in range(1, 7)] + [fm]
+            if with_acc:
+                frows += [segf[r] * finv for r in range(7, 10)]
+            frows += [torch.zeros_like(fm)] * (n_rows - len(frows))
+            far[g0:g1] = torch.stack(frows).reshape(
+                n_rows, C, L).transpose(0, 1)
+            del segf, frows
+
+    # Sliver moments from prefix sums: a small (ng, SC) gather.
+    seg = _comp_seg(pref, sl_start, sl_end)                 # (P, ng, SC)
+    del pref
+    k = torch.arange(SC, dtype=_I64, device=dev)[None, :]
+    svalid = k < sl_n[:, None]
+    sm = torch.where(svalid, seg[0], torch.zeros_like(seg[0]))
+    sinv = torch.where(sm > 0, 1.0 / torch.clamp(sm, min=1e-30),
+                       torch.zeros_like(sm))
+    zero = torch.zeros_like(sm)
+    srows = [seg[r] * sinv for r in range(1, 7)] + [sm]
+    if quad:
+        srows += [zero] * 6
+    if acc0 is not None:
+        srows += ([seg[r] * sinv for r in range(7, 10)] if with_acc
+                  else [zero] * 3)
+    srows += [zero] * (n_rows - len(srows))
+    svals = torch.stack(srows, dim=1)                       # (ng, R, SC)
+
+    # Append slivers; what does not fit below slot L - 1 folds into the
+    # residual.
+    fits = svalid & (far_n[:, None] + k < L - 1)
+    gi = torch.arange(ng, dtype=_I64, device=dev)[:, None].expand(ng, SC)
+    slot = (far_n[:, None] + k).expand(ng, SC)
+    gf, sf = gi[fits], slot[fits]
+    far[gf, :, sf] = svals.transpose(1, 2)[fits]
+    far_range[gf, 0, sf] = sl_start[fits]
+    far_range[gf, 1, sf] = sl_end[fits]
+    over = svalid & ~fits
+    if bool(over.any()):
+        om = torch.where(over, sm, zero)
+        parts = [om.sum(dim=1)[:, None],
+                 (svals[:, 0:3] * om[:, None]).sum(dim=2),
+                 (svals[:, 3:6] * om[:, None]).sum(dim=2)]
+        if with_acc:
+            parts.append((svals[:, acc0:acc0 + 3] * om[:, None]).sum(dim=2))
+        res = res + torch.cat(parts, dim=1)
+    far_n = torch.clamp(far_n + sl_n, max=L - 1)
+
+    # Residual: one entry right after the real entries.
+    res_m = res[:, 0]
+    has_res = res_m > 0
+    inv_m = torch.where(has_res, 1.0 / torch.clamp(res_m, min=1e-30),
+                        torch.zeros_like(res_m))
+    zg = torch.zeros((ng,), dtype=_F32, device=dev)
+    rrows = [res[:, r] * inv_m for r in range(1, 7)] + [res_m]
+    if quad:
+        rrows += [zg] * 6
+    if acc0 is not None:
+        rrows += ([res[:, r] * inv_m for r in range(7, 10)] if with_acc
+                  else [zg] * 3)
+    rrows += [zg] * (n_rows - len(rrows))
+    rslot = torch.clamp(far_n, max=L - 1)
+    rg = torch.nonzero(has_res).reshape(-1)
+    far[rg, :, rslot[rg]] = torch.stack(rrows, dim=1)[rg]
+    far_range[rg, :, rslot[rg]] = 0
+    far_n = torch.clamp(far_n + has_res.to(_I64), max=L)
+
+    inv_order = torch.empty((n,), dtype=_I32, device=dev)
+    inv_order[order] = torch.arange(n, dtype=_I32, device=dev)
+    return BHLists(order=order_pad.to(_I32), inv_order=inv_order,
+                   far_n=far_n.to(_I32), ref_pos=pos, far=far,
+                   far_range=far_range.to(_I32))
 
 
 def _finish_pool_cellid(tree, level_offsets, fr_id, far_n, sl_start, sl_end,
@@ -711,12 +925,12 @@ def eval_accel_sorted(lists: BHLists, pos_s, mass_s, dt, *, G, softening,
     """Accelerations for SORTED ``(3, n)`` state -- the stepper's path.
 
     Pads the group tail by repeating the last body with mass 0 and returns
-    sorted-order accelerations.  Routed to the pooled kernel
-    (:func:`spatialsim_tpu_torch.ops.bh_eval_kernel.window_eval_pool`).
+    sorted-order accelerations.  Pooled lists go to the pooled kernel
+    (:func:`~spatialsim_tpu_torch.ops.bh_eval_kernel.window_eval_pool`),
+    dense lists to the dense one
+    (:func:`~spatialsim_tpu_torch.ops.bh_eval_kernel.window_eval`) with
+    their near-group table.
     """
-    from spatialsim_tpu_torch.ops.bh_eval_kernel import window_eval_pool
-    if lists.pool is None:
-        raise NotImplementedError(f"the dense far layout is {_ROADMAP}")
     n = pos_s.shape[1]
     pad = lists.order.shape[0] - n
     if pad:
@@ -724,11 +938,14 @@ def eval_accel_sorted(lists: BHLists, pos_s, mass_s, dt, *, G, softening,
         s_mass = torch.cat([mass_s, mass_s.new_zeros(pad)])
     else:
         s_pos, s_mass = pos_s.contiguous(), mass_s.contiguous()
-    acc = window_eval_pool(
-        s_pos, s_mass, lists.pool, lists.pstart, lists.far_n,
-        lists.steps_since, dt, G=G, softening=softening,
-        group_size=group_size, window_groups=window_groups,
-        tau_clamp=tau_clamp)
+    kw = dict(G=G, softening=softening, group_size=group_size,
+              window_groups=window_groups, tau_clamp=tau_clamp)
+    if lists.pool is not None:
+        acc = window_eval_pool(s_pos, s_mass, lists.pool, lists.pstart,
+                               lists.far_n, lists.steps_since, dt, **kw)
+    else:
+        acc = window_eval(s_pos, s_mass, lists.far, lists.far_n, lists.near,
+                          lists.steps_since, dt, **kw)
     return acc[:, :n]
 
 
@@ -766,21 +983,30 @@ def state_original_order(state: WindowBHState):
 
 
 def _build_kw(config):
-    """build_lists keyword arguments from an (resolved) NBodyConfig."""
-    if getattr(config, "use_quadrupole", False):
-        raise NotImplementedError(f"use_quadrupole is {_ROADMAP}")
+    """build_lists keyword arguments from an (resolved) NBodyConfig.
+
+    As in the JAX package: the quadrupole accepts at ``theta *
+    (quad_accept_scale or 1)``, and the quadrupole, near groups and
+    ``use_pallas_eval=False`` (whose XLA eval reads the dense layout) turn
+    the pool off.  In the port every dense list goes to the dense CUDA
+    kernel.
+    """
     if getattr(config, "near_groups", 0):
         raise NotImplementedError(f"near_groups is {_ROADMAP}")
-    if not getattr(config, "use_pallas_eval", True):
-        raise NotImplementedError(f"the dense eval oracle is {_ROADMAP}")
-    return dict(theta=config.theta, softening=config.softening,
+    quad = getattr(config, "use_quadrupole", False)
+    theta = config.theta
+    if quad:
+        theta = theta * (getattr(config, "quad_accept_scale", 0.0) or 1.0)
+    dense = quad or not getattr(config, "use_pallas_eval", True)
+    return dict(theta=theta, softening=config.softening,
                 skin=config.skin, max_depth=config.max_depth,
                 group_size=config.group_size,
                 window_groups=config.window_groups,
                 list_cap=config.list_capacity,
                 worklist_budget=getattr(config, "worklist_budget", 0),
                 wl_caps=tuple(getattr(config, "wl_caps", ()) or ()),
-                pool_tile=getattr(config, "pool_tile", 0),
+                quadrupole=quad,
+                pool_tile=0 if dense else getattr(config, "pool_tile", 0),
                 pool_cap=getattr(config, "pool_cap", 0),
                 emit_mode=getattr(config, "traversal_emit", "auto"),
                 tree_caps=tuple(getattr(config, "tree_caps", ()) or ()))
@@ -800,7 +1026,14 @@ def make_window_step(config, n: int, substeps: int = 1):
     (a host-side check on the Python-int counter) or, in drift mode
     "max", when any body drifted more than ``skin/2`` since the build (one
     device read); then evaluates, integrates and bumps the counters.  The
-    returned callable counts its rebuilds in ``step.rebuilds``.
+    returned callable counts its rebuilds in ``step.rebuilds``.  Pooled and
+    dense lists take the same step.
+
+    Unlike the JAX package, the decision is taken before every substep at
+    every N: above 4M bodies JAX splits the step into two programs and
+    defers a due rebuild to the next frame boundary (up to ``substeps-1``
+    steps late).  The EXTREME presets run one substep a frame, where the
+    two are the same.
     """
     from spatialsim_tpu_torch.config.nbody import resolve_config
     config = resolve_config(config, n)
@@ -943,9 +1176,9 @@ def _traverse_probe(config, pos, vel, mass, wl_caps, count_emissions=False):
                                      pos.device),
         list_cap=kw["list_cap"], n_levels=n_levels, wl_caps=tuple(wl_caps),
         with_acc=False, ablate=() if count_emissions else ("emit", "sliver"))
-    wl = out[6].cpu().numpy()
+    wl = out[7].cpu().numpy()
     if count_emissions:
-        return wl, out[1].cpu().numpy(), out[4].cpu().numpy()
+        return wl, out[2].cpu().numpy(), out[5].cpu().numpy()
     return wl
 
 

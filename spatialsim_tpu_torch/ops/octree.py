@@ -12,6 +12,11 @@ Overflow never drops mass: tail cells merge into the cap's last slot, and a
 parent whose child run touches that merged slot reports zero children, so
 the traversal emits it as a coarse monopole instead of opening it.
 
+With ``with_quadrupole`` every cell also carries its central second mass
+moments ``m2`` (about its own COM): the deepest level from body offsets to
+their cell's COM, each coarser level by the parallel-axis merge of its
+children, so every product is of cell-sized (small) quantities.
+
 Segment sums are ``index_add_`` into a buffer with one spare slot (the JAX
 code's out-of-range "drop" ids land there and are sliced off).  On CUDA
 they use atomics, so float sums vary in the last bits from run to run.
@@ -39,6 +44,9 @@ class OctreeLevel(NamedTuple):
     child_count: torch.Tensor  # (C,) int64 children (0 at max depth)
     n_cells: torch.Tensor      # () int64 occupied slots
     acc: Optional[torch.Tensor] = None   # (3, C) mean acceleration
+    # (6, C) central second moments sum m*d*d^T about the cell COM, rows
+    # (xx, yy, zz, xy, xz, yz); None unless built with_quadrupole.
+    m2: Optional[torch.Tensor] = None
 
 
 class Octree(NamedTuple):
@@ -77,9 +85,15 @@ def _scatter_min(init_val, size: int, seg: torch.Tensor,
     return out[:size]
 
 
+def _outer6(d: torch.Tensor) -> torch.Tensor:
+    """Second-moment rows (xx, yy, zz, xy, xz, yz) of ``d`` (3, K)."""
+    return torch.stack([d[0] * d[0], d[1] * d[1], d[2] * d[2],
+                        d[0] * d[1], d[0] * d[2], d[1] * d[2]])
+
+
 def build_octree(sorted_codes, sorted_pos, sorted_mass, half, *, max_depth,
                  start_level=2, n=None, sorted_vel=None, sorted_acc=None,
-                 level_caps=()) -> Octree:
+                 with_quadrupole=False, level_caps=()) -> Octree:
     """Build all levels from Morton-sorted bodies.
 
     Args:
@@ -91,6 +105,7 @@ def build_octree(sorted_codes, sorted_pos, sorted_mass, half, *, max_depth,
       start_level: coarsest level materialized.
       sorted_vel / sorted_acc: optional ``(3, N)``; cells then carry their
         mass-weighted mean velocity / acceleration.
+      with_quadrupole: cells also carry ``m2`` (see the module docstring).
       level_caps: optional per-level slot counts, index
         ``level - start_level`` (see the module docstring for overflow).
 
@@ -127,12 +142,19 @@ def build_octree(sorted_codes, sorted_pos, sorted_mass, half, *, max_depth,
     body_start = _scatter_min(n, cap, seg,
                               torch.arange(n, dtype=torch.int64, device=dev))
     inv_m = 1.0 / torch.clamp(mass, min=1e-30)[None, :]
+    com = wpos * inv_m
+    m2 = None
+    if with_quadrupole:
+        # Offsets from the body's own cell COM are cell-sized, so the
+        # products keep full f32 precision.
+        d = sorted_pos - com[:, seg]
+        m2 = _segment(_outer6(d) * sorted_mass[None, :], seg, cap)
     zeros = torch.zeros((cap,), dtype=torch.int64, device=dev)
     deepest = OctreeLevel(
-        code=code, mass=mass, com=wpos * inv_m, vel=wvel * inv_m,
+        code=code, mass=mass, com=com, vel=wvel * inv_m,
         count=count, body_start=body_start, child_start=zeros,
         child_count=zeros, n_cells=n_cells,
-        acc=None if wacc is None else wacc * inv_m)
+        acc=None if wacc is None else wacc * inv_m, m2=m2)
 
     # --- pool upward ---
     levels = [deepest]
@@ -168,11 +190,19 @@ def build_octree(sorted_codes, sorted_pos, sorted_mass, half, *, max_depth,
         ccount = torch.where(child_overflow & (cstart + ccount > ccap - 1),
                              torch.zeros_like(ccount), ccount)
         pinv_m = 1.0 / torch.clamp(pmass, min=1e-30)[None, :]
+        pcom = pwpos * pinv_m
+        pm2 = None
+        if with_quadrupole:
+            # Parallel-axis merge: M2_p = sum_c [M2_c + m_c (com_c -
+            # com_p)(com_c - com_p)^T], every operand COM-relative.
+            d = child.com - pcom[:, pseg.clamp(0, pcap - 1)]
+            pm2 = _segment(child.m2 + _outer6(d) * child.mass[None, :],
+                           pseg, pcap)
         parent = OctreeLevel(
-            code=pcode, mass=pmass, com=pwpos * pinv_m, vel=pwvel * pinv_m,
+            code=pcode, mass=pmass, com=pcom, vel=pwvel * pinv_m,
             count=pcount, body_start=pbody, child_start=cstart,
             child_count=ccount, n_cells=pn,
-            acc=None if pwacc is None else pwacc * pinv_m)
+            acc=None if pwacc is None else pwacc * pinv_m, m2=pm2)
         levels.append(parent)
         child = parent
 

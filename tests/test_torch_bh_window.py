@@ -80,9 +80,9 @@ def test_build_lists_unported_options_raise():
     pos, vel, mass = (torch.from_numpy(a) for a in _cluster(600, 1))
     kw = dict(theta=0.8, softening=2.0, max_depth=5, group_size=64,
               window_groups=2, list_cap=128)
-    for extra in (dict(pool_tile=0), dict(pool_tile=64, emit_mode="ranges"),
-                  dict(pool_tile=64, near_groups=2),
-                  dict(pool_tile=64, quadrupole=True)):
+    for extra in (dict(pool_tile=0, near_groups=2),
+                  dict(pool_tile=64, emit_mode="ranges"),
+                  dict(pool_tile=64, emit_mode="compact")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbw.build_lists(pos, vel, mass, **kw, **extra)
 

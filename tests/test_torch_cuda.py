@@ -115,3 +115,64 @@ def test_boids_window_kernel_matches_plain(cuda, n, dedup):
     for r in range(0, 12, 3):
         err = float((got[r:r + 3] - want[r:r + 3]).abs().max())
         assert err <= 2e-4 * float(want[r:r + 3].abs().max()), (r, err)
+
+
+def _dense_inputs(ng, gsz, R, K, L, seed, device):
+    """Synthetic dense-layout kernel inputs: bodies in Morton-like groups
+    along a random walk, far entries 50-300 units from their group (the
+    slots past ``far_n`` zero, as the build leaves them), and a near table
+    of ids outside each window with ~10% empty (-1) and some >= ng."""
+    rng = np.random.default_rng(seed)
+    npad = ng * gsz
+    centre = np.cumsum(rng.normal(size=(3, ng)) * 5.0, axis=1)
+    pos = np.repeat(centre, gsz, axis=1) + rng.normal(size=(3, npad)) * 3.0
+    mass = rng.uniform(0.5, 2.0, npad)
+    mass[-gsz // 3:] = 0.0                       # padding bodies
+    far = np.zeros((ng, R, L))
+    far_n = rng.integers(0, L + 1, ng)
+    far_n[:2] = (0, L)
+    slot = np.arange(L)[None, :] < far_n[:, None]
+    u = rng.normal(size=(3, ng, L))
+    u *= rng.uniform(50.0, 300.0, (1, ng, L)) / np.linalg.norm(u, axis=0)
+    rows = [centre[:, :, None] + u, rng.normal(size=(3, ng, L)),
+            rng.uniform(0.5, 50.0, (1, ng, L))]
+    if R in (13, 16):
+        rows.append(rng.normal(size=(6, ng, L)) * 25.0 * rows[2])
+    if R in (10, 16):
+        rows.append(rng.normal(size=(3, ng, L)) * 0.1)
+    vals = np.concatenate(rows, axis=0).transpose(1, 0, 2)
+    far[:, :vals.shape[1]] = vals * slot[:, None, :]
+    near = None
+    if K:
+        g = np.arange(ng)[:, None]
+        near = (g + rng.integers(3, ng - 3, (ng, K))) % ng
+        near[rng.random((ng, K)) < 0.1] = -1
+        near[rng.random((ng, K)) < 0.02] = ng + 5
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+    return (t(pos, torch.float32), t(mass, torch.float32),
+            t(far, torch.float32), t(far_n, torch.int32),
+            None if near is None else t(near, torch.int32))
+
+
+@pytest.mark.parametrize("gsz", [256, 1024])
+@pytest.mark.parametrize("K", [0, 4])
+@pytest.mark.parametrize("R", [8, 10, 13, 16])
+def test_dense_window_eval_kernel_matches_plain(cuda, R, K, gsz):
+    from spatialsim_tpu_torch.ops.bh_eval_kernel import (
+        window_eval, window_eval_reference)
+    ng = 2048
+    s_pos, s_mass, far, far_n, near = _dense_inputs(ng, gsz, R, K, 512,
+                                                    R * 10 + K, cuda)
+    args = (s_pos, s_mass, far, far_n, near, 7, 0.02)
+    kw = dict(G=0.1, softening=2.0, group_size=gsz, window_groups=2)
+    before = window_eval.launches
+    got = window_eval(*args, **kw)
+    torch.cuda.synchronize()
+    assert window_eval.launches == before + 1
+    want = window_eval_reference(*args, **kw)
+    # rsqrtf and FMA contraction vs the plain form, over ~10K sources a
+    # body summed in another order: the JAX suite's Pallas-vs-XLA bar.
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+    assert bool(torch.isfinite(got).all())

@@ -77,7 +77,8 @@ def test_config_defaults_equal():
     assert (b.cell_size, b.grid_dim) == (jb.cell_size, jb.grid_dim)
 
 
-@pytest.mark.parametrize("n", [8_000, 40_000, 1_000_000, 25_000_000])
+@pytest.mark.parametrize("n", [8_000, 40_000, 1_000_000, 25_000_000,
+                               50_000_000])
 def test_resolve_config_equal(n):
     got = nbody_cfg.resolve_config(nbody_cfg.NBodyConfig(num_bodies=n), n)
     want = jax_nbody_cfg.resolve_config(
