@@ -66,6 +66,29 @@ failure exits non-zero.  Phases, each printed with its seconds:
     ones), a ``torch.profiler`` breakdown of the next rebuild step and 4
     plain steps, and the recorder CLI for 2 frames (last frame decoded).
 
+14. near groups: ``NBodySimulation(num_bodies=1_000_000,
+    config=NBODY.replace(near_groups=8))``, 48 steps (dense R = 10 lists,
+    kernel 4 with K = 8), per-group mass (window + near + far + residual)
+    after both builds (1e-4), and phase 5's protocol: fresh K = 8 and K = 0
+    lists of one state (median ratio <= 1.05, ``tests/test_bh_window.py:
+    359``), then each configuration's lists aged to tau = 23 (reported);
+15. moment refresh: the pooled 1M with ``refresh_interval=12``, 48 steps
+    (2 refreshes, 1 rebuild; refresh, rebuild and plain step times), and
+    phase 5's protocol at tau = 23 with and without refreshes (median with
+    them no worse, ``tests/test_bh_window.py:452``);
+16. the pooled finishes at 1M from one state and one set of
+    accelerations: cell-id, ranges, values + ``build_pool`` (rebuild times,
+    equal far_n, pooled evals within 1e-4 of max|a|);
+17. the dense eval's row, column and matrix kernels through
+    ``tools/eval_ab.py`` at 1M (launches counted from zero over its run),
+    then each against its own plain version on the K = 0 and K = 8 lists
+    (1e-4 of max|a|), CUDA-event times, pairs a second and the bound; the
+    matrix form's distance from the row form (report, fails above 1e-3);
+18. the exact engine: ``NBodySimulation(num_bodies=1_000_000,
+    config=NBODY.replace(engine="exact"))``, 5 steps, and its force error
+    on 4,096 bodies against the all-pairs kernel's direct sum, beside the
+    window engine's on the same state.
+
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -223,17 +246,6 @@ def galaxy(n, seed, device):
             torch.as_tensor(m.astype(np.float32), device=device))
 
 
-def sorted_padded(lists, pos, mass):
-    """Original-order state -> the (3, npad)/(npad,) sorted kernel input."""
-    import torch
-    n = pos.shape[1]
-    o = lists.order[:n].long()
-    pad = lists.order.shape[0] - n
-    s_pos = torch.cat([pos[:, o], pos[:, o[-1:]].expand(3, pad)], 1)
-    s_mass = torch.cat([mass[o], mass.new_zeros(pad)])
-    return s_pos.contiguous(), s_mass
-
-
 def direct_accel(targets, pos, mass, G, softening, chunk=64):
     """Plain O(N*k) direct sum at ``targets`` (3, k) over all sources."""
     import torch
@@ -353,9 +365,10 @@ def report_steps(label, step_s):
 
 
 def require_mass_conserved(st, config, label):
-    """Every group's window mass plus its far entries' mass (row 6, up to
+    """Every group's window mass, plus its near groups' mass (when the
+    lists carry a near table), plus its far entries' mass (row 6, up to
     far_n) equals the total mass within 1e-4 relative: each body lies in
-    exactly one of window, entry, sliver or residual."""
+    exactly one of window, near group, entry, sliver or residual."""
     import torch
     lists = st.lists
     gsz, wg = config.group_size, config.window_groups
@@ -368,6 +381,10 @@ def require_mass_conserved(st, config, label):
     g = torch.arange(ng, device=gm.device)
     window = (c[torch.clamp(g + wg, max=ng - 1) + 1]
               - c[torch.clamp(g - wg, min=0)])
+    if lists.near is not None:
+        nb = lists.near.long()
+        window = window + torch.where((nb >= 0) & (nb < ng),
+                                      gm[nb.clamp(0, ng - 1)], 0.0).sum(1)
     live = (torch.arange(L, device=gm.device)[None, :]
             < lists.far_n.long()[:, None])
     far_m = torch.where(live, lists.far[:, 6], 0.0)
@@ -394,6 +411,20 @@ def force_errors(approx, exact):
     rel = err / mag.clamp(min=1e-12)
     return (float(rel.pow(2).mean().sqrt()), float(rel.median()),
             float(err.pow(2).mean().sqrt() / mag.pow(2).mean().sqrt()))
+
+
+def warmed_state(bw, pos, vel, mass, config):
+    """Phase 5's protocol start: 5 warm-up steps at rebuild interval 4,
+    so the lists carry real cell accelerations (lists 1 step old)."""
+    st = bw.init_window_state(pos, vel, mass, config)
+    return bw.make_window_step(config.replace(rebuild_interval=4), N_MAIN,
+                               substeps=5)(st, DT)
+
+
+def original_order(st):
+    """A window state's (pos, vel, mass) in original body order."""
+    inv = st.lists.inv_order.long()
+    return st.pos[:, inv], st.vel[:, inv], st.mass[inv]
 
 
 def run_recorder(args, rec_root):
@@ -445,8 +476,11 @@ def main() -> int:
     from spatialsim_tpu_torch.ops.allpairs import (
         allpairs_accel, allpairs_accel_reference)
     from spatialsim_tpu_torch.ops.bh_eval_kernel import (
-        window_eval, window_eval_pool, window_eval_pool_reference)
+        window_eval, window_eval_cols, window_eval_mxu, window_eval_pool,
+        window_eval_pool_reference)
     from spatialsim_tpu_torch.ops import bh_window as bw
+    from spatialsim_tpu_torch.ops.barnes_hut import barnes_hut_accel
+    from spatialsim_tpu_torch.tools import eval_ab
     from spatialsim_tpu_torch.models.nbody import NBodySimulation
     from spatialsim_tpu_torch.config.nbody import NBODY, resolve_config
     from spatialsim_tpu_torch.presets import get_preset_config
@@ -530,7 +564,7 @@ def main() -> int:
           f"pool {tuple(lists.pool.shape)}  "
           f"far_n mean {float(lists.far_n.float().mean()):.1f} "
           f"max {int(lists.far_n.max())}")
-    s_pos, s_mass = sorted_padded(lists, pos, mass)
+    s_pos, s_mass = eval_ab.sorted_inputs(lists, pos, mass)
     # Pairs the kernel evaluates: every window group in range, plus every
     # slot of the group's ceil(far_n/tile) tiles.
     gsz, wg, tile = cal.group_size, cal.window_groups, lists.pool.shape[2]
@@ -635,8 +669,7 @@ def main() -> int:
     def errors(st, fresh_too):
         """Errors of the state's own (aged) lists, and of fresh lists
         built from the same state, at ``idx`` in original body order."""
-        inv = st.lists.inv_order.long()
-        pos_o, vel_o, mass_o = st.pos[:, inv], st.vel[:, inv], st.mass[inv]
+        pos_o, vel_o, mass_o = original_order(st)
         exact = direct_accel(pos_o[:, idx], pos_o, mass_o, cal.G,
                              cal.softening)
         age = st.lists.steps_since
@@ -661,9 +694,7 @@ def main() -> int:
     # 5 warm-up steps at interval 4 so the lists carry real cell
     # accelerations, then frozen lists aged to the end of an interval.
     pos, vel, mass = galaxy(N_MAIN, 0, dev)
-    st = bw.init_window_state(pos, vel, mass, sim.config)
-    st = bw.make_window_step(sim.config.replace(rebuild_interval=4), N_MAIN,
-                             substeps=5)(st, DT)
+    st = warmed_state(bw, pos, vel, mass, sim.config)
     frozen = bw.make_window_step(sim.config.replace(rebuild_interval=10 ** 6),
                                  N_MAIN, substeps=22)
     proto = errors(st, True)
@@ -908,7 +939,7 @@ def main() -> int:
           f"{time.perf_counter() - t:.3f}  far {tuple(qlists.far.shape)}  "
           f"far_n mean {float(qlists.far_n.float().mean()):.1f} max "
           f"{int(qlists.far_n.max())}")
-    s_pos, s_mass = sorted_padded(qlists, pos, mass)
+    s_pos, s_mass = eval_ab.sorted_inputs(qlists, pos, mass)
     for ss in (0, 23):
         check_dense(kernels, f"1M quadrupole R=16, steps_since={ss}",
                     qlists, s_pos, s_mass, None, ss, ekw)
@@ -929,7 +960,7 @@ def main() -> int:
           f"{time.perf_counter() - t:.3f}  far {tuple(dlists.far.shape)}")
     plists = rebuilt_lists(bw, st, cal, acc)
     del st, acc
-    s_pos, s_mass = sorted_padded(dlists, pos, mass)
+    s_pos, s_mass = eval_ab.sorted_inputs(dlists, pos, mass)
     check_dense(kernels, "1M dense R=10, steps_since=23", dlists, s_pos,
                 s_mass, None, 23, ekw)
 
@@ -995,7 +1026,7 @@ def main() -> int:
     same = int((plists.far_n == dlists.far_n).sum())
     print(f"    far_n equal in {same} of {ng} groups")
     require(same == ng, f"far_n differs in {ng - same} groups")
-    s_pos, s_mass = sorted_padded(dlists, pos, mass)
+    s_pos, s_mass = eval_ab.sorted_inputs(dlists, pos, mass)
     for ss in (0, 23):
         a_pool = window_eval_pool(s_pos, s_mass, plists.pool, plists.pstart,
                                   plists.far_n, ss, DT, **ekw)
@@ -1042,11 +1073,8 @@ def main() -> int:
     # (c) Phase 5's protocol (5 warm-up steps at interval 4 so the lists
     # carry real cell accelerations), then fresh quadrupole and monopole
     # lists of the same state against a direct sum.
-    st = bw.init_window_state(pos, vel, mass, qcal)
-    st = bw.make_window_step(qcal.replace(rebuild_interval=4), N_MAIN,
-                             substeps=5)(st, DT)
-    inv = st.lists.inv_order.long()
-    pos_o, vel_o, mass_o = st.pos[:, inv], st.vel[:, inv], st.mass[inv]
+    st = warmed_state(bw, pos, vel, mass, qcal)
+    pos_o, vel_o, mass_o = original_order(st)
     exact = direct_accel(pos_o[:, idx], pos_o, mass_o, cal.G, cal.softening)
     errs = {}
     for label, c in (("quadrupole", qcal), ("monopole", cal)):
@@ -1099,8 +1127,7 @@ def main() -> int:
     # Force error on 4,096 bodies: the run's own lists, and fresh lists of
     # the same state (no staleness: what theta 1.5 and list cap 2048 give).
     st = sim50.state
-    inv = st.lists.inv_order.long()
-    pos_o, vel_o, mass_o = st.pos[:, inv], st.vel[:, inv], st.mass[inv]
+    pos_o, vel_o, mass_o = original_order(st)
     idx50 = torch.as_tensor(np.sort(np.random.default_rng(1).choice(
         n50, N_SAMPLE, replace=False)), device=dev)
     t = time.perf_counter()
@@ -1119,7 +1146,7 @@ def main() -> int:
         print(f"    force error, {label}: rms of |da|/|a| {rms:.4%}  "
               f"median {med:.4%}  rms|da|/rms|a| {ratio:.4%}")
         require(np.isfinite([rms, med, ratio]).all(), (rms, med, ratio))
-    del st, inv, pos_o, vel_o, mass_o, exact, fresh
+    del st, pos_o, vel_o, mass_o, exact, fresh
 
     # Where the device time goes: the next rebuild step, then 4 plain steps.
     for _ in range(sim50.config.rebuild_interval - 2):
@@ -1142,6 +1169,261 @@ def main() -> int:
         check_frame(rec_root / "smoke_50m", 1, n50)
     done(t0)
 
+    counted = (allpairs_accel, window_eval_pool, window_eval,
+               window_eval_cols, window_eval_mxu, boids_window_accumulate)
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in counted if fn.launches}
+
+    pos, vel, mass = galaxy(N_MAIN, 0, dev)
+
+    # ---- 14. near groups --------------------------------------------------
+    t0 = phase("14. near groups: NBodySimulation at 1M with near_groups=8")
+    zero_counts()
+    t = time.perf_counter()
+    nsim = NBodySimulation(num_bodies=N_MAIN,
+                           config=NBODY.replace(near_groups=8),
+                           device="cuda")
+    torch.cuda.synchronize()
+    print(f"    init seconds {time.perf_counter() - t:.3f}: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in nsim.setup_seconds.items()))
+    nl = nsim.state.lists
+    ng = nl.far_n.shape[0]
+    require(nl.pool is None and nl.far.shape[1] == 10
+            and tuple(nl.near.shape) == (ng, 8), "near-group layout")
+    print(f"    far {tuple(nl.far.shape)}  near {tuple(nl.near.shape)}, "
+          f"{float((nl.near >= 0).float().mean()):.4f} of the slots filled")
+    require_mass_conserved(nsim.state, nsim.config, "K=8, first build")
+    step_s = timed_steps(nsim.update, STEPS, DT)
+    near_launches = window_eval.launches
+    print(f"    launches in the near-group main path: {counts()}")
+    report_steps("1M near groups K=8", step_s)
+    print(f"    (the pooled K=0 main path, phase 4: median step "
+          f"{plain_step * 1e3:.3f} ms, rebuild step "
+          f"{rebuild_step * 1e3:.3f} ms)")
+    require(near_launches == STEPS and window_eval_pool.launches == 0,
+            counts())
+    require(nsim.rebuilds == 1, f"rebuilds {nsim.rebuilds}")
+    for name, t_ in (("pos", nsim.state.pos), ("vel", nsim.state.vel)):
+        require(t_.shape == (3, N_MAIN) and bool(torch.isfinite(t_).all()),
+                f"near-group {name} finite, shape {tuple(t_.shape)}")
+    require_mass_conserved(nsim.state, nsim.config, "K=8, rebuild at step 25")
+    del nsim, nl
+
+    # Phase 5's protocol: fresh K=0 and K=8 lists of one warmed state (the
+    # JAX bar, tests/test_bh_window.py:359), then each configuration's own
+    # lists aged to tau=23 (reported).
+    cal8 = cal.replace(near_groups=8)
+    st = warmed_state(bw, pos, vel, mass, cal)
+    pos_o, vel_o, mass_o = original_order(st)
+    exact = direct_accel(pos_o[:, idx], pos_o, mass_o, cal.G, cal.softening)
+    fresh = {}
+    for label, c in (("K=0", cal), ("K=8", cal8)):
+        kw = dict(bw._build_kw(c), pool_tile=0)
+        fl = bw.build_lists(pos_o, vel_o, mass_o, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fl = bw.build_lists(pos_o, vel_o, mass_o, **kw)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t) * 1e3
+        fresh[label] = force_errors(
+            bw.eval_accel(fl, pos_o, mass_o, 0.0, **ekw)[:, idx], exact)
+        rms, med, ratio = fresh[label]
+        print(f"    fresh {label} dense lists: build {build_ms:.3f} ms, far_n "
+              f"mean {float(fl.far_n.float().mean()):.1f}; rms of |da|/|a| "
+              f"{rms:.4%}  median {med:.4%}  rms|da|/rms|a| {ratio:.4%}")
+        del fl
+    for label, c in (("K=0", cal), ("K=8", cal8)):
+        st = warmed_state(bw, pos, vel, mass, c)
+        st = bw.make_window_step(c.replace(rebuild_interval=10 ** 6), N_MAIN,
+                                 substeps=22)(st, DT)
+        require(st.lists.steps_since == 23, st.lists.steps_since)
+        p_o, _, m_o = original_order(st)
+        ex = direct_accel(p_o[:, idx], p_o, m_o, cal.G, cal.softening)
+        rms, med, ratio = force_errors(
+            bw.eval_accel(st.lists, p_o, m_o, DT, **ekw)[:, idx], ex)
+        print(f"    {label} lists 23 steps old: rms of |da|/|a| {rms:.4%}  "
+              f"median {med:.4%}  rms|da|/rms|a| {ratio:.4%}")
+    m0, m8 = fresh["K=0"][1], fresh["K=8"][1]
+    print(f"    median ratio K=8 / K=0 (fresh) {m8 / m0:.4f} (limit 1.05)")
+    require(m8 <= 1.05 * m0 + 1e-5, fresh)
+    del st, exact, ex
+    done(t0)
+
+    # ---- 15. moment refresh -----------------------------------------------
+    t0 = phase("15. moment refresh: the pooled 1M with refresh_interval=12")
+    zero_counts()
+    rsim = NBodySimulation(num_bodies=N_MAIN,
+                           config=NBODY.replace(refresh_interval=12),
+                           device="cuda")
+    step_s = timed_steps(rsim.update, STEPS, DT)
+    refresh_launches = window_eval_pool.launches
+    print(f"    launches: {counts()}; refreshes {rsim.refreshes}, rebuilds "
+          f"{rsim.rebuilds}")
+    # Refreshes run before steps 13 and 37, the rebuild before step 25.
+    kinds = {12: "refresh", 36: "refresh", 24: "rebuild"}
+    plain = sorted(s_ for k, s_ in enumerate(step_s) if k not in kinds)
+    print(f"    median plain step {plain[len(plain) // 2] * 1e3:.3f} ms; "
+          + "; ".join(f"{kinds[k]} step {k + 1} {step_s[k] * 1e3:.3f} ms"
+                      for k in sorted(kinds))
+          + f"; {STEPS} steps in {sum(step_s):.3f} s")
+    require(rsim.refreshes == 2 and rsim.rebuilds == 1,
+            (rsim.refreshes, rsim.rebuilds))
+    require(refresh_launches == STEPS and window_eval.launches == 0,
+            counts())
+    require(bool(torch.isfinite(rsim.state.pos).all()), "refresh state")
+    del rsim
+    # Phase 5's protocol at tau=23, with and without refreshes between.
+    aged = {}
+    for riv in (0, 12):
+        c = cal.replace(refresh_interval=riv)
+        st = warmed_state(bw, pos, vel, mass, c)
+        step22 = bw.make_window_step(c.replace(rebuild_interval=10 ** 6),
+                                     N_MAIN, substeps=22)
+        st = step22(st, DT)
+        p_o, _, m_o = original_order(st)
+        ex = direct_accel(p_o[:, idx], p_o, m_o, cal.G, cal.softening)
+        aged[riv] = force_errors(
+            bw.eval_accel(st.lists, p_o, m_o, DT, **ekw)[:, idx], ex)
+        rms, med, ratio = aged[riv]
+        print(f"    refresh_interval={riv}: {step22.refreshes} refreshes, "
+              f"lists {st.lists.steps_build} steps from their build, "
+              f"{st.lists.steps_since} from the last refresh: rms of |da|/|a| "
+              f"{rms:.4%}  median {med:.4%}  rms|da|/rms|a| {ratio:.4%}")
+    require(aged[12][1] <= aged[0][1] + 1e-6, aged)
+    del st, ex
+    done(t0)
+
+    # ---- 16. pooled finishes ----------------------------------------------
+    t0 = phase("16. pooled finishes at 1M: cell-id, ranges, values + "
+               "build_pool")
+    st = bw.init_window_state(pos, vel, mass, cal)
+    acc = bw.eval_accel_sorted(st.lists, st.pos, st.mass, DT, **ekw)
+    finishes = {}
+    for mode in ("cellid", "ranges", "values"):
+        c = cal.replace(traversal_emit=mode)
+        best = float("inf")
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lists = rebuilt_lists(bw, st, c, acc)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        finishes[mode] = lists
+        print(f"    {mode}: rebuild {best * 1e3:.3f} ms (faster of 2)  pool "
+              f"{tuple(lists.pool.shape)}  far_n mean "
+              f"{float(lists.far_n.float().mean()):.1f}")
+    ref = finishes["cellid"]
+    s_pos, s_mass = eval_ab.sorted_inputs(ref, pos, mass)
+    for mode in ("ranges", "values"):
+        lists = finishes[mode]
+        same = int((lists.far_n == ref.far_n).sum())
+        require(torch.equal(lists.order, ref.order) and same == ng,
+                f"{mode}: far_n equal in {same} of {ng} groups")
+        for ss in (0, 23):
+            a_ref = window_eval_pool(s_pos, s_mass, ref.pool, ref.pstart,
+                                     ref.far_n, ss, DT, **ekw)
+            a = window_eval_pool(s_pos, s_mass, lists.pool, lists.pstart,
+                                 lists.far_n, ss, DT, **ekw)
+            torch.cuda.synchronize()
+            abs_err, err = kernel_errors(a, a_ref)
+            print(f"    {mode} vs cell-id, steps_since={ss}: far_n equal in "
+                  f"{same} of {ng} groups; max|da| {abs_err:.3e}, "
+                  f"max|da|/max|a| {err:.3e} (tol {TOL_WINDOW})")
+            require(err <= TOL_WINDOW, f"{mode} finish: {err}")
+    del st, acc, finishes, ref, lists, s_pos, s_mass, a, a_ref
+    torch.cuda.empty_cache()
+    done(t0)
+
+    # ---- 17. the eval forms -------------------------------------------------
+    t0 = phase("17. the dense eval's row, column and matrix forms: "
+               "tools/eval_ab.py at 1M")
+    zero_counts()
+    ab = eval_ab.run(N_MAIN, near_groups=8, reps=3, device="cuda",
+                     out=lambda s: print("    " + s))
+    ab_launches = counts()
+    print(f"    launches in the A/B run: {ab_launches}")
+    require(window_eval_cols.launches > 0 and window_eval_mxu.launches > 0,
+            ab_launches)
+    acfg = ab["cfg"]
+    for K, lists in ab["lists"].items():
+        s_pos, s_mass = eval_ab.sorted_inputs(lists, ab["pos"], ab["mass"])
+        outs = {}
+        for form in ("row", "cols", "mxu"):
+            def kern():
+                return eval_ab.run_form(form, lists, s_pos, s_mass, acfg, 23)
+
+            def plain():
+                return eval_ab.run_form(form, lists, s_pos, s_mass, acfg, 23,
+                                        plain=True)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            abs_err, err = kernel_errors(got, want)
+            ms = cuda_ms(kern, 5)
+            plain_ms = cuda_ms(plain, 1)
+            pairs, ops, nbytes = eval_ab.form_work(form, lists, acfg)
+            b_ms, b_by = bound(ops, nbytes)
+            print(f"    K={K} {form}: max|da| {abs_err:.3e}, max|da|/max|a| "
+                  f"{err:.3e} (tol {TOL_WINDOW}); kernel {ms:.4f} ms for "
+                  f"{pairs:.4e} pairs = {pairs / ms / 1e6:.1f} Gpairs/s "
+                  f"({eval_ab.OPS_PER_PAIR[form]:.0f} FP32 operations a "
+                  f"pair); bound {b_ms:.4f} ms ({b_by}); plain "
+                  f"{plain_ms:.4f} ms")
+            require(err <= TOL_WINDOW, f"K={K} {form}: {err}")
+            name = "window_eval" if form == "row" else f"window_eval_{form}"
+            record_kernel(kernels, name, abs_err, err, ms, plain_ms, ops,
+                          nbytes)
+            outs[form] = got
+        _, d_mxu = kernel_errors(outs["mxu"], outs["row"])
+        _, d_cols = kernel_errors(outs["cols"], outs["row"])
+        print(f"    K={K}: the matrix form differs from the row form by "
+              f"{d_mxu:.3e} of max|a| (report; fails above 1e-3), the column "
+              f"form by {d_cols:.3e}")
+        require(d_mxu <= 1e-3, f"K={K}: mxu vs row {d_mxu}")
+    del ab, lists, s_pos, s_mass, outs, got, want
+    torch.cuda.empty_cache()
+    done(t0)
+
+    # ---- 18. the exact engine -----------------------------------------------
+    t0 = phase("18. the exact engine: NBodySimulation at 1M, engine='exact'")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    esim = NBodySimulation(num_bodies=N_MAIN,
+                           config=NBODY.replace(engine="exact"),
+                           device="cuda")
+    step_s = timed_steps(esim.update, 5, DT)
+    print(f"    5 steps: "
+          + ", ".join(f"{s_ * 1e3:.3f}" for s_ in step_s)
+          + f" ms; median {sorted(step_s)[2] * 1e3:.3f} ms; launches "
+            f"{counts()} (plain PyTorch ops); peak device memory GB "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    require(esim.engine == "exact" and not counts(), counts())
+    st = esim.state
+    require(bool(torch.isfinite(st.pos).all()), "exact engine state")
+    t = time.perf_counter()
+    exact = allpairs_accel(st.pos, st.mass, cal.G, cal.softening)[:, idx]
+    exact = exact.double()
+    torch.cuda.synchronize()
+    print(f"    all-pairs kernel direct sum at 1M: "
+          f"{time.perf_counter() - t:.3f} s")
+    a_bh = barnes_hut_accel(st.pos, st.mass, esim.config)[:, idx]
+    fl = bw.build_lists(st.pos, st.vel, st.mass, **bw._build_kw(cal))
+    a_win = bw.eval_accel(fl, st.pos, st.mass, 0.0, **ekw)[:, idx]
+    for label, a in (("exact engine", a_bh), ("window engine, fresh lists",
+                                              a_win)):
+        rms, med, ratio = force_errors(a, exact)
+        print(f"    {label}: rms of |da|/|a| {rms:.4%}  median {med:.4%}  "
+              f"rms|da|/rms|a| {ratio:.4%}")
+        require(np.isfinite([rms, med, ratio]).all(), (label, rms))
+    del esim, st, exact, a_bh, fl, a_win, pos, vel, mass
+    torch.cuda.empty_cache()
+    done(t0)
+
     print(f"\ntotal seconds: {time.perf_counter() - wall0:.3f}")
     src = "spatialsim_tpu_torch/csrc"
     summary = {"kernels": [
@@ -1151,7 +1433,7 @@ def main() -> int:
         dict(name="window_eval_pool", route="cuda",
              source=f"{src}/window_eval_pool.cu",
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:313",
-             launches=launches["window_eval_pool"],
+             launches=launches["window_eval_pool"] + refresh_launches,
              **kernels["window_eval_pool"]),
         dict(name="boids_window", route="cuda",
              source=f"{src}/boids_window.cu",
@@ -1161,8 +1443,19 @@ def main() -> int:
         dict(name="window_eval", route="cuda",
              source=f"{src}/window_eval.cu",
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:432",
-             launches=quad_launches + launches_50m,
+             launches=(quad_launches + launches_50m + near_launches
+                       + ab_launches.get("window_eval", 0)),
              **kernels["window_eval"]),
+        dict(name="window_eval_cols", route="cuda",
+             source=f"{src}/window_eval_cols.cu",
+             replaces="spatialsim_tpu/ops/bh_eval_kernel.py:182",
+             launches=ab_launches["window_eval_cols"],
+             **kernels["window_eval_cols"]),
+        dict(name="window_eval_mxu", route="cuda",
+             source=f"{src}/window_eval_mxu.cu",
+             replaces="spatialsim_tpu/ops/bh_eval_kernel.py:255",
+             launches=ab_launches["window_eval_mxu"],
+             **kernels["window_eval_mxu"]),
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

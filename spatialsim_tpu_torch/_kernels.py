@@ -39,7 +39,11 @@ SIGNATURES = {
                                     _I, _I, _F, _F, _F, _F, _P),
     "spatialsim_window_eval": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _F, _F, _F, _F, _P),
-    "spatialsim_boids_window": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+    "spatialsim_window_eval_cols": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    "spatialsim_window_eval_mxu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    "spatialsim_boids_window":(_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                                 _P),
 }
 

@@ -3,10 +3,11 @@
 
 The engine is picked by body count as in the JAX package: the all-pairs
 CUDA kernel up to ``allpairs_threshold`` (32,768), the windowed Barnes-Hut
-engine (``ops/bh_window.py``) above it.  State lives on ``device`` as
-component-major ``(3, N)`` float32 tensors; the window engine keeps it
-Morton-sorted and maps back through ``lists.inv_order`` for every
-host-facing read.  Initial conditions come from the numpy generators in
+engine (``ops/bh_window.py``) above it; ``engine="exact"`` forces the
+per-step group traversal of ``ops/barnes_hut.py``.  State lives on
+``device`` as component-major ``(3, N)`` float32 tensors; the window
+engine keeps it Morton-sorted and maps back through ``lists.inv_order``
+for every host-facing read.  Initial conditions come from the numpy generators in
 the port's ``distributions`` (a copy of the JAX package's, bit-identical
 for a ``seed``); the step itself has no randomness.
 """
@@ -28,7 +29,8 @@ from spatialsim_tpu_torch.ops.integrator import integrate
 
 
 class NBodyState(NamedTuple):
-    """All-pairs engine state.  pos/vel: (3, N) f32; mass: (N,) f32."""
+    """All-pairs and exact engine state.  pos/vel: (3, N) f32; mass: (N,)
+    f32."""
 
     pos: torch.Tensor
     vel: torch.Tensor
@@ -48,22 +50,29 @@ def make_step_fn(config: NBodyConfig, n: int, substeps: int = 1,
     """Multi-substep step: ``step(state, dt) -> state``.
 
     ``dt`` is the per-substep timestep.  The window engine's step takes and
-    returns a ``WindowBHState``; the all-pairs one an :class:`NBodyState`.
+    returns a ``WindowBHState``; the all-pairs and exact ones an
+    :class:`NBodyState`.
     """
     config = resolve_config(config, n)
     engine = engine or resolve_engine(config, n)
     if engine == "window":
         from spatialsim_tpu_torch.ops.bh_window import make_window_step
         return make_window_step(config, n, substeps)
-    if engine != "allpairs":
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet: see ROADMAP.md, Queue 1 "
-            f"item 9 (the exact per-step engine)")
-    G, softening, damping = config.G, config.softening, config.damping
+    if engine == "allpairs":
+        def accel(pos, mass):
+            return allpairs_accel(pos, mass, config.G, config.softening)
+    elif engine == "exact":
+        from spatialsim_tpu_torch.ops.barnes_hut import barnes_hut_accel
+
+        def accel(pos, mass):
+            return barnes_hut_accel(pos, mass, config)
+    else:
+        raise ValueError(f"unknown engine {engine!r}")
+    damping = config.damping
 
     def step(state: NBodyState, dt: float) -> NBodyState:
         for _ in range(substeps):
-            acc = allpairs_accel(state.pos, state.mass, G, softening)
+            acc = accel(state.pos, state.mass)
             pos, vel = integrate(state.pos, state.vel, acc, float(dt),
                                  damping)
             state = NBodyState(pos, vel, state.mass)
@@ -168,6 +177,11 @@ class NBodySimulation:
     def rebuilds(self) -> int:
         """List rebuilds the step has run (0 for the all-pairs engine)."""
         return getattr(self._step, "rebuilds", 0)
+
+    @property
+    def refreshes(self) -> int:
+        """Moment refreshes the step has run (``refresh_interval > 0``)."""
+        return getattr(self._step, "refreshes", 0)
 
     def _original(self, arr):
         """Tensor mapped to original body order (axis 1 = bodies)."""

@@ -11,9 +11,22 @@ d/r^7``.  G multiplies once at the end.  Two far layouts:
 * pooled ``(ct, 16, tile)`` tiles from ``pstart[g]`` (the default path):
   :func:`window_eval_pool_reference` (plain PyTorch) and
   :func:`window_eval_pool` (the wrapper of ``csrc/window_eval_pool.cu``);
-* dense ``(ng, R, L)`` rows (above 20.5M bodies, and for the quadrupole):
-  :func:`window_eval_reference` and :func:`window_eval` (the wrapper of
-  ``csrc/window_eval.cu``).
+* dense ``(ng, R, L)`` rows (above 20.5M bodies, the quadrupole and near
+  groups): :func:`window_eval_reference` and :func:`window_eval` (the
+  wrapper of ``csrc/window_eval.cu``), which also selects the two other
+  forms of the JAX package's dense call for monopole rows:
+
+  - the column form (``use_cols``): the same pair law, summed into 8
+    interleaved partial sums per target (source index mod 8) that are
+    added once per group, over whole ``far_tile`` tiles of entries:
+    :func:`window_eval_cols_reference` and :func:`window_eval_cols`
+    (``csrc/window_eval_cols.cu``);
+  - the matrix form (``use_mxu``): ``a = G (sum w s_c - t_c sum w)`` on
+    coordinates centred on the group's mean, with ``d^2 = |t_c|^2 +
+    |s_c|^2 - 2 t_c.s_c + eps^2`` and ``w = m rsqrt(max(d^2, eps^2))^3``
+    (no gate: the self pair cancels): :func:`window_eval_mxu_reference` and
+    :func:`window_eval_mxu` (``csrc/window_eval_mxu.cu``).  It is its own
+    function, not the row form's: its d^2 cancels in float32.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version for CPU tensors.  The plain versions chunk over groups (a
@@ -218,11 +231,69 @@ def _quad_sum(tx, ty, tz, sx, sy, sz, sm, q6, soft_sq):
             (cw * dz - inv5 * qdz).sum(2))
 
 
+
+
+def _dense_chunks(s_pos, s_mass, near, n_far, gsz, wg, groups):
+    """Chunks of the dense eval's groups, for the plain versions.
+
+    Yields ``(c0, g, t, src)``: the chunk's offset in the output, its group
+    ids ``g`` (C,), targets ``t`` ``(3, C, gsz)`` and window + near sources
+    ``src`` ``(4, C, (2*wg+1+K)*gsz)`` rows [x, y, z, m].  Window groups past
+    either end and "none" near ids (< 0 or >= ng) read a zero block, as
+    the TPU kernel does.  ``n_far`` far slots a group bound the chunk so
+    that pairwise temporaries stay near ``_PAIRS_PER_CHUNK`` elements.
+    """
+    dev = s_pos.device
+    npad = s_pos.shape[1]
+    ng = npad // gsz
+    K = 0 if near is None else near.shape[1]
+    gids = (torch.arange(ng, device=dev) if groups is None
+            else torch.as_tensor(groups, device=dev).long().reshape(-1))
+    # Block h of P4 holds group h - wg; block ng + 2*wg is all zero.
+    P4 = torch.nn.functional.pad(torch.cat([s_pos, s_mass[None, :]], 0),
+                                 (wg * gsz, (wg + 1) * gsz))
+    zero_block = ng + 2 * wg
+    S = (2 * wg + 1 + K) * gsz + n_far
+    chunk = max(1, _PAIRS_PER_CHUNK // (gsz * S))
+    lane = torch.arange(gsz, device=dev)
+    for c0 in range(0, gids.numel(), chunk):
+        g = gids[c0:c0 + chunk]
+        C = g.numel()
+        t = s_pos[:, (g[:, None] * gsz + lane).reshape(-1)].reshape(3, C, gsz)
+        blocks = [g + k for k in range(2 * wg + 1)]
+        if K:
+            nb = near[g].long()
+            blocks += list(torch.where((nb >= 0) & (nb < ng), nb + wg,
+                                       torch.full_like(nb, zero_block)).T)
+        cols = (torch.stack(blocks, 1)[:, :, None] * gsz + lane).reshape(C, -1)
+        yield c0, g, t, P4[:, cols]
+
+
+def _far_sources(far, g, n_use, n_slots, tau, coef2):
+    """Stored far entries of groups ``g``, slots ``[0, n_slots)``, advanced
+    to now: ``(fx, fy, fz)``, the mass with slots past ``n_use`` zeroed,
+    and the quadrupole rows (None for monopole rows), each ``(C, n_slots)``.
+    """
+    R = far.shape[1]
+    quad, acc0 = far_layout(R)
+    fe = far[g, :, :n_slots]                                  # (C, R, n)
+    keep = (torch.arange(n_slots, device=far.device)[None, :]
+            < n_use[g][:, None])
+    fp = [fe[:, r] + fe[:, 3 + r] * tau for r in range(3)]
+    if acc0 is not None:
+        fp = [fp[r] + fe[:, acc0 + r] * coef2 for r in range(3)]
+    fm = torch.where(keep, fe[:, 6], torch.zeros_like(fe[:, 6]))
+    q6 = ([torch.where(keep, fe[:, 7 + r], torch.zeros_like(fm))
+           for r in range(6)] if quad else None)
+    return fp, fm, q6
+
+
 def window_eval_reference(s_pos, s_mass, far, far_n, near=None,
                           steps_since=0, dt=0.0, *, G, softening,
                           group_size=256, window_groups=2, tau_clamp=24.0,
                           groups=None):
-    """Plain-tensor window + near groups + dense far-list accelerations.
+    """Plain-tensor window + near groups + dense far-list accelerations:
+    the row form, ``_eval_kernel``.
 
     Args:
       s_pos: ``(3, npad)`` f32, Morton-sorted, ``npad = ng * group_size``.
@@ -234,92 +305,147 @@ def window_eval_reference(s_pos, s_mass, far, far_n, near=None,
     Returns:
       ``(3, npad)`` f32 accelerations in sorted order, or ``(3,
       len(groups) * group_size)`` for ``groups``, group by group.
-
-    Window groups past either end and "none" near ids read a zero block,
-    as the TPU kernel does.  Chunks of groups bound the pairwise
-    temporaries near ``_PAIRS_PER_CHUNK`` elements.
     """
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
-    gsz, wg = group_size, window_groups
-    npad = s_pos.shape[1]
-    ng = npad // gsz
-    R, L = far.shape[1], far.shape[2]
-    quad, acc0 = far_layout(R)
+    gsz = group_size
+    L = far.shape[2]
     soft_sq = float(softening) ** 2
-    dev = s_pos.device
-    K = 0 if near is None else near.shape[1]
-    gids = (torch.arange(ng, device=dev) if groups is None
-            else torch.as_tensor(groups, device=dev).long().reshape(-1))
-    # Block h of P4 holds group h - wg; block ng + 2*wg is all zero.
-    P4 = torch.nn.functional.pad(torch.cat([s_pos, s_mass[None, :]], 0),
-                                 (wg * gsz, (wg + 1) * gsz))
-    zero_block = ng + 2 * wg
     n_use = far_n.long().clamp(0, L)
-    Lm = max(1, int(n_use[gids].max()))
-    S = (2 * wg + 1 + K) * gsz + Lm
-    chunk = max(1, _PAIRS_PER_CHUNK // (gsz * S))
-    lane = torch.arange(gsz, device=dev)
-    slot = torch.arange(Lm, device=dev)
-    out = torch.empty((3, gids.numel() * gsz), dtype=s_pos.dtype, device=dev)
-    for c0 in range(0, gids.numel(), chunk):
-        g = gids[c0:c0 + chunk]
-        C = g.numel()
-        t = s_pos[:, (g[:, None] * gsz + lane).reshape(-1)].reshape(3, C, gsz)
-        blocks = [g + k for k in range(2 * wg + 1)]
-        if K:
-            nb = near[g].long()
-            blocks += list(torch.where((nb >= 0) & (nb < ng), nb + wg,
-                                       torch.full_like(nb, zero_block)).T)
-        cols = (torch.stack(blocks, 1)[:, :, None] * gsz + lane).reshape(C, -1)
-        src = P4[:, cols]                                  # (4, C, nb*gsz)
-        acc = list(_mono_sum(t[0], t[1], t[2], src[0], src[1], src[2],
-                             src[3], soft_sq))
-        fe = far[g, :, :Lm]                                # (C, R, Lm)
-        keep = slot[None, :] < n_use[g][:, None]
-        fp = [fe[:, r] + fe[:, 3 + r] * tau for r in range(3)]
-        if acc0 is not None:
-            fp = [fp[r] + fe[:, acc0 + r] * coef2 for r in range(3)]
-        fm = torch.where(keep, fe[:, 6], torch.zeros_like(fe[:, 6]))
-        if quad:
-            q6 = [torch.where(keep, fe[:, 7 + r], torch.zeros_like(fm))
-                  for r in range(6)]
-            fa = _quad_sum(t[0], t[1], t[2], *fp, fm, q6, soft_sq)
-        else:
-            fa = _mono_sum(t[0], t[1], t[2], *fp, fm, soft_sq)
-        out[:, c0 * gsz:(c0 + C) * gsz] = torch.stack(
-            [(a + b) * G for a, b in zip(acc, fa)]).reshape(3, C * gsz)
-    return out
+    gsel = (n_use if groups is None else
+            n_use[torch.as_tensor(groups, device=far.device).long()])
+    Lm = max(1, int(gsel.max()))
+    out = []
+    for _, g, t, src in _dense_chunks(s_pos, s_mass, near, Lm, gsz,
+                                      window_groups, groups):
+        acc = _mono_sum(t[0], t[1], t[2], src[0], src[1], src[2], src[3],
+                        soft_sq)
+        fp, fm, q6 = _far_sources(far, g, n_use, Lm, tau, coef2)
+        fa = (_quad_sum(t[0], t[1], t[2], *fp, fm, q6, soft_sq)
+              if q6 is not None else
+              _mono_sum(t[0], t[1], t[2], *fp, fm, soft_sq))
+        out.append(torch.stack([(a + b) * G for a, b in zip(acc, fa)])
+                   .reshape(3, -1))
+    return torch.cat(out, dim=1)
 
 
-def window_eval(s_pos, s_mass, far, far_n, near=None, steps_since=0, dt=0.0,
-                *, G, softening, group_size=256, window_groups=2,
-                tau_clamp=24.0):
-    """Window + near groups + dense far-list accelerations through the
-    CUDA kernel.
+def _tile_counts(far_n, L, far_tile):
+    """Far slots the column and matrix forms read per group: whole tiles
+    of ``min(far_tile, L)`` entries up to ``far_n``, clamped to ``L``."""
+    tile = min(int(far_tile), L)
+    n = (far_n.long().clamp(0, L) + tile - 1) // tile * tile
+    return n.clamp(max=L)
 
-    Same arguments and result as :func:`window_eval_reference` (no
-    ``groups``; ``far_n`` and ``near`` must be int32).  CPU tensors take
-    the plain version.  CUDA tensors launch ``csrc/window_eval.cu`` -- one
-    block of ``group_size`` threads per group -- on the current stream
-    without synchronising, and add one to ``window_eval.launches``.
+
+def _check_cols(L, gsz, far_tile):
+    if L % 8 or gsz % 8 or min(int(far_tile), L) % 8:
+        raise ValueError(f"the column form sums sources in runs of 8: the "
+                         f"list cap {L}, the group size {gsz} and the far "
+                         f"tile {far_tile} must be multiples of 8")
+
+
+def window_eval_cols_reference(s_pos, s_mass, far, far_n, near=None,
+                               steps_since=0, dt=0.0, *, G, softening,
+                               group_size=256, window_groups=2,
+                               tau_clamp=24.0, far_tile=512):
+    """Plain-tensor column form (``_eval_kernel_cols``), monopole rows
+    (R 8/10).
+
+    The row form's pair law, gated on ``d^2 > eps^2``, over the window,
+    the near groups and whole ``far_tile`` tiles of stored entries (slots
+    past ``far_n`` inside the last tile are read as stored; the build
+    leaves them zero).  Every target sums its sources into 8 partial sums
+    by source index mod 8 (within the window and near blocks, and within
+    the far list) and adds the 8 once at the end.  Arguments and result as
+    :func:`window_eval_reference` (no ``groups``).
     """
+    tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
+    gsz = group_size
+    L = far.shape[2]
+    _check_cols(L, gsz, far_tile)
+    soft_sq = float(softening) ** 2
+    n_use = _tile_counts(far_n, L, far_tile)
+    Lm = max(8, int(n_use.max()))
+    out = []
+    for _, g, t, src in _dense_chunks(s_pos, s_mass, near, Lm, gsz,
+                                      window_groups, None):
+        fp, fm, _ = _far_sources(far, g, n_use, Lm, tau, coef2)
+        sx, sy, sz, sm = (torch.cat([src[r], f], dim=1)
+                          for r, f in enumerate(fp + [fm]))
+        C, S = sx.shape
+        dx = sx[:, None, :] - t[0][:, :, None]                # (C, gsz, S)
+        dy = sy[:, None, :] - t[1][:, :, None]
+        dz = sz[:, None, :] - t[2][:, :, None]
+        r2 = dx * dx + dy * dy + dz * dz + soft_sq
+        inv = torch.rsqrt(r2)
+        w = torch.where(r2 > soft_sq, sm[:, None, :] * (inv * inv * inv),
+                        torch.zeros_like(r2))
+        out.append(torch.stack(
+            [(w * d).reshape(C, gsz, S // 8, 8).sum(2).sum(2) * G
+             for d in (dx, dy, dz)]).reshape(3, -1))
+    return torch.cat(out, dim=1)
+
+
+def window_eval_mxu_reference(s_pos, s_mass, far, far_n, near=None,
+                              steps_since=0, dt=0.0, *, G, softening,
+                              group_size=256, window_groups=2,
+                              tau_clamp=24.0, far_tile=512):
+    """Plain-tensor matrix form (``_eval_kernel_mxu``), monopole rows
+    (R 8/10).
+
+    Coordinates are centred on the mean of the group's ``gsz`` target slots
+    (the padding repeats included), summed in float64 and rounded once.
+    For targets ``t_c`` and sources ``s_c``: ``d^2 = ((|t_c|^2 + |s_c|^2)
+    - 2 t_c.s_c) + eps^2``, ``w = m * rsqrt(max(d^2, eps^2))^3`` (no gate),
+    ``a = G (sum w s_c - t_c sum w)``; the self pair cancels in the last
+    difference.  d^2 cancels in float32, so the centre and the dot products
+    (written out term by term) round exactly as the kernel rounds them; the
+    JAX package takes a float32 mean, which moves the result by ~5e-5 of
+    max|a| at 2K bodies.  Sources as :func:`window_eval_cols_reference`.
+    """
+    tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
+    gsz = group_size
+    L = far.shape[2]
+    soft_sq = float(softening) ** 2
+    n_use = _tile_counts(far_n, L, far_tile)
+    Lm = max(1, int(n_use.max()))
+    out = []
+    for _, g, t, src in _dense_chunks(s_pos, s_mass, near, Lm, gsz,
+                                      window_groups, None):
+        fp, fm, _ = _far_sources(far, g, n_use, Lm, tau, coef2)
+        center = (t.double().sum(dim=2, keepdim=True) / gsz).to(t.dtype)
+        tc = t - center
+        sc = [torch.cat([src[r], fp[r]], dim=1) - center[r] for r in range(3)]
+        sm = torch.cat([src[3], fm], dim=1)
+        ti_sq = (tc[0] * tc[0] + tc[1] * tc[1]) + tc[2] * tc[2]
+        ps_sq = (sc[0] * sc[0] + sc[1] * sc[1]) + sc[2] * sc[2]
+        cross = ((tc[0][:, :, None] * sc[0][:, None, :]
+                  + tc[1][:, :, None] * sc[1][:, None, :])
+                 + tc[2][:, :, None] * sc[2][:, None, :])    # (C, gsz, S)
+        d2 = ((ti_sq[:, :, None] + ps_sq[:, None, :]) - 2.0 * cross) + soft_sq
+        inv = torch.rsqrt(torch.clamp(d2, min=soft_sq))
+        w = sm[:, None, :] * (inv * inv * inv)
+        ws = w.sum(2)
+        out.append(torch.stack(
+            [((w * sc[r][:, None, :]).sum(2) - tc[r] * ws) * G
+             for r in range(3)]).reshape(3, -1))
+    return torch.cat(out, dim=1)
+
+
+def _dense_args(name, s_pos, s_mass, far, far_n, near, group_size, rows):
+    """Check a dense kernel's inputs on the card; returns (npad, ng, gsz,
+    K, R, L)."""
     dev = s_pos.device
-    if dev.type == "cpu":
-        return window_eval_reference(
-            s_pos, s_mass, far, far_n, near, steps_since, dt, G=G,
-            softening=softening, group_size=group_size,
-            window_groups=window_groups, tau_clamp=tau_clamp)
     if dev.type != "cuda":
-        raise ValueError(f"window_eval: unsupported device {dev}")
+        raise ValueError(f"{name}: unsupported device {dev}")
     gsz = int(group_size)
     npad = s_pos.shape[1]
     if gsz < 1 or gsz > 1024 or npad % gsz:
         raise ValueError(f"group_size {gsz} must divide npad {npad} and "
                          f"be <= 1024 (one thread per body)")
     ng = npad // gsz
-    if far.dim() != 3 or far.shape[0] != ng or far.shape[1] not in DENSE_ROWS:
-        raise ValueError(f"far must be (ng={ng}, R in {DENSE_ROWS}, L), got "
-                         f"{tuple(far.shape)}")
+    if far.dim() != 3 or far.shape[0] != ng or far.shape[1] not in rows:
+        raise ValueError(f"{name}: far must be (ng={ng}, R in {rows}, L), "
+                         f"got {tuple(far.shape)}")
     R, L = far.shape[1], far.shape[2]
     _check("s_pos", s_pos, (3, npad), torch.float32, dev)
     _check("s_mass", s_mass, (npad,), torch.float32, dev)
@@ -329,6 +455,41 @@ def window_eval(s_pos, s_mass, far, far_n, near=None, steps_since=0, dt=0.0,
     if near is not None:
         K = near.shape[1] if near.dim() == 2 else -1
         _check("near", near, (ng, K), torch.int32, dev)
+    return npad, ng, gsz, K, R, L
+
+
+def window_eval(s_pos, s_mass, far, far_n, near=None, steps_since=0, dt=0.0,
+                *, G, softening, group_size=256, window_groups=2,
+                tau_clamp=24.0, use_cols=False, use_mxu=False, far_tile=512):
+    """Window + near groups + dense far-list accelerations through a CUDA
+    kernel.
+
+    Same arguments and result as :func:`window_eval_reference` (no
+    ``groups``; ``far_n`` and ``near`` must be int32).  The form is the JAX
+    package's selection, part of this function's definition (not a
+    fallback): the matrix form (:func:`window_eval_mxu`) when ``use_mxu``
+    and R is 8 or 10; else the column form (:func:`window_eval_cols`) when
+    ``use_cols`` and R is not 13 or 16; else the row form.  CPU tensors
+    take the form's plain version.  CUDA tensors launch the row form's
+    ``csrc/window_eval.cu`` -- one block of ``group_size`` threads per
+    group -- on the current stream without synchronising, and add one to
+    ``window_eval.launches``; a kernel that does not build or launch
+    raises.
+    """
+    kw = dict(G=G, softening=softening, group_size=group_size,
+              window_groups=window_groups, tau_clamp=tau_clamp)
+    R = far.shape[1]
+    if use_mxu and R in (8, 10):
+        return window_eval_mxu(s_pos, s_mass, far, far_n, near, steps_since,
+                               dt, far_tile=far_tile, **kw)
+    if use_cols and R not in (13, 16):
+        return window_eval_cols(s_pos, s_mass, far, far_n, near,
+                                steps_since, dt, far_tile=far_tile, **kw)
+    if s_pos.device.type == "cpu":
+        return window_eval_reference(s_pos, s_mass, far, far_n, near,
+                                     steps_since, dt, **kw)
+    npad, ng, gsz, K, R, L = _dense_args("window_eval", s_pos, s_mass, far,
+                                         far_n, near, group_size, DENSE_ROWS)
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     out = torch.empty_like(s_pos)
     lib = _kernels.library()
@@ -336,10 +497,92 @@ def window_eval(s_pos, s_mass, far, far_n, near=None, steps_since=0, dt=0.0,
         s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
         far_n.data_ptr(), near.data_ptr() if K else None, out.data_ptr(),
         npad, ng, gsz, int(window_groups), K, R, L, float(softening) ** 2,
-        float(G), tau, coef2, _kernels.stream_ptr(dev))
+        float(G), tau, coef2, _kernels.stream_ptr(s_pos.device))
     _kernels.check(err, "window_eval")
     window_eval.launches += 1
     return out
 
 
 window_eval.launches = 0
+
+
+def _launch_form(name, fn, s_pos, s_mass, far, far_n, near, steps_since,
+                 dt, G, softening, group_size, window_groups, tau_clamp,
+                 far_tile):
+    """Launch the column or matrix kernel ``fn`` on checked inputs."""
+    npad, ng, gsz, K, R, L = _dense_args(name, s_pos, s_mass, far, far_n,
+                                         near, group_size, (8, 10))
+    tile = min(int(far_tile), L)
+    if tile < 1:
+        raise ValueError(f"{name}: far_tile {far_tile} must be >= 1")
+    tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
+    out = torch.empty_like(s_pos)
+    err = fn(s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
+             far_n.data_ptr(), near.data_ptr() if K else None,
+             out.data_ptr(), npad, ng, gsz, int(window_groups), K, R, L, tile,
+             float(softening) ** 2, float(G), tau, coef2,
+             _kernels.stream_ptr(s_pos.device))
+    _kernels.check(err, name)
+    return out
+
+
+def window_eval_cols(s_pos, s_mass, far, far_n, near=None, steps_since=0,
+                     dt=0.0, *, G, softening, group_size=256,
+                     window_groups=2, tau_clamp=24.0, far_tile=512):
+    """The column form through ``csrc/window_eval_cols.cu``.
+
+    Same arguments and result as :func:`window_eval_cols_reference`, which
+    CPU tensors take.  CUDA tensors launch the kernel -- one block of
+    ``group_size`` threads per group, 8 partial sums a thread -- on the
+    current stream without synchronising, and add one to
+    ``window_eval_cols.launches``.
+    """
+    if s_pos.device.type == "cpu":
+        return window_eval_cols_reference(
+            s_pos, s_mass, far, far_n, near, steps_since, dt, G=G,
+            softening=softening, group_size=group_size,
+            window_groups=window_groups, tau_clamp=tau_clamp,
+            far_tile=far_tile)
+    _check_cols(far.shape[2], int(group_size), far_tile)
+    out = _launch_form("window_eval_cols",
+                       _kernels.library().spatialsim_window_eval_cols, s_pos,
+                       s_mass, far, far_n, near, steps_since, dt, G,
+                       softening, group_size, window_groups, tau_clamp,
+                       far_tile)
+    window_eval_cols.launches += 1
+    return out
+
+
+window_eval_cols.launches = 0
+
+
+def window_eval_mxu(s_pos, s_mass, far, far_n, near=None, steps_since=0,
+                    dt=0.0, *, G, softening, group_size=256, window_groups=2,
+                    tau_clamp=24.0, far_tile=512):
+    """The matrix form through ``csrc/window_eval_mxu.cu``.
+
+    Same arguments and result as :func:`window_eval_mxu_reference`, which
+    CPU tensors take.  CUDA tensors launch the kernel -- one block of
+    ``group_size`` threads per group, plain float32 FMAs, no tensor cores
+    -- on the current stream without synchronising, and add one to
+    ``window_eval_mxu.launches``.
+    """
+    if s_pos.device.type == "cpu":
+        return window_eval_mxu_reference(
+            s_pos, s_mass, far, far_n, near, steps_since, dt, G=G,
+            softening=softening, group_size=group_size,
+            window_groups=window_groups, tau_clamp=tau_clamp,
+            far_tile=far_tile)
+    if int(group_size) % 32:
+        raise ValueError(f"window_eval_mxu: group_size {group_size} must be "
+                         f"a multiple of 32 (the centre's warp reduction)")
+    out = _launch_form("window_eval_mxu",
+                       _kernels.library().spatialsim_window_eval_mxu, s_pos,
+                       s_mass, far, far_n, near, steps_since, dt, G,
+                       softening, group_size, window_groups, tau_clamp,
+                       far_tile)
+    window_eval_mxu.launches += 1
+    return out
+
+
+window_eval_mxu.launches = 0

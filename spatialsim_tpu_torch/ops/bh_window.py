@@ -21,16 +21,26 @@ has the full design notes).  In short:
     ("ranges") and materialise the moments from compensated prefix sums
     in group chunks, so only the ``(ng, R, L)`` output is ever whole.
 
-* **Every step**: one fused evaluation per group -- the Morton window of
-  ``2*window_groups+1`` groups exactly, plus the group's far entries
-  advanced to now as ``com + v*tau (+ a*coef2)`` -- by a CUDA kernel in
-  :mod:`spatialsim_tpu_torch.ops.bh_eval_kernel` (pooled or dense); then
-  the integrator.
+  The pooled layout also has a ranges finish (moments from prefix sums
+  straight into the pool) and a values finish (dense lists, then
+  :func:`build_pool`).  ``near_groups = K > 0`` adds each group's K
+  spatially nearest groups (by contact volume) to its exact near field;
+  the traversal drops cells inside the covered intervals, and the lists
+  go dense.
 
-Not ported yet, each raising ``NotImplementedError`` naming the
-``ROADMAP.md`` item: ``near_groups > 0`` (the near-group build; the eval
-already reads a near table), moment refresh, the pooled ranges/values and
-compact finishes, and the sharded (rangeless) build.
+* **Every step**: one fused evaluation per group -- the Morton window of
+  ``2*window_groups+1`` groups exactly, plus the near groups, plus the
+  group's far entries advanced to now as ``com + v*tau (+ a*coef2)`` -- by
+  a CUDA kernel in :mod:`spatialsim_tpu_torch.ops.bh_eval_kernel` (pooled,
+  or dense in its row, column or matrix form); then the integrator.
+  Between rebuilds, ``refresh_interval > 0`` re-materialises every far
+  entry's moments from prefix sums over the current state
+  (:func:`refresh_lists`).
+
+Compact emission is not ported (ROADMAP Queue 1 item 10: it measured
+slower than cell-id emission and was never the default) and raises
+``NotImplementedError``; the sharded build (``group_offset``,
+``n_groups``) comes with the port of ``parallel/`` (item 13).
 
 Conventions kept from the JAX package, for parity: ``(3, N)``
 component-major state; every static capacity (worklist caps, tree caps,
@@ -51,7 +61,7 @@ import numpy as np
 import torch
 
 from spatialsim_tpu_torch.ops.bh_eval_kernel import (
-    far_layout, window_eval, window_eval_pool)
+    advance_coefs, far_layout, window_eval, window_eval_pool)
 from spatialsim_tpu_torch.ops.bounds import compute_bounds
 from spatialsim_tpu_torch.ops.integrator import integrate
 from spatialsim_tpu_torch.ops.morton import morton_encode
@@ -61,8 +71,11 @@ _I64 = torch.int64
 _I32 = torch.int32
 _F32 = torch.float32
 
-_ROADMAP = ("not ported yet: see ROADMAP.md, Queue 1 item 10 "
-            "(window-engine options that are off by default)")
+_ROADMAP = ("not ported: see ROADMAP.md, Queue 1 item 10 (compact "
+            "emission measured slower than cell-id and is left out)")
+# Far-right sentinel of an empty covered-interval slot, in group units
+# (times group_size it stays below 2^31, as in the JAX package).
+_BIG_GROUP = 1_000_000
 
 SLIVER_CAP = 64   # >= 4 emissions/level x levels; deterministic bound
 POOL_ROWS = 16
@@ -115,12 +128,78 @@ def _spare(size, fill, dtype, device):
     return torch.full((size + 1,), fill, dtype=dtype, device=device)
 
 
-def _covered_intervals(ng, wg, gsz, device):
-    """Covered body ranges per group with ``near_groups=0``: the Morton
-    window ``[(g - wg) * gsz, (g + wg + 1) * gsz)``, shape (ng, 1, 2)."""
-    gid = torch.arange(ng, dtype=_I64, device=device)
-    return torch.stack([(gid - wg) * gsz, (gid + wg + 1) * gsz],
-                       dim=1)[:, None, :]
+def _select_near_groups(bmin, bmax, K, wg, chunk=512):
+    """The K spatially nearest groups of every group, as ``(ng, K)`` int32
+    ids, -1 where no group qualifies (JAX ``_select_near_groups``).
+
+    ``bmin``/``bmax``: ``(ng, 3)`` group bounding boxes.  Candidates rank
+    by the CONTACT VOLUME of the boxes dilated by a quarter of the row
+    group's half-diagonal (spatial tiles all sit at gap ~ 0, so the gap
+    cannot rank them; shared-face volume can).  The Morton window
+    (``|dg| <= wg``, self included) scores 0, and a score of 0 is no
+    neighbour.  ``jax.lax.top_k`` puts the lower id first among equal
+    scores; a stable descending sort does the same here.
+    """
+    ng = bmin.shape[0]
+    d = bmax - bmin
+    r_all = 0.5 * torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+                             + d[:, 2] * d[:, 2])
+    gid = torch.arange(ng, dtype=_I64, device=bmin.device)
+    out = []
+    for c0 in range(0, ng, chunk):
+        rows = gid[c0:c0 + chunk]
+        m = (0.25 * r_all[rows])[:, None]
+        ov = [(torch.minimum(bmax[rows, k][:, None], bmax[None, :, k])
+               - torch.maximum(bmin[rows, k][:, None], bmin[None, :, k]))
+              + 2.0 * m for k in range(3)]
+        contact = ((torch.clamp(ov[0], min=0.0) * torch.clamp(ov[1], min=0.0))
+                   * torch.clamp(ov[2], min=0.0))
+        excl = (gid[None, :] - rows[:, None]).abs() <= wg
+        score = torch.where(excl, torch.zeros_like(contact), contact)
+        top, ids = torch.sort(score, dim=1, descending=True, stable=True)
+        top, ids = top[:, :K], ids[:, :K]
+        out.append(torch.where(top > 0.0, ids, torch.full_like(ids, -1)))
+    return torch.cat(out).to(_I32)
+
+
+def _covered_intervals(near, wg, gsz):
+    """Merged, sorted, half-open covered body ranges per group (JAX
+    ``_covered_intervals``): the Morton window ``[g - wg, g + wg]`` plus
+    each near-group id, merged where they touch or overlap.
+
+    ``near``: ``(ng, K)`` ids (-1 = none; K may be 0).  Returns ``(ng, K +
+    1, 2)`` int64 in body units, sorted by start; empty slots carry the
+    far-right sentinel, so containment and overlap tests fail on them.
+    """
+    ng, K = near.shape
+    dev = near.device
+    big = torch.tensor(_BIG_GROUP, dtype=_I64, device=dev)
+    gid = torch.arange(ng, dtype=_I64, device=dev)
+    nr = near.to(_I64)
+    starts = torch.cat([(gid - wg)[:, None],
+                        torch.where(nr >= 0, nr, big)], dim=1)
+    ends = torch.cat([(gid + wg + 1)[:, None],
+                      torch.where(nr >= 0, nr + 1, big)], dim=1)
+    o = torch.argsort(starts, dim=1, stable=True)
+    starts = torch.gather(starts, 1, o)
+    ends = torch.gather(ends, 1, o)
+    out_s, out_e = [], []
+    cur_s, cur_e = starts[:, 0], ends[:, 0]
+    for i in range(1, K + 1):
+        s_i, e_i = starts[:, i], ends[:, i]
+        new = s_i > cur_e                    # half-open: touching merges
+        out_s.append(torch.where(new, cur_s, big))
+        out_e.append(torch.where(new, cur_e, big))
+        cur_s = torch.where(new, s_i, cur_s)
+        cur_e = torch.where(new, e_i, torch.maximum(cur_e, e_i))
+    out_s.append(cur_s)
+    out_e.append(cur_e)
+    s = torch.stack(out_s, dim=1)
+    e = torch.stack(out_e, dim=1)
+    # Closed intervals came out ascending but interleaved with sentinels.
+    o2 = torch.argsort(s, dim=1, stable=True)
+    return torch.stack([torch.gather(s, 1, o2) * gsz,
+                        torch.gather(e, 1, o2) * gsz], dim=2)
 
 
 def _comp_prefix(x: torch.Tensor) -> torch.Tensor:
@@ -184,13 +263,16 @@ def _pack_levels_geo(tree):
     """
     packed = []
     for lv in tree.levels:
-        def hl(x):
-            return [(x >> 16).to(_F32), (x & 0xFFFF).to(_F32)]
         rows = ([lv.com[0], lv.com[1], lv.com[2]]
-                + hl(lv.count) + hl(lv.body_start) + hl(lv.child_start)
+                + _hl(lv.count) + _hl(lv.body_start) + _hl(lv.child_start)
                 + [lv.child_count.to(_F32)])
         packed.append(torch.stack(rows))
     return packed
+
+
+def _hl(x):
+    """Integer tensor -> [hi, lo] exact 16-bit f32 halves."""
+    return [(x >> 16).to(_F32), (x & 0xFFFF).to(_F32)]
 
 
 def _unhl(hi, lo):
@@ -574,29 +656,33 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
 
     * ``pool_tile > 0``, monopole, ``emit_mode`` "auto"/"cellid": cell-id
       emission and the pooled cell-id finish (the default path);
+      "ranges": ranges emission and :func:`_finish_pool_ranges`;
+      "values": values emission, :func:`_finish_lists`, then
+      :func:`build_pool`;
     * ``pool_tile == 0``: the dense ``(ng, R, L)`` layout, from "values"
       emission when ``quadrupole`` (or ``emit_mode`` is not "ranges"), else
       from "ranges" emission with the moments materialised by
       :func:`_finish_lists` in group chunks (the EXTREME path).
 
-    ``near_groups > 0``, ``with_ranges=False``, the pooled ranges/values
-    finishes and compact emission raise ``NotImplementedError``; a pooled
-    quadrupole raises ``ValueError`` (the pool is monopole-only, as in the
-    JAX package).
+    ``near_groups = K > 0`` selects each group's K nearest groups
+    (:func:`_select_near_groups`), whose bodies the eval sums exactly; the
+    traversal drops every cell inside the merged covered intervals.
+    ``with_ranges=False`` drops the dense ``far_range`` (no refresh).
+    Compact emission raises ``NotImplementedError``; a pooled quadrupole
+    raises ``ValueError`` (the pool is monopole-only, as in the JAX
+    package).
     """
     pooled = bool(pool_tile)
     if pooled and quadrupole:
         raise ValueError("the pooled far layout is monopole-only: "
                          "quadrupole lists need pool_tile=0")
+    if emit_mode in ("compact", "compact-mm") and with_ranges and pooled:
+        raise NotImplementedError(
+            f"build_lists(emit_mode={emit_mode!r}) is {_ROADMAP}")
     cellid = (emit_mode in ("cellid", "auto") and with_ranges
               and not quadrupole and pooled)
     emit_ranges = (with_ranges and not quadrupole
                    and (emit_mode == "ranges" or cellid))
-    if near_groups or not with_ranges or (pooled and not cellid):
-        raise NotImplementedError(
-            f"build_lists(quadrupole={quadrupole}, near_groups="
-            f"{near_groups}, with_ranges={with_ranges}, pool_tile="
-            f"{pool_tile}, emit_mode={emit_mode!r}) is {_ROADMAP}")
     n = pos.shape[1]
     gsz = group_size
     half, order, order_pad, s_codes, s_pos, s_vel, s_mass, s_acc = \
@@ -612,7 +698,11 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
     gpos = s_pos.reshape(3, ng, gsz)
     bbox_min = gpos.amin(dim=2).T                                 # (ng, 3)
     bbox_max = gpos.amax(dim=2).T
-    intervals = _covered_intervals(ng, window_groups, gsz, pos.device)
+    near = (_select_near_groups(bbox_min, bbox_max, near_groups,
+                                window_groups) if near_groups > 0
+            else torch.zeros((ng, 0), dtype=_I32, device=pos.device))
+    intervals = _covered_intervals(near, window_groups, gsz)
+    near = near if near_groups > 0 else None
 
     budget = worklist_budget or _auto_budget(npad)
     c0 = tree.levels[0].code.shape[0]
@@ -639,23 +729,36 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
         intervals=intervals, list_cap=list_cap, n_levels=n_levels,
         wl_caps=wl_caps, with_acc=acc is not None, quadrupole=quadrupole,
         emit_values=not emit_ranges, level_offsets=level_offs)
-    if not cellid:
-        del tree
-        return _finish_lists(far, far_range, far_n, sl_start, sl_end, sl_n,
-                             res, s_pos, s_vel, s_mass, order, order_pad,
-                             pos, n, list_cap, s_acc=s_acc)
-    cap = pool_cap or pool_cap_tiles(
+    cap = pooled and (pool_cap or pool_cap_tiles(
         budget, ng, pool_tile, npad,
-        caps_total=sum(wl_caps) if explicit_caps else 0)
-    return _finish_pool_cellid(
-        tree, level_offs, far_range, far_n, sl_start, sl_end, sl_n, res,
-        s_pos, s_vel, s_mass, order, order_pad, pos, n, list_cap,
-        tile=pool_tile, cap_tiles=cap, s_acc=s_acc)
+        caps_total=sum(wl_caps) if explicit_caps else 0))
+    if cellid:
+        return _finish_pool_cellid(
+            tree, level_offs, far_range, far_n, sl_start, sl_end, sl_n, res,
+            s_pos, s_vel, s_mass, order, order_pad, pos, n, list_cap,
+            tile=pool_tile, cap_tiles=cap, s_acc=s_acc, near=near)
+    del tree
+    if pooled and emit_ranges:
+        return _finish_pool_ranges(
+            far_range, far_n, sl_start, sl_end, sl_n, res, s_pos, s_vel,
+            s_mass, order, order_pad, pos, n, list_cap, tile=pool_tile,
+            cap_tiles=cap, s_acc=s_acc, near=near)
+    lists = _finish_lists(far, far_range if with_ranges else None, far_n,
+                          sl_start, sl_end, sl_n, res, s_pos, s_vel, s_mass,
+                          order, order_pad, pos, n, list_cap, s_acc=s_acc,
+                          near=near)
+    if pooled:
+        pool, pstart, far_n2 = build_pool(lists.far, lists.far_range,
+                                          lists.far_n, tile=pool_tile,
+                                          cap_tiles=cap)
+        lists = lists._replace(pool=pool, pstart=pstart, far_n=far_n2,
+                               far=None, far_range=None)
+    return lists
 
 
 def _finish_lists(far, far_range, far_n, sl_start, sl_end, sl_n, res,
                   s_pos, s_vel, s_mass, order, order_pad, pos, n, list_cap,
-                  s_acc=None) -> BHLists:
+                  s_acc=None, near=None) -> BHLists:
     """Dense finish: sliver moments, the residual entry, the BHLists.
 
     ``far``: the ``(ng, R, L)`` values-emission tensor, or None after
@@ -676,13 +779,7 @@ def _finish_lists(far, far_range, far_n, sl_start, sl_end, sl_n, res,
     with_acc = s_acc is not None
     n_rows = far.shape[1] if far is not None else (10 if with_acc else 8)
     quad, acc0 = far_layout(n_rows)
-
-    w = s_mass[None, :]
-    cols = [s_mass[None, :], s_pos * w, s_vel * w]
-    if with_acc:
-        cols.append(s_acc * w)
-    pref = _comp_prefix(torch.cat(cols, dim=0))           # (2P, npad+1)
-    del cols
+    pref = _state_prefix(s_pos, s_vel, s_mass, s_acc)     # (2P, npad+1)
 
     if far is None:
         far = torch.empty((ng, n_rows, L), dtype=_F32, device=dev)
@@ -728,8 +825,9 @@ def _finish_lists(far, far_range, far_n, sl_start, sl_end, sl_n, res,
     slot = (far_n[:, None] + k).expand(ng, SC)
     gf, sf = gi[fits], slot[fits]
     far[gf, :, sf] = svals.transpose(1, 2)[fits]
-    far_range[gf, 0, sf] = sl_start[fits]
-    far_range[gf, 1, sf] = sl_end[fits]
+    if far_range is not None:
+        far_range[gf, 0, sf] = sl_start[fits]
+        far_range[gf, 1, sf] = sl_end[fits]
     over = svalid & ~fits
     if bool(over.any()):
         om = torch.where(over, sm, zero)
@@ -757,19 +855,22 @@ def _finish_lists(far, far_range, far_n, sl_start, sl_end, sl_n, res,
     rslot = torch.clamp(far_n, max=L - 1)
     rg = torch.nonzero(has_res).reshape(-1)
     far[rg, :, rslot[rg]] = torch.stack(rrows, dim=1)[rg]
-    far_range[rg, :, rslot[rg]] = 0
+    if far_range is not None:
+        far_range[rg, :, rslot[rg]] = 0
+        far_range = far_range.to(_I32)
     far_n = torch.clamp(far_n + has_res.to(_I64), max=L)
 
     inv_order = torch.empty((n,), dtype=_I32, device=dev)
     inv_order[order] = torch.arange(n, dtype=_I32, device=dev)
     return BHLists(order=order_pad.to(_I32), inv_order=inv_order,
                    far_n=far_n.to(_I32), ref_pos=pos, far=far,
-                   far_range=far_range.to(_I32))
+                   far_range=far_range, near=near)
 
 
 def _finish_pool_cellid(tree, level_offsets, fr_id, far_n, sl_start, sl_end,
                         sl_n, res, s_pos, s_vel, s_mass, order, order_pad,
-                        pos, n, list_cap, *, tile, cap_tiles, s_acc=None):
+                        pos, n, list_cap, *, tile, cap_tiles, s_acc=None,
+                        near=None):
     """Cell-id finish: pool moments come straight from the cell tables.
 
     Every far entry is an octree cell, so assembly gathers its finished
@@ -791,9 +892,6 @@ def _finish_pool_cellid(tree, level_offsets, fr_id, far_n, sl_start, sl_end,
     fr_id = torch.cat([fr_id.reshape(ng * L),
                        torch.full((1,), zid, dtype=_I64, device=dev)])
 
-    def hl(x):
-        return [(x >> 16).to(_F32), (x & 0xFFFF).to(_F32)]
-
     # Global cell table: [com3, vel3, mass, (acc3), bs_hi, bs_lo, cnt_hi,
     # cnt_lo].
     def level_rows(lv):
@@ -801,16 +899,12 @@ def _finish_pool_cellid(tree, level_offsets, fr_id, far_n, sl_start, sl_end,
                 lv.vel[0], lv.vel[1], lv.vel[2], lv.mass]
         if with_acc:
             rows += [lv.acc[0], lv.acc[1], lv.acc[2]]
-        return torch.stack(rows + hl(lv.body_start) + hl(lv.count))
+        return torch.stack(rows + _hl(lv.body_start) + _hl(lv.count))
     table = torch.cat([level_rows(lv) for lv in tree.levels], dim=1)
     R_t = n_pref + 4
 
     # Sliver moments from compensated prefix sums (<= ng*SC ranges).
-    w = s_mass[None, :]
-    cols = [s_mass[None, :], s_pos * w, s_vel * w]
-    if with_acc:
-        cols.append(s_acc * w)
-    pref = _comp_prefix(torch.cat(cols, dim=0))                 # (2P, npad+1)
+    pref = _state_prefix(s_pos, s_vel, s_mass, s_acc)           # (2P, npad+1)
     seg_sl = _comp_seg(pref, sl_start, sl_end)                  # (P, ng, SC)
     m_sl = seg_sl[0]
     inv_sl = torch.where(m_sl > 0, 1.0 / torch.clamp(m_sl, min=1e-30),
@@ -818,8 +912,8 @@ def _finish_pool_cellid(tree, level_offsets, fr_id, far_n, sl_start, sl_end,
     sl_rows = [seg_sl[i + 1].reshape(ng * SC) * inv_sl.reshape(ng * SC)
                for i in range(n_pref - 1)]
     sl_rows.insert(6, m_sl.reshape(ng * SC))       # [com3, vel3, m, (acc3)]
-    sl_rows += hl(sl_start.reshape(ng * SC))
-    sl_rows += hl((sl_end - sl_start).reshape(ng * SC))
+    sl_rows += _hl(sl_start.reshape(ng * SC))
+    sl_rows += _hl((sl_end - sl_start).reshape(ng * SC))
     table = torch.cat([table, torch.stack(sl_rows),
                        torch.zeros((R_t, 1), dtype=_F32, device=dev)], dim=1)
 
@@ -863,11 +957,36 @@ def _finish_pool_cellid(tree, level_offsets, fr_id, far_n, sl_start, sl_end,
         res = res + add
         far_n = torch.where(unfit, torch.zeros_like(far_n), far_n)
 
+    def slot_rows(idx):
+        # ONE packed table gather per pool slot.
+        t = table[:, fr_id[idx]]
+        bs_p = _unhl(t[n_pref], t[n_pref + 1])
+        fe_p = bs_p + _unhl(t[n_pref + 2], t[n_pref + 3])
+        zero = torch.zeros_like(t[0])
+        rows = [t[0], t[1], t[2], t[3], t[4], t[5], t[6]]
+        rows += [t[7], t[8], t[9]] if with_acc else [zero] * 3
+        return rows + _hl(bs_p) + _hl(fe_p) + [zero, zero]
+
+    return _assemble_pool(slot_rows, far_n, res, L, tile, cap_tiles,
+                          with_acc, order, order_pad, pos, n, near)
+
+
+def _assemble_pool(slot_rows, far_n, res, L, tile, cap_tiles, with_acc,
+                   order, order_pad, pos, n, near) -> BHLists:
+    """Lay out the pooled lists: group g's ``far_n[g]`` entries, plus its
+    residual entry where ``res`` holds mass, in tiles from ``pstart[g]``.
+
+    ``slot_rows(idx)`` gives the 16 pool rows of the flat list slots
+    ``idx`` (``g * L + k``; ``ng * L`` = an empty slot), called in chunks
+    of ``_POOL_ASM_CHUNK`` tiles.  ``res``: ``(ng, 7 | 10)`` f32 [m, m*com3,
+    m*vel3 (, m*acc3)]; the residual entry (no body range) goes right
+    after the group's real entries.
+    """
+    dev = far_n.device
+    ng = far_n.shape[0]
     res_m = res[:, 0]
     has_res = res_m > 0
     far_n_tot = far_n + has_res.to(_I64)
-
-    # Pool assembly: ONE packed table gather per slot, in tile chunks.
     tiles_g = (far_n_tot + tile - 1) // tile
     pstart = _excl(tiles_g)
     tot_tiles = tiles_g.sum()
@@ -886,17 +1005,9 @@ def _finish_pool_cellid(tree, level_offsets, fr_id, far_n, sl_start, sl_end,
         is_rng = valid & ~is_res
         idx = torch.where(is_rng, g_c[:, None] * L + ent.clamp(max=L - 1),
                           torch.full_like(ent, ng * L)).reshape(-1)
-        t = table[:, fr_id[idx]]
-        bs_p = _unhl(t[n_pref], t[n_pref + 1])
-        fe_p = bs_p + _unhl(t[n_pref + 2], t[n_pref + 3])
-        zero = torch.zeros_like(t[0])
-        rows = [t[0], t[1], t[2], t[3], t[4], t[5], t[6]]
-        rows += [t[7], t[8], t[9]] if with_acc else [zero] * 3
-        rows += hl(bs_p) + hl(fe_p) + [zero, zero]
-        pool[t0:t0 + CT] = torch.stack(rows).reshape(
+        pool[t0:t0 + CT] = torch.stack(slot_rows(idx)).reshape(
             POOL_ROWS, CT, tile).transpose(0, 1)
 
-    # Residual entry, appended right after the group's real entries.
     inv_m = torch.where(has_res, 1.0 / torch.clamp(res_m, min=1e-30),
                         torch.zeros_like(res_m))
     zg = torch.zeros((ng,), dtype=_F32, device=dev)
@@ -913,7 +1024,273 @@ def _finish_pool_cellid(tree, level_offsets, fr_id, far_n, sl_start, sl_end,
     inv_order[order] = torch.arange(n, dtype=_I32, device=dev)
     return BHLists(order=order_pad.to(_I32), inv_order=inv_order,
                    far_n=far_n_tot.to(_I32), ref_pos=pos, pool=pool,
-                   pstart=pstart.to(_I32), steps_since=0, steps_build=0)
+                   pstart=pstart.to(_I32), steps_since=0, steps_build=0,
+                   near=near)
+
+
+def _state_prefix(s_pos, s_vel, s_mass, s_acc):
+    """Compensated prefixes of [m, m*pos, m*vel (, m*acc)] over the sorted
+    state: (2P, npad + 1), P = 7 or 10."""
+    w = s_mass[None, :]
+    cols = [s_mass[None, :], s_pos * w, s_vel * w]
+    if s_acc is not None:
+        cols.append(s_acc * w)
+    return _comp_prefix(torch.cat(cols, dim=0))
+
+
+def build_pool(far, far_range, far_n, *, tile, cap_tiles):
+    """Compact dense monopole lists ``(ng, R in {8, 10}, L)`` into the tile
+    pool (JAX ``build_pool``); returns ``(pool, pstart, far_n)``.
+
+    A group whose tiles would start past ``cap_tiles - ng`` folds its WHOLE
+    list into one mass-weighted entry at slot 0 (``far_n`` becomes 1),
+    never an out-of-bounds tile.  Then one packed gather writes every
+    pool slot; slots past a group's ``far_n`` read a zero column.  Body
+    ranges ride rows 10-13 as exact 16-bit halves (zeros without
+    ``far_range``).
+    """
+    ng, R, L = far.shape
+    assert R in (8, 10), "pool layout is monopole-only"
+    dev = far.device
+    far_n = far_n.to(_I64)
+    tiles_try = (far_n + tile - 1) // tile
+    unfit = _excl(tiles_try) + tiles_try > cap_tiles - ng
+    if bool(unfit.any()):
+        k = torch.arange(L, dtype=_I64, device=dev)[None, :]
+        em = ((k < far_n[:, None]) & unfit[:, None]).to(_F32)
+        w = far[:, 6, :] * em
+        m = w.sum(dim=1)
+        inv = torch.where(m > 0, 1.0 / torch.clamp(m, min=1e-30),
+                          torch.zeros_like(m))
+        fold = [(far[:, i, :] * w).sum(dim=1) * inv for i in range(R)
+                if i != 6]
+        fold.insert(6, m)
+        entry0 = torch.stack(fold, dim=1)                       # (ng, R)
+        folded = torch.zeros_like(far)
+        folded[:, :, 0] = entry0
+        far = torch.where(unfit[:, None, None], folded, far)
+        far_n = torch.where(unfit, torch.ones_like(far_n), far_n)
+        if far_range is not None:
+            far_range = torch.where(unfit[:, None, None],
+                                    torch.zeros_like(far_range), far_range)
+
+    tiles_g = (far_n + tile - 1) // tile
+    pstart = _excl(tiles_g)
+    t_idx = torch.arange(cap_tiles, dtype=_I64, device=dev)
+    g_c = (torch.searchsorted(pstart, t_idx, right=True) - 1).clamp(0, ng - 1)
+    ent = (t_idx - pstart[g_c])[:, None] * tile + torch.arange(
+        tile, dtype=_I64, device=dev)[None]
+    valid = ((t_idx < tiles_g.sum())[:, None]
+             & (ent < far_n[g_c][:, None]) & (ent < L))
+    idx = torch.where(valid, g_c[:, None] * L + ent.clamp(max=L - 1),
+                      torch.full_like(ent, ng * L)).reshape(-1)
+    farf = far.transpose(0, 1).reshape(R, ng * L)
+    zero = torch.zeros((ng * L,), dtype=_F32, device=dev)
+    rows = [farf[i] for i in range(7)]
+    rows += [farf[7 + i] for i in range(3)] if R == 10 else [zero] * 3
+    if far_range is not None:
+        fs = far_range[:, 0, :].reshape(ng * L).to(_I64)
+        fe = far_range[:, 1, :].reshape(ng * L).to(_I64)
+    else:
+        fs = fe = torch.zeros((ng * L,), dtype=_I64, device=dev)
+    rows += _hl(fs) + _hl(fe)
+    src = torch.nn.functional.pad(torch.stack(rows), (0, 1))  # (14, ngL+1)
+    vals = torch.cat([src[:, idx], torch.zeros(
+        (POOL_ROWS - 14, idx.numel()), dtype=_F32, device=dev)])
+    pool = vals.reshape(POOL_ROWS, cap_tiles, tile).transpose(0, 1)
+    return pool.contiguous(), pstart.to(_I32), far_n.to(_I32)
+
+
+def _pool_ranges(pool):
+    """(fs, fe) int64 body ranges of every pool slot, from rows 10-13."""
+    ct, _, tile = pool.shape
+    flat = pool.transpose(0, 1).reshape(POOL_ROWS, ct * tile)
+    return _unhl(flat[10], flat[11]), _unhl(flat[12], flat[13])
+
+
+def _finish_pool_ranges(far_range, far_n, sl_start, sl_end, sl_n, res,
+                        s_pos, s_vel, s_mass, order, order_pad, pos, n,
+                        list_cap, *, tile, cap_tiles, s_acc=None, near=None):
+    """Ranges finish: slivers, the residual and the moments straight into
+    the tile pool, from prefix sums (JAX ``_finish_pool_ranges``).
+
+    Every real entry's monopole moments are segment sums of the sorted
+    state over its ``[start, end)``; slivers ARE ranges and append as
+    entries (slot ``L - 1`` stays reserved), and sliver overflow folds into
+    the residual.  The cumulative capacity guard folds a group whose tiles
+    would pass ``cap_tiles - ng`` whole into its residual.  The residual
+    is the one entry without a range (fs = fe = 0), scattered after
+    assembly.  The folds accumulate in float64 (the JAX package sums them
+    in float32; see the traversal's residual).
+    """
+    dev = s_pos.device
+    ng = far_n.shape[0]
+    L = list_cap
+    with_acc = s_acc is not None
+    n_pref = 10 if with_acc else 7
+    SC = SLIVER_CAP
+    pref = _state_prefix(s_pos, s_vel, s_mass, s_acc)
+    res = res.double()
+
+    fr_s = far_range[:, 0, :].reshape(ng * L).clone()
+    fr_e = far_range[:, 1, :].reshape(ng * L).clone()
+    k = torch.arange(SC, dtype=_I64, device=dev)[None, :]
+    take = k < sl_n[:, None]
+    fits = take & (far_n[:, None] + k < L - 1)
+    gi = torch.arange(ng, dtype=_I64, device=dev)[:, None]
+    flat = torch.where(fits, gi * L + far_n[:, None] + k,
+                       torch.full_like(k * gi, ng * L)).reshape(-1)
+    fr_s = torch.cat([fr_s, fr_s.new_zeros(1)])
+    fr_e = torch.cat([fr_e, fr_e.new_zeros(1)])
+    fr_s[flat] = sl_start.reshape(-1)
+    fr_e[flat] = sl_end.reshape(-1)
+    fr_s[ng * L] = 0
+    fr_e[ng * L] = 0
+    far_n = torch.clamp(far_n + sl_n, max=L - 1)
+
+    over = take & ~fits
+    if bool(over.any()):
+        seg_sl = _comp_seg(pref, sl_start, sl_end)             # (P, ng, SC)
+        om = over.double()
+        res = res + torch.stack([(seg_sl[i].double() * om).sum(dim=1)
+                                 for i in range(n_pref)], dim=1)
+
+    tiles_try = (far_n + 1 + tile - 1) // tile                # +1: residual
+    unfit = _excl(tiles_try) + tiles_try > cap_tiles - ng
+    if bool(unfit.any()):
+        fs2 = fr_s[:ng * L].reshape(ng, L)
+        fe2 = fr_e[:ng * L].reshape(ng, L)
+        CH = 512 if L % 512 == 0 else L
+        add = torch.zeros((ng, n_pref), dtype=torch.float64, device=dev)
+        for c0 in range(0, L, CH):
+            seg = _comp_seg(pref, fs2[:, c0:c0 + CH], fe2[:, c0:c0 + CH])
+            em = (((c0 + torch.arange(CH, dtype=_I64, device=dev))[None, :]
+                   < far_n[:, None]) & unfit[:, None]).double()
+            add = add + torch.stack([(seg[p].double() * em).sum(dim=1)
+                                     for p in range(n_pref)], dim=1)
+        res = res + add
+        far_n = torch.where(unfit, torch.zeros_like(far_n), far_n)
+    fse = torch.stack([fr_s, fr_e])              # (2, ngL + 1), last = 0
+
+    def slot_rows(idx):
+        # One packed range gather, then the segment sums of each range.
+        fsel = fse[:, idx]
+        seg = _comp_seg(pref, fsel[0], fsel[1])
+        m = seg[0]
+        inv = torch.where(m > 0, 1.0 / torch.clamp(m, min=1e-30),
+                          torch.zeros_like(m))
+        zero = torch.zeros_like(m)
+        rows = [seg[r] * inv for r in range(1, 7)] + [m]
+        rows += ([seg[r] * inv for r in range(7, 10)] if with_acc
+                 else [zero] * 3)
+        return rows + _hl(fsel[0]) + _hl(fsel[1]) + [zero, zero]
+
+    return _assemble_pool(slot_rows, far_n, res.to(_F32), L, tile,
+                          cap_tiles, with_acc, order, order_pad, pos, n, near)
+
+
+# ---------------------------------------------------------------------------
+# Moment refresh
+# ---------------------------------------------------------------------------
+
+def refresh_lists(lists: BHLists, pos_s, vel_s, mass_s, acc_s=None,
+                  dt=0.0, tau_clamp=24.0) -> BHLists:
+    """Re-materialise every far entry's moments from the CURRENT sorted
+    state (JAX ``refresh_lists``).
+
+    Each entry is a contiguous run ``[start, end)`` of the frozen sort, so
+    its current monopole moments are segment sums of compensated prefix
+    sums: no sort, octree or traversal.  Entries without a range (the
+    residual) are REBASED instead: their com and velocity advance by the
+    elapsed ``tau = steps_since * dt`` (clamped quadratic term included),
+    so the advance stays continuous across the reset.  Quadrupole rows
+    keep their build values.  ``steps_since`` resets to 0;
+    ``steps_build`` keeps counting.  Inputs are SORTED ``(3, n)``/``(n,)``.
+    """
+    npad = lists.order.shape[0]
+    pad = npad - pos_s.shape[1]
+    if pad:
+        pos_s = torch.cat([pos_s, pos_s[:, -1:].expand(3, pad)], dim=1)
+        mass_s = torch.cat([mass_s, mass_s.new_zeros(pad)])
+        vel_s = torch.cat([vel_s, vel_s.new_zeros((3, pad))], dim=1)
+        if acc_s is not None:
+            acc_s = torch.cat([acc_s, acc_s.new_zeros((3, pad))], dim=1)
+    tau, coef2, tc = _rebase_coefs(lists.steps_since, dt, tau_clamp)
+    if lists.pool is not None:
+        return lists._replace(
+            pool=_refresh_pool(lists.pool, pos_s, vel_s, mass_s, acc_s, tau,
+                               coef2, tc), steps_since=0)
+    return lists._replace(
+        far=_refresh_dense_core(lists.far, lists.far_range, pos_s, vel_s,
+                                mass_s, acc_s, tau, coef2, tc),
+        steps_since=0)
+
+
+def _rebase_coefs(steps_since, dt, tau_clamp):
+    """:func:`advance_coefs`' (tau, coef2) and the clamped ``t_c = min(tau,
+    tau_clamp*dt)`` that advances the velocity, in float32 arithmetic."""
+    tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
+    f = np.float32
+    return tau, coef2, float(min(f(tau), f(tau_clamp) * f(dt)))
+
+
+def _refresh_dense_core(far, far_range, pos_s, vel_s, mass_s, acc_s, tau,
+                        coef2, tc):
+    """Dense refresh: ``(ng, R, L)`` far + ``(ng, 2, L)`` ranges + padded
+    sorted state -> the refreshed far tensor."""
+    ng, R, L = far.shape
+    quad, acc0 = far_layout(R)
+    pref = _state_prefix(pos_s, vel_s, mass_s,
+                         acc_s if acc0 is not None else None)
+    with_acc = acc_s is not None and acc0 is not None
+    fs = far_range[:, 0, :].reshape(ng * L).to(_I64)
+    fe = far_range[:, 1, :].reshape(ng * L).to(_I64)
+    seg = _comp_seg(pref, fs, fe)                       # (P, ng*L)
+    m = seg[0]
+    inv = torch.where(m > 0, 1.0 / torch.clamp(m, min=1e-30),
+                      torch.zeros_like(m))
+    rows = [seg[r] * inv for r in range(1, 7)] + [m]
+    if quad:
+        rows += [far[:, 7 + i, :].reshape(ng * L) for i in range(6)]
+    if acc0 is not None:
+        rows += ([seg[r] * inv for r in range(7, 10)] if with_acc
+                 else [far[:, acc0 + i, :].reshape(ng * L) for i in range(3)])
+    rows += [torch.zeros_like(m)] * (R - len(rows))
+    new = torch.stack(rows).reshape(R, ng, L).transpose(0, 1)
+    del seg, rows
+    # Rebase the rangeless entries (the residual slot).
+    com = far[:, 0:3] + far[:, 3:6] * tau
+    vel = far[:, 3:6]
+    if acc0 is not None:
+        com = com + far[:, acc0:acc0 + 3] * coef2
+        vel = vel + far[:, acc0:acc0 + 3] * tc
+    rebased = torch.cat([com, vel, far[:, 6:]], dim=1)
+    valid = (fe > fs).reshape(ng, 1, L)
+    return torch.where(valid, new, rebased)
+
+
+def _refresh_pool(pool, pos_s, vel_s, mass_s, acc_s, tau, coef2, tc):
+    """Pooled refresh: two packed gathers over the pool's slots; padding
+    slots (fs = fe = 0) refresh to zero mass, the residual rebases."""
+    ct, _, tile = pool.shape
+    zero3 = torch.zeros_like(pos_s)
+    pref = _state_prefix(pos_s, vel_s, mass_s,
+                         zero3 if acc_s is None else acc_s)
+    fs, fe = _pool_ranges(pool)
+    seg = _comp_seg(pref, fs, fe)
+    m = seg[0]
+    inv = torch.where(m > 0, 1.0 / torch.clamp(m, min=1e-30),
+                      torch.zeros_like(m))
+    new10 = torch.stack([seg[r] * inv for r in range(1, 7)] + [m]
+                        + [seg[r] * inv for r in range(7, 10)])
+    del seg
+    flat = pool.transpose(0, 1).reshape(POOL_ROWS, ct * tile)
+    com = flat[0:3] + flat[3:6] * tau + flat[7:10] * coef2
+    vel = flat[3:6] + flat[7:10] * tc
+    rebased = torch.cat([com, vel, flat[6:10]])
+    out = torch.cat([torch.where((fe > fs)[None, :], new10, rebased),
+                     flat[10:16]])
+    return out.reshape(POOL_ROWS, ct, tile).transpose(0, 1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -921,7 +1298,8 @@ def _finish_pool_cellid(tree, level_offsets, fr_id, far_n, sl_start, sl_end,
 # ---------------------------------------------------------------------------
 
 def eval_accel_sorted(lists: BHLists, pos_s, mass_s, dt, *, G, softening,
-                      group_size=256, window_groups=3, tau_clamp=24.0):
+                      group_size=256, window_groups=3, tau_clamp=24.0,
+                      use_cols=False, far_tile=512):
     """Accelerations for SORTED ``(3, n)`` state -- the stepper's path.
 
     Pads the group tail by repeating the last body with mass 0 and returns
@@ -929,7 +1307,8 @@ def eval_accel_sorted(lists: BHLists, pos_s, mass_s, dt, *, G, softening,
     (:func:`~spatialsim_tpu_torch.ops.bh_eval_kernel.window_eval_pool`),
     dense lists to the dense one
     (:func:`~spatialsim_tpu_torch.ops.bh_eval_kernel.window_eval`) with
-    their near-group table.
+    their near-group table, in its column form for monopole lists when
+    ``use_cols`` (pooled lists ignore it, as in the JAX package).
     """
     n = pos_s.shape[1]
     pad = lists.order.shape[0] - n
@@ -945,7 +1324,8 @@ def eval_accel_sorted(lists: BHLists, pos_s, mass_s, dt, *, G, softening,
                                lists.far_n, lists.steps_since, dt, **kw)
     else:
         acc = window_eval(s_pos, s_mass, lists.far, lists.far_n, lists.near,
-                          lists.steps_since, dt, **kw)
+                          lists.steps_since, dt, use_cols=use_cols,
+                          far_tile=far_tile, **kw)
     return acc[:, :n]
 
 
@@ -986,18 +1366,18 @@ def _build_kw(config):
     """build_lists keyword arguments from an (resolved) NBodyConfig.
 
     As in the JAX package: the quadrupole accepts at ``theta *
-    (quad_accept_scale or 1)``, and the quadrupole, near groups and
-    ``use_pallas_eval=False`` (whose XLA eval reads the dense layout) turn
-    the pool off.  In the port every dense list goes to the dense CUDA
-    kernel.
+    (quad_accept_scale or 1)``, and the quadrupole, near groups (the
+    pooled kernel reads no near table) and ``use_pallas_eval=False``
+    (whose XLA eval reads the dense layout) turn the pool off.  In the
+    port every dense list goes to the dense CUDA kernel.
     """
-    if getattr(config, "near_groups", 0):
-        raise NotImplementedError(f"near_groups is {_ROADMAP}")
+    near_groups = getattr(config, "near_groups", 0)
     quad = getattr(config, "use_quadrupole", False)
     theta = config.theta
     if quad:
         theta = theta * (getattr(config, "quad_accept_scale", 0.0) or 1.0)
-    dense = quad or not getattr(config, "use_pallas_eval", True)
+    dense = (quad or near_groups
+             or not getattr(config, "use_pallas_eval", True))
     return dict(theta=theta, softening=config.softening,
                 skin=config.skin, max_depth=config.max_depth,
                 group_size=config.group_size,
@@ -1005,7 +1385,7 @@ def _build_kw(config):
                 list_cap=config.list_capacity,
                 worklist_budget=getattr(config, "worklist_budget", 0),
                 wl_caps=tuple(getattr(config, "wl_caps", ()) or ()),
-                quadrupole=quad,
+                quadrupole=quad, near_groups=near_groups,
                 pool_tile=0 if dense else getattr(config, "pool_tile", 0),
                 pool_cap=getattr(config, "pool_cap", 0),
                 emit_mode=getattr(config, "traversal_emit", "auto"),
@@ -1025,8 +1405,11 @@ def make_window_step(config, n: int, substeps: int = 1):
     Each substep rebuilds first when ``steps_build >= rebuild_interval``
     (a host-side check on the Python-int counter) or, in drift mode
     "max", when any body drifted more than ``skin/2`` since the build (one
-    device read); then evaluates, integrates and bumps the counters.  The
-    returned callable counts its rebuilds in ``step.rebuilds``.  Pooled and
+    device read); otherwise, with ``refresh_interval > 0``, it refreshes
+    the lists' moments (:func:`refresh_lists`) when ``steps_since >=
+    refresh_interval``.  Then it evaluates, integrates and bumps the
+    counters.  The returned callable counts its rebuilds in
+    ``step.rebuilds`` and its refreshes in ``step.refreshes``.  Pooled and
     dense lists take the same step.
 
     Unlike the JAX package, the decision is taken before every substep at
@@ -1037,12 +1420,11 @@ def make_window_step(config, n: int, substeps: int = 1):
     """
     from spatialsim_tpu_torch.config.nbody import resolve_config
     config = resolve_config(config, n)
-    if getattr(config, "refresh_interval", 0):
-        raise NotImplementedError(f"refresh_interval is {_ROADMAP}")
     kw = _build_kw(config)
     ekw = _eval_kw(config)
     damping = config.damping
     interval = config.rebuild_interval
+    refresh_iv = getattr(config, "refresh_interval", 0)
     skin = config.skin
     drift_mode = getattr(config, "rebuild_drift_mode", "max")
     advance2 = getattr(config, "advance_order", 2) >= 2
@@ -1059,6 +1441,11 @@ def make_window_step(config, n: int, substeps: int = 1):
                 pos, vel, mass, lists.order, lists.inv_order, kw,
                 acc=state.acc if advance2 else None)
             step.rebuilds += 1
+        elif refresh_iv and lists.steps_since >= refresh_iv:
+            lists = refresh_lists(lists, pos, vel, mass,
+                                  state.acc if advance2 else None, dt,
+                                  ekw["tau_clamp"])
+            step.refreshes += 1
         acc = eval_accel_sorted(lists, pos, mass, dt, **ekw)
         pos, vel = integrate(pos, vel, acc, dt, damping)
         lists = lists._replace(steps_since=lists.steps_since + 1,
@@ -1072,6 +1459,7 @@ def make_window_step(config, n: int, substeps: int = 1):
         return state
 
     step.rebuilds = 0
+    step.refreshes = 0
     return step
 
 
@@ -1172,8 +1560,9 @@ def _traverse_probe(config, pos, vel, mass, wl_caps, count_emissions=False):
         tree, gpos.amin(dim=2).T, gpos.amax(dim=2).T, ng,
         theta=float(kw["theta"]), soft_sq=float(kw["softening"]) ** 2,
         skin=float(kw["skin"]), gsz=gsz,
-        intervals=_covered_intervals(ng, kw["window_groups"], gsz,
-                                     pos.device),
+        intervals=_covered_intervals(
+            torch.zeros((ng, 0), dtype=_I32, device=pos.device),
+            kw["window_groups"], gsz),
         list_cap=kw["list_cap"], n_levels=n_levels, wl_caps=tuple(wl_caps),
         with_acc=False, ablate=() if count_emissions else ("emit", "sliver"))
     wl = out[7].cpu().numpy()
@@ -1267,3 +1656,71 @@ def calibrate_config(config, pos, vel, mass, rounds=3, headroom=1.5):
             config = config.replace(
                 pool_cap=min(int(need * 1.5) + ng + 1, exact))
     return config
+
+
+# ---------------------------------------------------------------------------
+# One-shot and diagnostic entry points
+# ---------------------------------------------------------------------------
+
+def window_bh_accel(pos, vel, mass, config, dt=0.0):
+    """One-shot accelerations at ORIGINAL-order ``(3, n)`` positions from
+    fresh lists (built without accelerations): the testing entry point."""
+    from spatialsim_tpu_torch.config.nbody import resolve_config
+    config = resolve_config(config, pos.shape[1])
+    lists = build_lists(pos, vel, mass, **_build_kw(config))
+    return eval_accel(lists, pos, mass, float(dt), **_eval_kw(config))
+
+
+def build_diagnostics(pos, vel, mass, config):
+    """Rebuild instrumentation (JAX ``build_diagnostics``): per-level
+    worklist fills and pre-clamp demands against their caps, far-list
+    occupancy and the residual's share of the mass, on an octree at full
+    level capacities.  Returns a dict of host numbers."""
+    from spatialsim_tpu_torch.config.nbody import resolve_config
+    config = resolve_config(config, pos.shape[1])
+    kw = _build_kw(config)
+    n = pos.shape[1]
+    gsz = kw["group_size"]
+    max_depth = kw["max_depth"]
+    npad = ((n + gsz - 1) // gsz) * gsz
+    n_levels = max_depth - 2 + 1
+    ng = npad // gsz
+    budget = kw["worklist_budget"] or _auto_budget(npad)
+    wl_caps = (tuple(kw["wl_caps"]) if kw["wl_caps"] else
+               _default_wl_caps(ng, n_levels, budget,
+                                c0=level_capacity(2, npad)))
+    half, _, _, s_codes, s_pos, s_vel, s_mass, _ = _sort_state(
+        pos, vel, mass, None, max_depth, gsz)
+    tree = build_octree(s_codes, s_pos, s_mass, half, max_depth=max_depth,
+                        start_level=2, n=npad, sorted_vel=s_vel,
+                        with_quadrupole=kw["quadrupole"])
+    gpos = s_pos.reshape(3, ng, gsz)
+    bbox_min, bbox_max = gpos.amin(dim=2).T, gpos.amax(dim=2).T
+    K = kw["near_groups"]
+    near = (_select_near_groups(bbox_min, bbox_max, K, kw["window_groups"])
+            if K > 0 else torch.zeros((ng, 0), dtype=_I32, device=pos.device))
+    # Ranges emission: far_n, the residual and the worklist sizes do not
+    # depend on the emission mode.
+    out = _traverse_global(
+        tree, bbox_min, bbox_max, ng, theta=float(kw["theta"]),
+        soft_sq=float(kw["softening"]) ** 2, skin=float(kw["skin"]),
+        gsz=gsz, intervals=_covered_intervals(near, kw["window_groups"], gsz),
+        list_cap=kw["list_cap"], n_levels=n_levels, wl_caps=wl_caps,
+        emit_values=False)
+    far_n = out[2].cpu().numpy()
+    wl = out[7].cpu().numpy()
+    return {
+        "n_levels": n_levels,
+        "wl_caps": list(wl_caps),
+        "wl_sizes": wl[:n_levels].tolist(),
+        "wl_demand": wl[n_levels:].tolist(),
+        "far_n_mean": float(far_n.mean()),
+        "far_n_max": int(far_n.max()),
+        "far_n_p99": float(np.percentile(far_n, 99)),
+        "list_cap": kw["list_cap"],
+        "groups_at_cap": int((far_n >= kw["list_cap"] - 1).sum()),
+        "ng": ng,
+        "residual_mass_frac": float(out[6][:, 0].sum())
+        / max(float(s_mass.sum()), 1e-30),
+        "cells_per_level": [int(lv.n_cells) for lv in tree.levels],
+    }

@@ -176,3 +176,43 @@ def test_dense_window_eval_kernel_matches_plain(cuda, R, K, gsz):
     # body summed in another order: the JAX suite's Pallas-vs-XLA bar.
     assert float((got - want).abs().max() / want.abs().max()) < 1e-4
     assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("gsz", [256, 1024])
+@pytest.mark.parametrize("K", [0, 4, 8])
+@pytest.mark.parametrize("R", [8, 10])
+@pytest.mark.parametrize("form", ["cols", "mxu"])
+def test_dense_form_kernels_match_plain(cuda, form, R, K, gsz):
+    """The column and matrix forms against their own plain versions."""
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    kernel = getattr(ek, f"window_eval_{form}")
+    plain = getattr(ek, f"window_eval_{form}_reference")
+    ng = 1024
+    s_pos, s_mass, far, far_n, near = _dense_inputs(ng, gsz, R, K, 512,
+                                                    R * 10 + K + 1, cuda)
+    args = (s_pos, s_mass, far, far_n, near, 7, 0.02)
+    kw = dict(G=0.1, softening=2.0, group_size=gsz, window_groups=2,
+              far_tile=128)
+    before = kernel.launches
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(*args, **kw)
+    # cols: rsqrtf and FMA contraction, sums in another order; mxu: d^2
+    # rounds as in the plain version, sums in another order.
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("gsz", [256, 1024])
+def test_dense_window_eval_kernel_near8_matches_plain(cuda, gsz):
+    from spatialsim_tpu_torch.ops.bh_eval_kernel import (
+        window_eval, window_eval_reference)
+    s_pos, s_mass, far, far_n, near = _dense_inputs(1024, gsz, 10, 8, 512,
+                                                    108, cuda)
+    args = (s_pos, s_mass, far, far_n, near, 7, 0.02)
+    kw = dict(G=0.1, softening=2.0, group_size=gsz, window_groups=2)
+    got = window_eval(*args, **kw)
+    want = window_eval_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-4

@@ -139,6 +139,9 @@ def test_allpairs_simulation_matches_jax_model():
 
 
 def test_from_state_and_exact_engine():
+    """The resume path, and ``engine="exact"`` from a restored state
+    against the JAX model's."""
+    from spatialsim_tpu.models.nbody import NBodySimulation as JaxSim
     from spatialsim_tpu_torch.models.nbody import NBodySimulation
     rng = np.random.default_rng(0)
     pos = rng.normal(size=(500, 3)) * 50
@@ -147,9 +150,16 @@ def test_from_state_and_exact_engine():
     np.testing.assert_array_equal(sim.get_positions(),
                                   pos.astype(np.float32))
     np.testing.assert_array_equal(sim.get_masses(), np.ones(500, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NBodySimulation(config=NBodyConfig(num_bodies=500, engine="exact"),
-                        device="cpu")
+    cfg = NBodyConfig(num_bodies=500, engine="exact", group_size=64,
+                      max_depth=6)
+    ts = NBodySimulation.from_state(pos, vel, config=cfg, device="cpu")
+    js = JaxSim.from_state(pos, vel, config=cfg)
+    assert ts.engine == js.engine == "exact"
+    for _ in range(2):
+        ts.update(0.02)
+        js.update(0.02)
+    assert _rel(ts.get_positions(), js.get_positions()) <= 1e-5
+    assert _rel(ts.get_velocities(), js.get_velocities()) <= 1e-4
 
 
 def test_recorder_cli_frames_decode(tmp_path, monkeypatch):
