@@ -80,10 +80,11 @@ failure exits non-zero.  Phases, each printed with its seconds:
     accelerations: cell-id, ranges, values + ``build_pool`` (rebuild times,
     equal far_n, pooled evals within 1e-4 of max|a|);
 17. the dense eval's row, column and matrix kernels through
-    ``tools/eval_ab.py`` at 1M (launches counted from zero over its run),
-    then each against its own plain version on the K = 0 and K = 8 lists
-    (1e-4 of max|a|), CUDA-event times, pairs a second and the bound; the
-    matrix form's distance from the row form (report, fails above 1e-3);
+    ``tools/eval_ab.py`` at 1M (launches counted from zero over its run;
+    its CUDA-event times are the kernels' times), then each against its
+    own plain version on the K = 0 and K = 8 lists (1e-4 of max|a|),
+    pairs a second and the bound over the live far entries; the matrix
+    form's distance from the row form (report, fails above 1e-3);
 18. the exact engine: ``NBodySimulation(num_bodies=1_000_000,
     config=NBODY.replace(engine="exact"))``, 5 steps, and its force error
     on 4,096 bodies against the all-pairs kernel's direct sum, beside the
@@ -565,16 +566,17 @@ def main() -> int:
           f"far_n mean {float(lists.far_n.float().mean()):.1f} "
           f"max {int(lists.far_n.max())}")
     s_pos, s_mass = eval_ab.sorted_inputs(lists, pos, mass)
-    # Pairs the kernel evaluates: every window group in range, plus every
-    # slot of the group's ceil(far_n/tile) tiles.
-    gsz, wg, tile = cal.group_size, cal.window_groups, lists.pool.shape[2]
+    # Pairs the function needs: every window group in range, plus every
+    # live far entry.  The kernel reads whole pool tiles, but the slots
+    # past far_n hold zero mass and add nothing.
+    gsz, wg = cal.group_size, cal.window_groups
     ng = lists.far_n.shape[0]
     g = torch.arange(ng, device=dev)
     n_win = (torch.clamp(g + wg, max=ng - 1) - torch.clamp(g - wg, min=0)
              + 1)
-    n_far = (lists.far_n.long() + tile - 1) // tile * tile
-    pairs = int(((n_win * gsz + n_far) * gsz).sum())
-    print(f"    pairs per eval: {pairs:.4e} (window + far tiles)")
+    live = int(lists.far_n.long().sum())
+    pairs = int(n_win.sum()) * gsz * gsz + live * gsz
+    print(f"    pairs per eval: {pairs:.4e} (window + live far entries)")
     for ss in (0, 23):
         args = (s_pos, s_mass, lists.pool, lists.pstart, lists.far_n, ss, DT)
         kw = dict(G=cal.G, softening=cal.softening,
@@ -593,9 +595,10 @@ def main() -> int:
               f"(tol {TOL_WINDOW})  kernel {ms:.4f} ms  plain "
               f"{plain_ms:.4f} ms  kernel {pairs / ms / 1e6:.1f} Gpairs/s")
         require(err <= TOL_WINDOW, f"window eval error {err}")
-        # 18 FP32 operations a pair; the sorted bodies, the whole pool and
-        # the per-group tables read once, accelerations written once.
-        nbytes = 4 * (s_pos.numel() + s_mass.numel() + lists.pool.numel()
+        # 18 FP32 operations a pair; the sorted bodies, the 10 pool rows
+        # the kernel reads of each live far entry and the per-group tables
+        # read once, accelerations written once.
+        nbytes = 4 * (s_pos.numel() + s_mass.numel() + 10 * live
                       + lists.pstart.numel() + lists.far_n.numel()
                       + got.numel())
         record_kernel(kernels, "window_eval_pool", abs_err, err, ms,
@@ -1344,28 +1347,27 @@ def main() -> int:
     t0 = phase("17. the dense eval's row, column and matrix forms: "
                "tools/eval_ab.py at 1M")
     zero_counts()
-    ab = eval_ab.run(N_MAIN, near_groups=8, reps=3, device="cuda",
+    ab = eval_ab.run(N_MAIN, near_groups=8, reps=5, device="cuda",
                      out=lambda s: print("    " + s))
     ab_launches = counts()
     print(f"    launches in the A/B run: {ab_launches}")
     require(window_eval_cols.launches > 0 and window_eval_mxu.launches > 0,
             ab_launches)
     acfg = ab["cfg"]
+    # Each kernel's time is the A/B's (steps_since 0); the checks below run
+    # the kernel once more against its plain version at steps_since 23.
     for K, lists in ab["lists"].items():
         s_pos, s_mass = eval_ab.sorted_inputs(lists, ab["pos"], ab["mass"])
         outs = {}
-        for form in ("row", "cols", "mxu"):
-            def kern():
-                return eval_ab.run_form(form, lists, s_pos, s_mass, acfg, 23)
-
-            def plain():
-                return eval_ab.run_form(form, lists, s_pos, s_mass, acfg, 23,
-                                        plain=True)
-            got, want = kern(), plain()
+        for form in eval_ab.FORMS:
+            got = eval_ab.run_form(form, lists, s_pos, s_mass, acfg, 23)
+            want = eval_ab.run_form(form, lists, s_pos, s_mass, acfg, 23,
+                                    plain=True)
             torch.cuda.synchronize()
             abs_err, err = kernel_errors(got, want)
-            ms = cuda_ms(kern, 5)
-            plain_ms = cuda_ms(plain, 1)
+            ms = ab["eval_ms"][(K, form)]
+            plain_ms = cuda_ms(lambda: eval_ab.run_form(
+                form, lists, s_pos, s_mass, acfg, 23, plain=True), 1)
             pairs, ops, nbytes = eval_ab.form_work(form, lists, acfg)
             b_ms, b_by = bound(ops, nbytes)
             print(f"    K={K} {form}: max|da| {abs_err:.3e}, max|da|/max|a| "

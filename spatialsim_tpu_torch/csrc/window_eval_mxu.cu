@@ -12,11 +12,13 @@
 //   w    = m * rsqrt(max(d2, eps^2))^3        (no gate);
 //   a    = G * (sum w s_c - t_c * sum w).
 // The self pair cancels in the last difference.  d2 cancels in float32,
-// so this is its own function and not the row form's to 1e-4; the plain
-// version (window_eval_mxu_reference) rounds exactly as this kernel does
-// up to the order of the sums: the centre is summed in double and rounded
-// once, and |t_c|^2, |s_c|^2, t_c.s_c and d2 are built with _rn
-// intrinsics so that nvcc contracts nothing into an FMA there.
+// so this is its own function and not the row form's to 1e-4: its
+// rounding is part of it.  |t_c|^2, |s_c|^2 and t_c.s_c are FMA chains,
+// fma(z, z', fma(y, y', x x')), as XLA rounds the JAX form's sum and
+// contraction; d2's own sums are _rn intrinsics, so nvcc contracts
+// nothing else there.  The plain version (window_eval_mxu_reference)
+// rounds exactly as this kernel does up to the order of the sums; the
+// centre is summed in double and rounded once.
 //
 // No tensor cores: TF32 keeps about three decimal digits, and the cross
 // term cancels against |t_c|^2 + |s_c|^2.  A 3xTF32 mma form of the cross
@@ -38,10 +40,10 @@
 
 namespace {
 
-// |v|^2 rounded as the plain version rounds it: (x*x + y*y) + z*z.
-__device__ __forceinline__ float norm2_rn(float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                   __fmul_rn(z, z));
+// u.v as an FMA chain: fma(uz, vz, fma(uy, vy, ux * vx)).
+__device__ __forceinline__ float dot3_fma(float ux, float uy, float uz,
+                                          float vx, float vy, float vz) {
+  return fmaf(uz, vz, fmaf(uy, vy, __fmul_rn(ux, vx)));
 }
 
 __device__ __forceinline__ void accumulate_mxu(
@@ -50,9 +52,7 @@ __device__ __forceinline__ void accumulate_mxu(
     float soft_sq, float& wx, float& wy, float& wz, float& ws) {
   float px = 0.f, py = 0.f, pz = 0.f, pw = 0.f;
   for (int k = 0; k < cnt; ++k) {
-    const float cross = __fadd_rn(
-        __fadd_rn(__fmul_rn(tx, sx[k]), __fmul_rn(ty, sy[k])),
-        __fmul_rn(tz, sz[k]));
+    const float cross = dot3_fma(tx, ty, tz, sx[k], sy[k], sz[k]);
     const float d2 = __fadd_rn(
         __fsub_rn(__fadd_rn(ti, sp[k]), __fmul_rn(2.f, cross)), soft_sq);
     const float inv = rsqrtf(fmaxf(d2, soft_sq));
@@ -80,7 +80,7 @@ __device__ __forceinline__ void stage(float* sx, float* sy, float* sz,
   sy[i] = uy;
   sz[i] = uz;
   sm[i] = m;
-  sp[i] = norm2_rn(ux, uy, uz);
+  sp[i] = dot3_fma(ux, uy, uz, ux, uy, uz);
 }
 
 template <int R, int kMaxThreads>
@@ -135,7 +135,7 @@ __global__ void __launch_bounds__(kMaxThreads) window_eval_mxu_kernel(
   const float tx = __fsub_rn(xi, cx);
   const float ty = __fsub_rn(yi, cy);
   const float tz = __fsub_rn(zi, cz);
-  const float ti = norm2_rn(tx, ty, tz);
+  const float ti = dot3_fma(tx, ty, tz, tx, ty, tz);
   float wx = 0.f, wy = 0.f, wz = 0.f, ws = 0.f;
 
   // Near field: the Morton window, then the near groups, one per pass.

@@ -385,6 +385,30 @@ def window_eval_cols_reference(s_pos, s_mass, far, far_n, near=None,
     return torch.cat(out, dim=1)
 
 
+def _fma32(a, b, c):
+    """``fmaf(a, b, c)`` of float32 tensors: ``a * b + c`` rounded once.
+
+    The product is exact in float64; the sum is rounded to odd there (its
+    exact error by TwoSum), and rounding that to float32 is the single
+    rounding of the exact result."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    return torch.where((err != 0) & even, torch.nextafter(s, toward),
+                       s).float()
+
+
+def _dot3_fma(u, v):
+    """``u . v`` over three components as the FMA chain ``fma(u2, v2,
+    fma(u1, v1, u0 * v0))``."""
+    return _fma32(u[2], v[2], _fma32(u[1], v[1], u[0] * v[0]))
+
+
 def window_eval_mxu_reference(s_pos, s_mass, far, far_n, near=None,
                               steps_since=0, dt=0.0, *, G, softening,
                               group_size=256, window_groups=2,
@@ -397,10 +421,12 @@ def window_eval_mxu_reference(s_pos, s_mass, far, far_n, near=None,
     For targets ``t_c`` and sources ``s_c``: ``d^2 = ((|t_c|^2 + |s_c|^2)
     - 2 t_c.s_c) + eps^2``, ``w = m * rsqrt(max(d^2, eps^2))^3`` (no gate),
     ``a = G (sum w s_c - t_c sum w)``; the self pair cancels in the last
-    difference.  d^2 cancels in float32, so the centre and the dot products
-    (written out term by term) round exactly as the kernel rounds them; the
-    JAX package takes a float32 mean, which moves the result by ~5e-5 of
-    max|a| at 2K bodies.  Sources as :func:`window_eval_cols_reference`.
+    difference.  d^2 cancels in float32, so its rounding is part of the
+    function: the squares and the cross term are FMA chains, as XLA rounds
+    the JAX form's sum and contraction, and the centre and the chains round
+    exactly as the kernel rounds them.  The JAX package takes a float32
+    mean, which moves the result by ~5e-5 of max|a| at 2K bodies.  Sources
+    as :func:`window_eval_cols_reference`.
     """
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     gsz = group_size
@@ -416,11 +442,10 @@ def window_eval_mxu_reference(s_pos, s_mass, far, far_n, near=None,
         tc = t - center
         sc = [torch.cat([src[r], fp[r]], dim=1) - center[r] for r in range(3)]
         sm = torch.cat([src[3], fm], dim=1)
-        ti_sq = (tc[0] * tc[0] + tc[1] * tc[1]) + tc[2] * tc[2]
-        ps_sq = (sc[0] * sc[0] + sc[1] * sc[1]) + sc[2] * sc[2]
-        cross = ((tc[0][:, :, None] * sc[0][:, None, :]
-                  + tc[1][:, :, None] * sc[1][:, None, :])
-                 + tc[2][:, :, None] * sc[2][:, None, :])    # (C, gsz, S)
+        ti_sq = _dot3_fma(tc, tc)
+        ps_sq = _dot3_fma(sc, sc)
+        cross = _dot3_fma([x[:, :, None] for x in tc],
+                          [x[:, None, :] for x in sc])       # (C, gsz, S)
         d2 = ((ti_sq[:, :, None] + ps_sq[:, None, :]) - 2.0 * cross) + soft_sq
         inv = torch.rsqrt(torch.clamp(d2, min=soft_sq))
         w = sm[:, None, :] * (inv * inv * inv)

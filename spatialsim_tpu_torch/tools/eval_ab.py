@@ -7,11 +7,11 @@ Set-up: the galaxy (seed 0) at 1M bodies, at that script's config (theta
 0.8, G 0.1, softening 2, spawn radius 500, skin 2, rebuild interval 48,
 drift off) with the dense layout (``pool_tile=0``), built with zero
 accelerations (R = 10 rows).  It times the rebuild at K = 0 and at K =
-``--near-groups`` (8); the row, column and matrix kernels on the K = 0
-lists and the row and matrix kernels on the K = 8 lists; and prints the
-lists' ``far_n`` means.  On a card the times are CUDA events and the first
-line is ``nvidia-smi``'s name and power limit; ``--device cpu`` runs the
-plain versions on a host clock, for a tiny smoke test only.
+``--near-groups`` (8), and the row, column and matrix kernels on both sets
+of lists, and prints the lists' ``far_n`` means.  On a card the times are
+CUDA events and the first line is ``nvidia-smi``'s name and power limit;
+``--device cpu`` runs the plain versions on a host clock, for a tiny smoke
+test only.
 """
 
 from __future__ import annotations
@@ -95,11 +95,13 @@ def run_form(form, lists, s_pos, s_mass, cfg, steps_since=0, plain=False):
 
 
 def form_work(form, lists, cfg):
-    """(pairs, FP32 operations, bytes) of one eval of ``form``: every
-    in-range window group and valid near group is gsz x gsz pairs, every
-    far slot read gsz pairs (the column and matrix forms read whole
-    tiles).  Bytes: the bodies, the far slots read, far_n and the near
-    table read once, the accelerations written once."""
+    """(pairs, FP32 operations, bytes) that one eval of ``form`` needs:
+    every in-range window group and valid near group is gsz x gsz pairs,
+    every live far entry (``far_n``) gsz pairs.  The column and matrix
+    kernels read whole tiles, but the slots past ``far_n`` hold zero mass
+    and add nothing, so they are not counted.  Bytes: the bodies, the live
+    far entries, far_n and the near table read once, the accelerations
+    written once."""
     gsz, wg = cfg.group_size, cfg.window_groups
     far_n = lists.far_n.long()
     ng, R, L = lists.far.shape
@@ -107,9 +109,7 @@ def form_work(form, lists, cfg):
     n_src = torch.clamp(g + wg, max=ng - 1) - torch.clamp(g - wg, min=0) + 1
     if lists.near is not None:
         n_src = n_src + ((lists.near >= 0) & (lists.near < ng)).sum(1)
-    slots = (far_n.clamp(0, L) if form == "row"
-             else ek._tile_counts(far_n, L, cfg.eval_far_tile))
-    slots = int(slots.sum())
+    slots = int(far_n.clamp(0, L).sum())
     pairs = int(n_src.sum()) * gsz * gsz + slots * gsz
     nbytes = 4 * (ng * gsz * (4 + 3) + R * slots + ng
                   + (0 if lists.near is None else lists.near.numel()))
@@ -180,14 +180,13 @@ def run(n=1_000_000, near_groups=8, reps=3, device="cuda", seed=0,
                eval_ms={})
     out(f"n={n:,} group {cfg.group_size} depth {cfg.max_depth} list cap "
         f"{cfg.list_capacity} far tile {cfg.eval_far_tile}")
-    for K, forms in ((0, ("row", "cols", "mxu")), (near_groups,
-                                                   ("row", "mxu"))):
+    for K in (0, near_groups):
         ms, lists = time_build_ms(pos, vel, mass, build_kw(cfg, K), reps,
                                   device)
         res["build_ms"][K], res["lists"][K] = ms, lists
         out(f"rebuild K={K}: {ms:.3f} ms  far {tuple(lists.far.shape)}")
         s_pos, s_mass = sorted_inputs(lists, pos, mass)
-        for form in forms:
+        for form in FORMS:
             t = time_ms(lambda: run_form(form, lists, s_pos, s_mass, cfg),
                         reps, device)
             res["eval_ms"][(K, form)] = t

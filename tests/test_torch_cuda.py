@@ -199,9 +199,41 @@ def test_dense_form_kernels_match_plain(cuda, form, R, K, gsz):
     assert kernel.launches == before + 1
     want = plain(*args, **kw)
     # cols: rsqrtf and FMA contraction, sums in another order; mxu: d^2
-    # rounds as in the plain version, sums in another order.
+    # (its FMA chains) rounds as in the plain version, sums in another
+    # order.
     assert float((got - want).abs().max() / want.abs().max()) < 1e-4
     assert bool(torch.isfinite(got).all())
+
+
+def test_mxu_kernel_rounds_as_its_plain_version(cuda):
+    """Groups of tight clusters ~1,000 apart on a 1/64 grid (exact
+    centres): d^2's cancellation puts the matrix form ~3e-2 of max|a| from
+    the row form, and the kernel's FMA chains must land on the plain
+    version's rounding, not on the row form's."""
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    ng, gsz, L = 8, 64, 16
+    rng = np.random.default_rng(0)
+    pos = (rng.integers(-1000, 1000, size=(3, ng, 8, 1))
+           + rng.integers(-128, 128, size=(3, ng, 8, 8)) / 64.0)
+    far = np.zeros((ng, 8, L))
+    far[:, 0:3] = rng.integers(-4000, 4000, size=(ng, 3, L))
+    far[:, 6] = 3.0
+    args = tuple(torch.as_tensor(a, dtype=d, device=cuda) for a, d in (
+        (pos.reshape(3, -1), torch.float32), (np.ones(ng * gsz),
+                                              torch.float32),
+        (far, torch.float32), (rng.integers(1, L + 1, ng), torch.int32)))
+    kw = dict(G=0.1, softening=2.0, group_size=gsz, window_groups=1)
+    got = ek.window_eval_mxu(*args, None, 0, 0.02, far_tile=16, **kw)
+    want = ek.window_eval_mxu_reference(*args, None, 0, 0.02, far_tile=16,
+                                        **kw)
+    row = ek.window_eval_reference(*args, None, 0, 0.02, **kw)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    assert rel(row, want) >= 1e-2
+    assert rel(got, want) <= 2e-3
+    assert rel(got, want) <= 0.1 * rel(row, want)
 
 
 @pytest.mark.parametrize("gsz", [256, 1024])
