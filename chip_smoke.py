@@ -88,7 +88,20 @@ failure exits non-zero.  Phases, each printed with its seconds:
 18. the exact engine: ``NBodySimulation(num_bodies=1_000_000,
     config=NBODY.replace(engine="exact"))``, 5 steps, and its force error
     on 4,096 bodies against the all-pairs kernel's direct sum, beside the
-    window engine's on the same state.
+    window engine's on the same state;
+19. the traversal-primitive probes of ``scripts/decide15.py`` and
+    ``decide18.py`` through ``tools/decide15.py`` and ``tools/decide18.py``
+    (launches counted from zero over their runs; their CUDA-event times
+    are the kernels' times), plus the Hopper placements (chained reads,
+    a shared-memory table, a table of the 1M octree's occupied cells,
+    counted by the tool's ``octree_diagnostics``) and the iteration core
+    where decisions fire; ``where="shared"`` at 256 KB raises before any
+    launch; then each probe against its plain version on the same inputs,
+    bit for bit (the row write's and row store's whole scratch tables
+    too), every output not 0 but where the probe's own inputs give 0,
+    with its bound and the time of one PyTorch call that computes the
+    same function where there is one (``embedding_bag`` for the row,
+    block and column-5 reads, ``torch.roll``).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -123,6 +136,16 @@ STEPS_50M = 26         # at rebuild interval 24: one rebuild, at step 25
 # cores, HBM3 bandwidth.  A bound is the larger of ops/peak, bytes/peak.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# The probe kernels of phase 19: wrapper name -> the script and the line of
+# the TPU kernel's pallas_call it replaces.
+PROBE_KERNELS = {
+    "row_reads": ("decide15", 64), "block_read": ("decide15", 101),
+    "reduce_roundtrip": ("decide15", 143), "row_write": ("decide15", 177),
+    "roll": ("decide15", 206), "scalar_load_dynsub": ("decide15", 239),
+    "scalar_load_dyn_dyn": ("decide15", 272), "extract8": ("decide15", 325),
+    "smem_table": ("decide18", 60), "gated_reduce": ("decide18", 99),
+    "row_store": ("decide18", 135), "iteration_core": ("decide18", 198),
+}
 
 
 def require(cond, what):
@@ -340,6 +363,56 @@ def check_dense(kernels, label, lists, s_pos, s_mass, near, steps_since,
                   nbytes)
 
 
+def check_probes(entries, probes):
+    """Each probe of phase 19 against its plain version on the same inputs,
+    bit for bit: the plain versions keep the probes' order of float32 adds
+    and int32 steps.  Those of the serial chains run on the host CPU; plain
+    ms is one call on a host clock.  A probe that returns ``(out, scr)``
+    is held to it on both, the whole scratch table included.  An output
+    of zeros passes only where the entry expects it (the probe's own
+    inputs give 0).  ``probes`` keeps, per kernel, the worst error and the
+    first entry's times and bound."""
+    import torch
+    for e in entries:
+        got = e["call"]()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = e["plain"]()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        got = [g.cpu() for g in (got if isinstance(got, tuple) else (got,))]
+        want = [w.cpu() for w in (want if isinstance(want, tuple)
+                                  else (want,))]
+        require([(g.shape, g.dtype) for g in got]
+                == [(w.shape, w.dtype) for w in want],
+                (e["label"], [g.shape for g in got],
+                 [w.shape for w in want]))
+        abs_err = max(float((g.double() - w.double()).abs().max())
+                      for g, w in zip(got, want))
+        library_ms = cuda_ms(e["library"], 3) if e["library"] else None
+        b_ms, b_by = bound(e["ops"], e["nbytes"])
+        lib = ("" if library_ms is None
+               else f"; library call {library_ms:.4f} ms")
+        table = "".join(f"; table {tuple(g.shape)}: "
+                        f"{int((g != 0).any(1).sum())} rows written"
+                        for g in got[1:])
+        print(f"    {e['label']}: out {float(got[0].double().ravel()[0]):.9g}"
+              f"{table}, max|d| {abs_err:.3e} (limit 0); kernel "
+              f"{e['ms']:.4f} ms ({e['ns']:.2f} ns/{e['unit']}); bound "
+              f"{b_ms:.6f} ms ({b_by}); plain {plain_ms:.3f} ms{lib}")
+        require(all(torch.equal(g, w) and bool(torch.isfinite(
+            g.double()).all()) for g, w in zip(got, want)),
+            (e["label"], abs_err))
+        zero = not any(bool(g.any()) for g in got)
+        require(zero == e["expect_zero"],
+                (e["label"], "zero output" if zero else "nonzero output",
+                 "expected", e["expect_zero"]))
+        rec = probes.setdefault(e["kernel"].__name__, dict(
+            max_abs_err=0.0, ms=e["ms"], plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms, label=e["label"]))
+        rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+
+
 def timed_steps(step, steps, dt):
     """Host seconds of each of ``steps`` calls of ``step(dt)``, each ended
     by a device synchronise."""
@@ -491,6 +564,8 @@ def main() -> int:
     from spatialsim_tpu_torch.ops import boids_ops as bo
     from spatialsim_tpu_torch.ops.boids_window_kernel import (
         boids_window_accumulate)
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    from spatialsim_tpu_torch.tools import decide15, decide18
     import numpy as np
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -498,6 +573,7 @@ def main() -> int:
     dev = torch.device("cuda")
     wall0 = time.perf_counter()
     kernels = {}
+    probes = {}
 
     # ---- 1. card, versions, kernel build --------------------------------
     t0 = phase("1. card and kernel build")
@@ -1426,6 +1502,46 @@ def main() -> int:
     torch.cuda.empty_cache()
     done(t0)
 
+    # ---- 19. the traversal probes -------------------------------------------
+    t0 = phase("19. traversal probes: tools/decide15.py and tools/decide18.py")
+    require(not any(fn.launches for fn in tp.KERNELS),
+            "a main path of phases 1-18 launched a probe kernel")
+    # The octree's occupied cells: the past-L2 table.
+    diag = decide15.octree_diagnostics(dev)
+    octree_cells = sum(diag["cells_per_level"])
+    print(f"    occupied octree cells of the 1M galaxy (all levels): "
+          f"{octree_cells:,} = {octree_cells * 512 / 1e6:.1f} MB as 128-float "
+          f"rows; worklist slots of a build (all levels): "
+          f"{sum(diag['wl_sizes']):,}")
+    torch.cuda.synchronize()
+    for fn in tp.KERNELS:
+        fn.launches = 0
+
+    def indent(s):
+        print("    " + s)
+    entries = (decide15.run("cuda", octree_cells=octree_cells, out=indent)
+               + decide18.run("cuda", out=indent))
+    probe_launches = {fn.__name__: fn.launches for fn in tp.KERNELS}
+    print(f"    launches in the probe runs: {probe_launches}")
+    require(all(probe_launches.values()), probe_launches)
+    # A table past the opt-in limit is refused before any launch.
+    limit = tp.smem_optin_bytes(dev)
+    try:
+        tp.probe_smem_capacity(65536, where="shared")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and tp.smem_table.launches
+            == probe_launches["smem_table"],
+            f"where='shared' at 256 KB (opt-in limit {limit} B): {refused}")
+    print(f"    where='shared' at 256 KB raises before launch: {refused}")
+    check_probes(entries, probes)
+    print("    (latency probes: one warp or thread of one SM, so each sits "
+          "far above its bytes-or-operations bound by design)")
+    del entries
+    torch.cuda.empty_cache()
+    done(t0)
+
     print(f"\ntotal seconds: {time.perf_counter() - wall0:.3f}")
     src = "spatialsim_tpu_torch/csrc"
     summary = {"kernels": [
@@ -1459,6 +1575,14 @@ def main() -> int:
              launches=ab_launches["window_eval_mxu"],
              **kernels["window_eval_mxu"]),
     ]}
+    for name, (script, line) in PROBE_KERNELS.items():
+        rec = dict(probes[name])
+        label = rec.pop("label")
+        summary["kernels"].append(dict(
+            name=f"probe_{name}", route="cuda",
+            source=f"{src}/probes_{script}.cu",
+            replaces=f"scripts/{script}.py:{line}",
+            launches=probe_launches[name], timed=label, **rec))
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

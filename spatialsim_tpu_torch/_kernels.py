@@ -45,6 +45,18 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "spatialsim_boids_window":(_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                                 _P),
+    # The traversal-primitive probes (csrc/probes_decide15.cu, 18.cu).
+    "spatialsim_probe_row_reads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "spatialsim_probe_block_read": (_P, _P, _P, _I, _I, _I, _P),
+    "spatialsim_probe_reduce_roundtrip": (_P, _P, _I, _I, _I, _P),
+    "spatialsim_probe_row_write": (_P, _P, _P, _P, _I, _I, _P),
+    "spatialsim_probe_roll": (_P, _I, _P, _P),
+    "spatialsim_probe_scalar_load": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "spatialsim_probe_extract8": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "spatialsim_probe_smem_table": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "spatialsim_probe_gated_reduce": (_P, _P, _I, _I, _I, _P),
+    "spatialsim_probe_row_store": (_P, _P, _P, _I, _I, _P),
+    "spatialsim_probe_iteration_core": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib = None

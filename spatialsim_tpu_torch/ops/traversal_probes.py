@@ -1,0 +1,690 @@
+"""The traversal-primitive probes of ``scripts/decide15.py`` and
+``scripts/decide18.py`` (port of their Pallas microbenchmarks).
+
+A per-group octree traversal kernel stands on a few primitives: random
+reads of cell rows from a table held on chip, a reduce whose result comes
+back to scalar control flow (the decision word), the append writes, lane
+rotates and scalar loads.  The TPU scripts measured each with one small
+Pallas kernel; here each is a hand-written CUDA kernel
+(``csrc/probes_decide15.cu``, ``csrc/probes_decide18.cu``) that computes
+the TPU probe's function -- the same output for the same inputs -- and a
+plain PyTorch version beside it.
+
+Four layers, per probe:
+
+* the inputs (``row_inputs``, ``block_read_inputs``, ...) -- made as the
+  script makes them (``arange`` tables,
+  ``np.random.default_rng(0).integers``); the tools build theirs here too.
+* ``bench_*`` / ``probe_*`` -- the TPU probe's name and arguments (plus
+  keyword-only extras: ``device``, and the Hopper placements ``chained``
+  and ``where``); each runs the wrapper on its inputs and returns the
+  kernel's output.  Timing is the caller's job (``tools/decide15.py``,
+  ``tools/decide18.py``, ``chip_smoke.py``).
+* the wrapper (``row_reads``, ``gated_reduce``, ...) -- takes the inputs;
+  a CUDA tensor launches the kernel on the current stream (or raises) and
+  adds one to the wrapper's ``launches``; a CPU tensor takes the plain
+  version.
+* ``*_reference`` -- the plain version, in the probe's order of
+  operations, rounding in float32 and wrapping in int32 as the TPU probe
+  and the kernel do, so all three agree bit for bit.  The row sums (5a,
+  5b, 5f-5h) are serial float32 scans on the host (:func:`_serial_sum`);
+  the chains whose next step depends on the last (5c, 6a, 6b, 6d) go step
+  by step.
+
+Rows 5a-6d refer to the table of TPU kernels in ``PERF.md``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spatialsim_tpu_torch import _kernels
+
+ROW = 128                 # float32 lanes of a table row (512 B)
+SHARED_ROWS = 448         # the largest table of rows that 227 KB holds
+WHERE = ("global", "shared")
+WIDTHS = (1, 2, 4, 8)     # row-read chains: decide15's widths
+BATCHES = (1, 4, 8)       # reduce round trip: decide15's batches
+K_RUNS = (1, 2, 4)        # iteration core: decide18's runs a step
+
+
+# ---- inputs, made as the TPU probes make them ------------------------------
+
+def table(n_cells: int, device="cuda", scale=None) -> torch.Tensor:
+    """``arange(n_cells * 128)`` as an ``(n_cells, 128)`` float32 table,
+    times ``scale`` in float32 where given (decide18's ``* 1e-6``)."""
+    t = torch.arange(n_cells * ROW, dtype=torch.float32,
+                     device=device).reshape(n_cells, ROW)
+    return t if scale is None else t * scale
+
+
+def indices(high: int, n: int, device="cuda") -> torch.Tensor:
+    """``np.random.default_rng(0).integers(0, high, n)`` as int32."""
+    return torch.as_tensor(
+        np.random.default_rng(0).integers(0, high, n).astype(np.int32),
+        device=device)
+
+
+def lane_row(device="cuda") -> torch.Tensor:
+    """``arange(128)`` as a ``(1, 128)`` float32 row."""
+    return torch.arange(ROW, dtype=torch.float32, device=device)[None, :]
+
+
+def row_inputs(n_cells, n_reads, device="cuda"):
+    """5a, 5f, 5g: the table and ``n_reads`` row indices."""
+    return table(n_cells, device), indices(n_cells, n_reads, device)
+
+
+def block_read_inputs(n_cells, n_reads, device="cuda"):
+    """5b: the table and first rows in ``[0, n_cells - 2)``."""
+    return table(n_cells, device), indices(n_cells - 2, n_reads, device)
+
+
+def row_write_inputs(n_cells, n_ops, device="cuda"):
+    """5d: a table of ones and the rows to write."""
+    return (torch.ones((n_cells, ROW), dtype=torch.float32, device=device),
+            indices(n_cells, n_ops, device))
+
+
+def extract8_inputs(n_cells, n_visits, device="cuda"):
+    """5h: the table and cell ids in ``[0, 16 n_cells)`` (16 cells of 8
+    floats a row)."""
+    return table(n_cells, device), indices(n_cells * 16, n_visits, device)
+
+
+def smem_inputs(device="cuda") -> torch.Tensor:
+    """6a: the four run-time offsets, ``arange(4)`` as int32."""
+    return torch.arange(4, dtype=torch.int32, device=device)
+
+
+def smem_optin_bytes(device) -> int:
+    """Dynamic shared memory one block may opt in to on ``device``."""
+    return int(torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin)
+
+
+# ---- shared helpers ---------------------------------------------------------
+
+def _i32(x: int) -> int:
+    """Wrap a Python int to int32, as the kernels' chains wrap."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _check(name, t, dtype, shape=None):
+    if t.dtype != dtype or (shape is not None
+                            and tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _on_card(fn_name, *tensors) -> bool:
+    """True for CUDA inputs (launch the kernel), False for CPU ones (take
+    the plain version); raises on anything else or on mixed devices."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors) or dev.type not in ("cpu",
+                                                                 "cuda"):
+        raise ValueError(f"{fn_name}: unsupported devices "
+                         f"{[str(t.device) for t in tensors]}")
+    return dev.type == "cuda"
+
+
+def _table_args(fn_name, tree, idx):
+    _check(f"{fn_name}: tree", tree, torch.float32)
+    if tree.dim() != 2 or tree.shape[1] != ROW:
+        raise ValueError(f"{fn_name}: tree must be (n_cells, {ROW}), got "
+                         f"{tuple(tree.shape)}")
+    _check(f"{fn_name}: idx", idx, torch.int32)
+    if idx.dim() != 1:
+        raise ValueError(f"{fn_name}: idx must be 1-D")
+
+
+def _lib_stream(t):
+    return _kernels.library(), _kernels.stream_ptr(t.device)
+
+
+def _host(t) -> np.ndarray:
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+
+
+def _serial_sum(terms, reps=1) -> np.ndarray:
+    """``reps`` passes over ``terms`` along axis 0, term after term, each
+    add rounded to float32: the order of the kernels' and the TPU probes'
+    chains.  numpy's ``add.accumulate`` keeps that order on the host
+    (``torch.cumsum`` accumulates in float64): at the scripts' sizes the
+    serial float32 sums of ``arange`` rows sit ~1e-4 below the exact ones,
+    all rounding one way, because every term of a lane has the same low
+    bits."""
+    a = np.ascontiguousarray(np.moveaxis(_host(terms), 0, -1),
+                             dtype=np.float32)
+    acc = np.zeros(a.shape[:-1], np.float32)
+    for _ in range(reps):
+        acc = np.add.accumulate(np.concatenate([acc[..., None], a], -1),
+                                axis=-1)[..., -1]
+    return acc
+
+
+# ---- 5a. row reads (decide15.py:64) -----------------------------------------
+
+def row_reads_reference(tree, idx, reps, width=1):
+    """``reps`` passes of ``acc[w] += tree[idx[i width + w]]`` over the
+    first ``(n_reads // width) * width`` indices, then ``acc[0] + acc[1] +
+    ...``, all in float32, as a ``(1, 128)`` row."""
+    steps = idx.shape[0] // width
+    rows = _host(tree[idx[:steps * width].long()]).reshape(steps, width, ROW)
+    acc = _serial_sum(rows, reps)
+    out = acc[0]
+    for a in acc[1:]:
+        out = out + a
+    return torch.from_numpy(out[None, :]).to(tree.device)
+
+
+def row_reads(tree, idx, reps, width=1, *, chained=False, where="global"):
+    """5a through ``csrc/probes_decide15.cu`` (one warp, ``width``
+    independent accumulators; ``chained`` makes each read wait on the last
+    add; ``where="shared"`` stages the table in shared memory first and
+    raises ``ValueError`` before any launch where the card's opt-in limit
+    cannot hold it)."""
+    if width not in WIDTHS:
+        raise ValueError(f"row_reads: width {width} not in {WIDTHS}")
+    if where not in WHERE:
+        raise ValueError(f"row_reads: where={where!r} not in {WHERE}")
+    if not _on_card("row_reads", tree, idx):
+        return row_reads_reference(tree, idx, reps, width)
+    _table_args("row_reads", tree, idx)
+    n_cells = tree.shape[0]
+    shared = where == "shared"
+    if shared and n_cells * ROW * 4 > smem_optin_bytes(tree.device):
+        raise ValueError(
+            f"row_reads: a {n_cells}-row table ({n_cells * ROW * 4} B) "
+            f"exceeds the {smem_optin_bytes(tree.device)} B of shared "
+            f"memory a block can opt in to")
+    out = torch.empty((1, ROW), dtype=torch.float32, device=tree.device)
+    lib, st = _lib_stream(tree)
+    _kernels.check(lib.spatialsim_probe_row_reads(
+        tree.data_ptr(), idx.data_ptr(), out.data_ptr(), n_cells,
+        idx.shape[0], int(reps), int(width), int(chained), int(shared), st),
+        "probe_row_reads")
+    row_reads.launches += 1
+    return out
+
+
+row_reads.launches = 0
+
+
+def bench_row_reads(n_cells, n_reads, reps_in_kernel, width=1, *,
+                    chained=False, where="global", device="cuda"):
+    """``decide15.bench_row_reads``'s function on this card."""
+    return row_reads(*row_inputs(n_cells, n_reads, device), reps_in_kernel,
+                     width, chained=chained, where=where)
+
+
+# ---- 5b. block read (decide15.py:101) ---------------------------------------
+
+def block_read_reference(tree, idx, reps):
+    """``acc = (acc + tree[idx[i]]) + tree[idx[i] + 1]`` in float32."""
+    i = idx.long()
+    rows = _host(torch.stack([tree[i], tree[i + 1]], 1)).reshape(-1, ROW)
+    return torch.from_numpy(
+        _serial_sum(rows, reps)[None, :]).to(tree.device)
+
+
+def block_read(tree, idx, reps, *, chained=False):
+    """5b: ``sum (tree[idx] + tree[idx + 1])``, one (2, 128) read a step."""
+    if not _on_card("block_read", tree, idx):
+        return block_read_reference(tree, idx, reps)
+    _table_args("block_read", tree, idx)
+    out = torch.empty((1, ROW), dtype=torch.float32, device=tree.device)
+    lib, st = _lib_stream(tree)
+    _kernels.check(lib.spatialsim_probe_block_read(
+        tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+        int(reps), int(chained), st), "probe_block_read")
+    block_read.launches += 1
+    return out
+
+
+block_read.launches = 0
+
+
+def bench_block_read(n_cells, n_reads, reps_in_kernel, *, chained=False,
+                     device="cuda"):
+    return block_read(*block_read_inputs(n_cells, n_reads, device),
+                      reps_in_kernel, chained=chained)
+
+
+# ---- 5c. reduce round trip (decide15.py:143) --------------------------------
+
+def reduce_roundtrip_reference(x, n_ops, reps, batch=1):
+    """Step by step: ``f = 1 + acc * 1e-20``, ``s_b = sum(v * f + b)``,
+    ``acc += s_0 + ... + s_{batch-1}`` in float32.  The sums depend on
+    ``acc`` only through ``f``, so they are recomputed only when ``f``
+    changes."""
+    v = x.reshape(-1)
+    acc, f_last, s = np.float32(0.0), None, np.float32(0.0)
+    for _ in range(reps):
+        for _ in range(n_ops):
+            f = np.float32(np.float32(1.0) + acc * np.float32(1e-20))
+            if f != f_last:
+                sums = [np.float32(torch.sum(v * float(f) + float(b)).item())
+                        for b in range(batch)]
+                s = sums[0]
+                for sb in sums[1:]:
+                    s = np.float32(s + sb)
+                f_last = f
+            acc = np.float32(acc + s)
+    return torch.tensor([[float(acc)]], dtype=torch.float32, device=x.device)
+
+
+def reduce_roundtrip(x, n_ops, reps, batch=1):
+    """5c: ``batch`` reductions issued before any is read, then the scalar
+    chain; one warp, shuffle butterflies."""
+    if batch not in BATCHES:
+        raise ValueError(f"reduce_roundtrip: batch {batch} not in {BATCHES}")
+    if not _on_card("reduce_roundtrip", x):
+        return reduce_roundtrip_reference(x, n_ops, reps, batch)
+    _check("reduce_roundtrip: x", x, torch.float32, (1, ROW))
+    out = torch.empty((1, 1), dtype=torch.float32, device=x.device)
+    lib, st = _lib_stream(x)
+    _kernels.check(lib.spatialsim_probe_reduce_roundtrip(
+        x.data_ptr(), out.data_ptr(), int(n_ops), int(reps), int(batch), st),
+        "probe_reduce_roundtrip")
+    reduce_roundtrip.launches += 1
+    return out
+
+
+reduce_roundtrip.launches = 0
+
+
+def bench_reduce_roundtrip(n_ops, reps_in_kernel, batch=1, *, device="cuda"):
+    return reduce_roundtrip(lane_row(device), n_ops, reps_in_kernel, batch)
+
+
+# ---- 5d. row write (decide15.py:177) ----------------------------------------
+
+def row_write_reference(tree, idx, reps):
+    scr = torch.zeros_like(tree)
+    i = idx.long()
+    scr[i] = tree[i] * 2.0
+    return scr[0:1].clone(), scr
+
+
+def row_write(tree, idx, reps):
+    """5d: ``scr[idx[i]] = 2 * tree[idx[i]]`` into a zeroed scratch table;
+    returns ``(scr[0], scr)``: the probe's output, and the table, which
+    holds every write (row 0 is written only where some index is 0)."""
+    if not _on_card("row_write", tree, idx):
+        return row_write_reference(tree, idx, reps)
+    _table_args("row_write", tree, idx)
+    scr = torch.zeros_like(tree)
+    out = torch.empty((1, ROW), dtype=torch.float32, device=tree.device)
+    lib, st = _lib_stream(tree)
+    _kernels.check(lib.spatialsim_probe_row_write(
+        tree.data_ptr(), idx.data_ptr(), scr.data_ptr(), out.data_ptr(),
+        idx.shape[0], int(reps), st), "probe_row_write")
+    row_write.launches += 1
+    return out, scr
+
+
+row_write.launches = 0
+
+
+def bench_row_write(n_cells, n_ops, reps_in_kernel, *, device="cuda"):
+    return row_write(*row_write_inputs(n_cells, n_ops, device),
+                     reps_in_kernel)
+
+
+# ---- 5e. roll (decide15.py:206) ---------------------------------------------
+
+def roll_reference(x, shift):
+    return torch.roll(x, int(shift), 1)
+
+
+def roll(x, shift):
+    """5e: ``torch.roll(x, shift, 1)`` of a (1, 128) row, the shift a
+    run-time argument: register selects and one shuffle per component."""
+    if not _on_card("roll", x):
+        return roll_reference(x, shift)
+    _check("roll: x", x, torch.float32, (1, ROW))
+    out = torch.empty_like(x)
+    lib, st = _lib_stream(x)
+    _kernels.check(lib.spatialsim_probe_roll(
+        x.data_ptr(), int(shift), out.data_ptr(), st), "probe_roll")
+    roll.launches += 1
+    return out
+
+
+roll.launches = 0
+
+
+def bench_roll(*, device="cuda"):
+    return roll(lane_row(device), 5)
+
+
+# ---- 5f, 5g. scalar loads (decide15.py:239, 272) ----------------------------
+
+def _scalar_sum(vals, reps, device):
+    """``reps`` passes of ``acc += vals[i]`` in float32, as ``(1, 1)``."""
+    return torch.tensor([[float(_serial_sum(vals, reps))]],
+                        dtype=torch.float32, device=device)
+
+
+def scalar_load_dynsub_reference(tree, idx, reps):
+    return _scalar_sum(tree[idx.long(), 5], reps, tree.device)
+
+
+def scalar_load_dyn_dyn_reference(tree, idx, reps):
+    i = idx.long()
+    return _scalar_sum(tree[i, (i * 7) % ROW], reps, tree.device)
+
+
+def _scalar_load(name, counter, dyn_lane, tree, idx, reps, chained):
+    _table_args(name, tree, idx)
+    out = torch.empty((1, 1), dtype=torch.float32, device=tree.device)
+    lib, st = _lib_stream(tree)
+    _kernels.check(lib.spatialsim_probe_scalar_load(
+        tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+        int(reps), int(dyn_lane), int(chained), st), f"probe_{name}")
+    counter.launches += 1
+    return out
+
+
+def scalar_load_dynsub(tree, idx, reps, *, chained=False):
+    """5f: ``sum tree[idx[i], 5]``, one thread, a serial chain."""
+    if not _on_card("scalar_load_dynsub", tree, idx):
+        return scalar_load_dynsub_reference(tree, idx, reps)
+    return _scalar_load("scalar_load_dynsub", scalar_load_dynsub, False,
+                        tree, idx, reps, chained)
+
+
+def scalar_load_dyn_dyn(tree, idx, reps, *, chained=False):
+    """5g: ``sum tree[c, (7 c) mod 128]``, c = idx[i], one thread."""
+    if not _on_card("scalar_load_dyn_dyn", tree, idx):
+        return scalar_load_dyn_dyn_reference(tree, idx, reps)
+    return _scalar_load("scalar_load_dyn_dyn", scalar_load_dyn_dyn, True,
+                        tree, idx, reps, chained)
+
+
+scalar_load_dynsub.launches = 0
+scalar_load_dyn_dyn.launches = 0
+
+
+def probe_scalar_load_dynsub(n_cells=8192, n_reads=4096, reps=20, *,
+                             chained=False, device="cuda"):
+    return scalar_load_dynsub(*row_inputs(n_cells, n_reads, device), reps,
+                              chained=chained)
+
+
+def probe_scalar_load_dyn_dyn_retry(n_cells=8192, n_reads=4096, reps=20, *,
+                                    chained=False, device="cuda"):
+    return scalar_load_dyn_dyn(*row_inputs(n_cells, n_reads, device), reps,
+                               chained=chained)
+
+
+# ---- 5h. extract8 (decide15.py:325) -----------------------------------------
+
+def extract8_reference(tree, idx, reps):
+    """Both variants: ``sum over visits and k < 8 of
+    tree[c // 16, (c % 16) 8 + k]``, c = idx[i]."""
+    c = idx.long()
+    cols = ((c % 16) * 8)[:, None] + torch.arange(8, device=c.device)
+    cells = tree[(c // 16)[:, None], cols]                 # (n_visits, 8)
+    return _scalar_sum(_serial_sum(cells.T), reps, tree.device)
+
+
+def extract8(tree, idx, reps, *, use_roll=True, chained=False):
+    """5h: one thread's two 16 B loads (``use_roll=False``) or the warp's
+    row read, shuffle alignment and shuffle sum (``use_roll=True``); both
+    give the same bits."""
+    if not _on_card("extract8", tree, idx):
+        return extract8_reference(tree, idx, reps)
+    _table_args("extract8", tree, idx)
+    out = torch.empty((1, 1), dtype=torch.float32, device=tree.device)
+    lib, st = _lib_stream(tree)
+    _kernels.check(lib.spatialsim_probe_extract8(
+        tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+        int(reps), int(use_roll), int(chained), st), "probe_extract8")
+    extract8.launches += 1
+    return out
+
+
+extract8.launches = 0
+
+
+def bench_extract8(n_cells=8192, n_visits=4096, reps=10, use_roll=True, *,
+                   chained=False, device="cuda"):
+    return extract8(*extract8_inputs(n_cells, n_visits, device), reps,
+                    use_roll=use_roll, chained=chained)
+
+
+# ---- 6a. table in on-chip memory (decide18.py:60) ---------------------------
+
+def smem_table_reference(idx4, n_i32, n_ops=4096, reps=20):
+    """Step by step in int32: ``tbl[997 i mod n] = i`` (i < 256) over a
+    zeroed table, then ``acc += tbl[(idx[i mod 4] + 1009 i + acc mod 7)
+    mod n]``."""
+    tbl = [0] * n_i32
+    for i in range(256):
+        tbl[(i * 997) % n_i32] = i
+    ids = [int(v) for v in idx4.tolist()]
+    acc = 0
+    for _ in range(reps):
+        for i in range(n_ops):
+            k = _i32(_i32(ids[i % 4] + i * 1009) + acc % 7) % n_i32
+            acc = _i32(acc + tbl[k])
+    return torch.tensor([[acc]], dtype=torch.int32, device=idx4.device)
+
+
+def smem_table(idx4, n_i32, n_ops=4096, reps=20, *, where="shared"):
+    """6a: the table in dynamic shared memory (``where="shared"``; raises
+    ``ValueError`` before any launch where ``4 n_i32`` bytes exceed the
+    card's opt-in limit) or in device memory (``"global"``)."""
+    if where not in WHERE:
+        raise ValueError(f"smem_table: where={where!r} not in {WHERE}")
+    if not _on_card("smem_table", idx4):
+        return smem_table_reference(idx4, n_i32, n_ops, reps)
+    _check("smem_table: idx4", idx4, torch.int32, (4,))
+    shared = where == "shared"
+    if shared and 4 * n_i32 > smem_optin_bytes(idx4.device):
+        raise ValueError(
+            f"smem_table: a {4 * n_i32} B table exceeds the "
+            f"{smem_optin_bytes(idx4.device)} B of shared memory a block "
+            f"can opt in to")
+    gtable = torch.zeros(0 if shared else n_i32, dtype=torch.int32,
+                         device=idx4.device)
+    out = torch.empty((1, 1), dtype=torch.int32, device=idx4.device)
+    lib, st = _lib_stream(idx4)
+    _kernels.check(lib.spatialsim_probe_smem_table(
+        idx4.data_ptr(), gtable.data_ptr(), out.data_ptr(), int(n_i32),
+        int(n_ops), int(reps), int(shared), st),
+        "probe_smem_table")
+    smem_table.launches += 1
+    return out
+
+
+smem_table.launches = 0
+
+
+def probe_smem_capacity(n_i32, *, where="shared", n_ops=4096, reps=20,
+                        device="cuda"):
+    return smem_table(smem_inputs(device), n_i32, n_ops, reps, where=where)
+
+
+# ---- 6b. gated reduce (decide18.py:99) --------------------------------------
+
+def gated_reduce_reference(x, gate_frac_pct, n_ops=4096, reps=20):
+    """Step by step: ``t = acc * 1e-20`` (float32), ``w = int(sum(v + t))``,
+    a hit when ``(w + i) mod 100 < pct``, then ``acc += w + (hit ?
+    int(sum(2 v + t)) : 0)`` in int32."""
+    v = x.reshape(-1)
+    acc = 0
+    for _ in range(reps):
+        for i in range(n_ops):
+            t = float(np.float32(np.float32(acc) * np.float32(1e-20)))
+            w = int(torch.sum(v + t).item())
+            add = 0
+            if _i32(w + i) % 100 < gate_frac_pct:
+                add = int(torch.sum(v * 2.0 + t).item())
+            acc = _i32(_i32(acc + w) + add)
+    return torch.tensor([[acc]], dtype=torch.int32, device=x.device)
+
+
+def gated_reduce(x, gate_frac_pct, n_ops=4096, reps=20):
+    """6b: the word reduce every step and a second reduce on a hit; one
+    warp, the branch uniform across it."""
+    if not _on_card("gated_reduce", x):
+        return gated_reduce_reference(x, gate_frac_pct, n_ops, reps)
+    _check("gated_reduce: x", x, torch.float32, (1, ROW))
+    out = torch.empty((1, 1), dtype=torch.int32, device=x.device)
+    lib, st = _lib_stream(x)
+    _kernels.check(lib.spatialsim_probe_gated_reduce(
+        x.data_ptr(), out.data_ptr(), int(gate_frac_pct), int(n_ops),
+        int(reps), st), "probe_gated_reduce")
+    gated_reduce.launches += 1
+    return out
+
+
+gated_reduce.launches = 0
+
+
+def probe_gated_reduce(gate_frac_pct, *, n_ops=4096, reps=20, device="cuda"):
+    return gated_reduce(lane_row(device), gate_frac_pct, n_ops, reps)
+
+
+# ---- 6c. row store (decide18.py:135) ----------------------------------------
+
+def row_store_reference(idx, n_cells, reps=20):
+    """``scr[idx[i]] = iota + i`` over a zeroed table, the last i winning;
+    returns ``(scr[0], scr)``."""
+    i = idx.long()
+    last = torch.full((n_cells,), -1, dtype=torch.long, device=idx.device)
+    last.scatter_reduce_(0, i, torch.arange(i.shape[0], device=idx.device),
+                         "amax")
+    scr = torch.zeros((n_cells, ROW), dtype=torch.float32, device=idx.device)
+    hit = last >= 0
+    scr[hit] = (torch.arange(ROW, dtype=torch.float32, device=idx.device)
+                + last[hit, None].float())
+    return scr[0:1].clone(), scr
+
+
+def row_store(idx, n_cells, reps=20):
+    """6c: a 512 B row store a step into a zeroed scratch table; returns
+    ``(scr[0], scr)`` as :func:`row_write`."""
+    if not _on_card("row_store", idx):
+        return row_store_reference(idx, n_cells, reps)
+    _check("row_store: idx", idx, torch.int32)
+    scr = torch.zeros((n_cells, ROW), dtype=torch.float32, device=idx.device)
+    out = torch.empty((1, ROW), dtype=torch.float32, device=idx.device)
+    lib, st = _lib_stream(idx)
+    _kernels.check(lib.spatialsim_probe_row_store(
+        idx.data_ptr(), scr.data_ptr(), out.data_ptr(), idx.shape[0],
+        int(reps), st), "probe_row_store")
+    row_store.launches += 1
+    return out, scr
+
+
+row_store.launches = 0
+
+
+def probe_row_store(n_cells, *, n_ops=4096, reps=20, device="cuda"):
+    return row_store(indices(n_cells, n_ops, device), n_cells, reps)
+
+
+# ---- 6d. iteration core (decide18.py:198) -----------------------------------
+
+def decision_words(tree, s):
+    """The decision word of a run at each start ``s`` (int64 tensor): the
+    probe's alignment, shifts, opening test and weighted sum, over all
+    starts at once."""
+    n_cells = tree.shape[0]
+    row = torch.div(s, 16, rounding_mode="floor") % (n_cells - 2)
+    base8 = (s % 16) * 8
+    flat = torch.cat([tree[row], tree[row + 1]], 1)          # (m, 256)
+    lanes = torch.arange(ROW, device=tree.device)
+    al = flat.gather(1, base8[:, None] + lanes)
+    bsv, bev, cxv = (torch.roll(al, k, 1) for k in (126, 125, 124))
+    gx = torch.maximum(1.0 - cxv, cxv - 2.0)
+    dmin = gx * gx + 1.0
+    accept = (al < 0.64 * dmin) | (bev - bsv <= 1.0)
+    em = (bev > bsv) & accept & (bsv > 100.0)
+    weights = 4 ** torch.arange(8, device=tree.device)
+    return (em[:, 0:64:8].long() * weights).sum(1)
+
+
+def _iteration_chain(tree, idx, k_runs, n_iters, reps):
+    """The int32 chain ``acc += word(idx[i k + q] + acc mod 3) mod 5``, with
+    the words of every reachable start computed first
+    (:func:`decision_words`); returns ``acc`` and the starts it took."""
+    ids = [int(v) for v in idx.tolist()]
+    lo, hi = min(ids), max(ids) + 2
+    words = decision_words(
+        tree, torch.arange(lo, hi + 1, device=tree.device)).tolist()
+    acc, starts = 0, set()
+    for _ in range(reps):
+        for i in range(n_iters):
+            a3 = acc % 3
+            add = 0
+            for q in range(k_runs):
+                s = _i32(ids[i * k_runs + q] + a3)
+                starts.add(s)
+                add = _i32(add + words[s - lo] % 5)
+            acc = _i32(acc + add)
+    return acc, starts
+
+
+def iteration_core_reference(tree, idx, k_runs, n_iters=2048, reps=10):
+    acc, _ = _iteration_chain(tree, idx, k_runs, n_iters, reps)
+    return torch.tensor([[acc]], dtype=torch.int32, device=tree.device)
+
+
+def iteration_rows(tree, idx, k_runs, n_iters=2048, reps=10) -> int:
+    """Distinct table rows the chain reads (rows ``row`` and ``row + 1`` of
+    every start it takes): where decisions fire, ``acc mod 3`` moves the
+    starts, so this depends on the data."""
+    _, starts = _iteration_chain(tree, idx, k_runs, n_iters, reps)
+    rows = {(s // 16) % (tree.shape[0] - 2) for s in starts}
+    return len(rows | {r + 1 for r in rows})
+
+
+def iteration_core(tree, idx, k_runs, n_iters=2048, reps=10):
+    """6d: one warp, ``k_runs`` two-row reads in flight a step, shuffle
+    alignment and shifts, the decision word by ``__ballot_sync``."""
+    if k_runs not in K_RUNS:
+        raise ValueError(f"iteration_core: k_runs {k_runs} not in {K_RUNS}")
+    if idx.shape[0] < n_iters * k_runs:
+        raise ValueError("iteration_core: idx shorter than n_iters * k_runs")
+    if not _on_card("iteration_core", tree, idx):
+        return iteration_core_reference(tree, idx, k_runs, n_iters, reps)
+    _table_args("iteration_core", tree, idx)
+    out = torch.empty((1, 1), dtype=torch.int32, device=tree.device)
+    lib, st = _lib_stream(tree)
+    _kernels.check(lib.spatialsim_probe_iteration_core(
+        tree.data_ptr(), idx.data_ptr(), out.data_ptr(), tree.shape[0],
+        int(k_runs), int(n_iters), int(reps), st),
+        "probe_iteration_core")
+    iteration_core.launches += 1
+    return out
+
+
+iteration_core.launches = 0
+
+
+def iteration_inputs(k_runs, *, scale=1e-6, n_iters=2048, n_cells=8192,
+                     device="cuda"):
+    """decide18's iteration-core inputs: ``arange * scale`` (the probe's
+    1e-6, at which no decision fires) and the run starts."""
+    return (table(n_cells, device, scale),
+            indices(n_cells - 2, n_iters * k_runs, device))
+
+
+def probe_iteration_shapes(k_runs, *, scale=1e-6, n_iters=2048, reps=10,
+                           device="cuda"):
+    tree, idx = iteration_inputs(k_runs, scale=scale, n_iters=n_iters,
+                                 device=device)
+    return iteration_core(tree, idx, k_runs, n_iters, reps)
+
+
+KERNELS = (row_reads, block_read, reduce_roundtrip, row_write, roll,
+           scalar_load_dynsub, scalar_load_dyn_dyn, extract8, smem_table,
+           gated_reduce, row_store, iteration_core)

@@ -1,0 +1,277 @@
+"""The traversal-primitive probes of ``scripts/decide15.py`` on this card
+(port of that script's ``main()``).
+
+    python -m spatialsim_tpu_torch.tools.decide15 --device cuda
+    python -m spatialsim_tpu_torch.tools.decide15 --device cpu --quick
+
+It runs the script's list of probes at the script's sizes through the
+hand-written kernels of ``csrc/probes_decide15.cu`` and adds the Hopper
+readings of the same functions: the ``chained`` form of every read probe
+(each read waits on the last add, as a traversal's next cell waits on the
+row it read), row reads from a table staged in shared memory (448 rows,
+the most 227 KB hold), and row reads from a table of ``--octree-cells``
+rows (the occupied cells of the port's 1M-galaxy octree, past the 50 MB
+L2: by default counted on the card by ``build_diagnostics``; 0 skips
+them, as on the CPU).
+
+The first line is ``nvidia-smi``'s name and power limit; then one line a
+probe: milliseconds a call by CUDA events after a warm-up (mean of
+``REPS``), and nanoseconds per read, reduce or visit as the script
+computes them.  ``--device cpu`` runs the plain versions on a host clock,
+a rehearsal only (``--quick`` cuts the in-kernel repetitions to 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+from spatialsim_tpu_torch.ops import traversal_probes as tp
+
+REPS = 3                  # timed calls a probe, after one warm-up
+
+def device_line(device) -> str:
+    """``nvidia-smi``'s name and power limit of the card (its own line)."""
+    if device.type != "cuda":
+        return "device cpu (plain versions, host clock: no device times)"
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def time_ms(fn, reps, device):
+    """Mean milliseconds a call after one warm-up: CUDA events on a card,
+    the host clock on the CPU."""
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(end) / reps
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def distinct_rows(idx) -> int:
+    """Distinct indices: the rows a probe's function needs, read once."""
+    return int(torch.unique(idx).numel())
+
+
+def entry(label, kernel, call, plain, count, unit, ops, nbytes, *,
+          library=None, expect_zero=False):
+    """One probe of a run: ``call()`` launches the kernel on prepared
+    inputs, ``plain()`` runs the plain version (on CPU copies for the
+    serial chains), ``count`` of ``unit`` per call (the script's divisor),
+    ``ops``/``nbytes`` the work the function needs (distinct rows touched
+    and the indices read once, outputs written once), ``library()`` one
+    PyTorch call computing the same function, where there is one;
+    ``expect_zero`` where the probe's own inputs give 0 (a check of such
+    an entry is no check of the arithmetic, so an entry with inputs where
+    it is not 0 must stand beside it)."""
+    return dict(label=label, kernel=kernel, call=call, plain=plain,
+                count=count, unit=unit, ops=float(ops), nbytes=float(nbytes),
+                library=library, expect_zero=expect_zero)
+
+
+def _row_reads(label, n_cells, n_reads, reps, width, device, *,
+               chained=False, where="global"):
+    tree, idx = tp.row_inputs(n_cells, n_reads, device)
+    used = (n_reads // width) * width
+    bag = idx[:used].long().repeat(reps)[None, :]
+    return entry(
+        label, tp.row_reads,
+        lambda: tp.row_reads(tree, idx, reps, width, chained=chained,
+                             where=where),
+        lambda: tp.row_reads_reference(tree, idx, reps, width),
+        used * reps, "read", 128 * used * reps,
+        512 * distinct_rows(idx[:used]) + 4 * n_reads + 512,
+        library=lambda: F.embedding_bag(bag, tree, mode="sum"))
+
+
+def _block_read(label, n_cells, n_reads, reps, device, *, chained=False):
+    tree, idx = tp.block_read_inputs(n_cells, n_reads, device)
+    both = torch.stack([idx, idx + 1], 1).reshape(-1)
+    bag = both.long().repeat(reps)[None, :]
+    return entry(
+        label, tp.block_read,
+        lambda: tp.block_read(tree, idx, reps, chained=chained),
+        lambda: tp.block_read_reference(tree, idx, reps),
+        n_reads * reps, "block", 256 * n_reads * reps,
+        512 * distinct_rows(both) + 4 * n_reads + 512,
+        library=lambda: F.embedding_bag(bag, tree, mode="sum"))
+
+
+def _reduce_roundtrip(label, n_ops, reps, batch, device):
+    x = tp.lane_row(device)
+    steps = n_ops * reps
+    return entry(
+        label, tp.reduce_roundtrip,
+        lambda: tp.reduce_roundtrip(x, n_ops, reps, batch),
+        lambda: tp.reduce_roundtrip_reference(x.cpu(), n_ops, reps, batch),
+        steps * batch, "reduce",
+        # f (2), per reduce 128 multiplies, 128 adds and 127 sums, the
+        # batch's sum and the accumulate.
+        steps * (2 + 383 * batch + batch), 512 + 4)
+
+
+def _row_write(label, n_cells, n_ops, reps, device):
+    tree, idx = tp.row_write_inputs(n_cells, n_ops, device)
+    return entry(
+        label, tp.row_write, lambda: tp.row_write(tree, idx, reps),
+        lambda: tp.row_write_reference(tree, idx, reps),
+        n_ops * reps, "op", 128 * n_ops * reps,
+        # The rows read, the indices, the scratch table and scr[0] written.
+        512 * distinct_rows(idx) + 4 * n_ops + 512 * n_cells + 512)
+
+
+def _roll(label, shift, device):
+    x = tp.lane_row(device)
+    return entry(label, tp.roll, lambda: tp.roll(x, shift),
+                 lambda: tp.roll_reference(x, shift), 1, "roll", 0, 1024,
+                 library=lambda: torch.roll(x, shift, 1))
+
+
+def _scalar(label, kernel, plain, n_cells, n_reads, reps, device, *,
+            chained=False):
+    tree, idx = tp.row_inputs(n_cells, n_reads, device)
+    library = None
+    if kernel is tp.scalar_load_dynsub:
+        bag = idx.long().repeat(reps)[None, :]
+
+        def library():
+            # Column 5 of the table as a (n_cells, 1) view: one bag.
+            return F.embedding_bag(bag, tree[:, 5:6], mode="sum")
+    return entry(
+        label, kernel, lambda: kernel(tree, idx, reps, chained=chained),
+        lambda: plain(tree, idx, reps), n_reads * reps, "read",
+        n_reads * reps, 4 * distinct_rows(idx) + 4 * n_reads + 4,
+        library=library)
+
+
+def _extract8(label, n_cells, n_visits, reps, use_roll, device, *,
+              chained=False):
+    tree, idx = tp.extract8_inputs(n_cells, n_visits, device)
+    return entry(
+        label, tp.extract8,
+        lambda: tp.extract8(tree, idx, reps, use_roll=use_roll,
+                            chained=chained),
+        lambda: tp.extract8_reference(tree, idx, reps), n_visits * reps,
+        "visit", 8 * n_visits * reps,
+        32 * distinct_rows(idx) + 4 * n_visits + 4)
+
+
+def probes(device, quick=False, octree_cells=0):
+    """The script's probes in its order, each with its chained form, then
+    the Hopper placements of the row reads."""
+    r = (lambda n: 1) if quick else (lambda n: n)
+    both = (False, True)
+    out = []
+    for label, n_cells, reps, width in (("row-read w1 8K", 8192, 50, 1),
+                                        ("row-read w1 24K", 24576, 50, 1),
+                                        ("row-read w2", 8192, 50, 2),
+                                        ("row-read w4", 8192, 50, 4),
+                                        ("row-read w8", 8192, 25, 8)):
+        out += [_row_reads(label + (" chained" if c else ""), n_cells, 4096,
+                           r(reps), width, device, chained=c) for c in both]
+    out += [_block_read("block-read" + (" chained" if c else ""), 8192,
+                        4096, r(50), device, chained=c) for c in both]
+    out.append(_row_write("row-write", 8192, 4096, r(50), device))
+    out.append(_roll("roll", 5, device))
+    out += [_reduce_roundtrip(f"reduce-roundtrip b{b}", 4096, r(reps), b,
+                              device) for b, reps in ((1, 50), (4, 50),
+                                                      (8, 25))]
+    for name, kernel, plain in (
+            ("scalar load (dyn sub, static lane)", tp.scalar_load_dynsub,
+             tp.scalar_load_dynsub_reference),
+            ("scalar load (dyn sub, dyn lane) retry",
+             tp.scalar_load_dyn_dyn, tp.scalar_load_dyn_dyn_reference)):
+        out += [_scalar(name + (" chained" if c else ""), kernel, plain,
+                        8192, 4096, r(20), device, chained=c) for c in both]
+    for use_roll in (True, False):
+        out += [_extract8(f"extract8 ({'roll' if use_roll else 'onehot'})"
+                          + (" chained" if c else ""), 8192, 4096, r(10),
+                          use_roll, device, chained=c) for c in both]
+    # Hopper placements of 5a: shared memory, and past the L2 (the same
+    # 4096 x 50 reads, then 204,800 reads once each).
+    out += [_row_reads(f"row-read w1 shared {tp.SHARED_ROWS}" +
+                       (" chained" if c else ""), tp.SHARED_ROWS, 4096,
+                       r(50), 1, device, chained=c, where="shared")
+            for c in both]
+    if octree_cells:
+        for n_reads, reps in ((4096, r(50)), (204_800, 1)):
+            out += [_row_reads(
+                f"row-read w1 {octree_cells} cells {n_reads}x{reps}" +
+                (" chained" if c else ""), octree_cells, n_reads, reps, 1,
+                device, chained=c) for c in both]
+    return out
+
+
+def octree_diagnostics(device, n=1_000_000) -> dict:
+    """``build_diagnostics`` of the port's octree of the ``n``-body galaxy
+    (seed 0) at the default config: its ``cells_per_level`` summed are the
+    rows of the past-L2 table."""
+    import numpy as np
+    from spatialsim_tpu_torch import distributions
+    from spatialsim_tpu_torch.config.nbody import NBODY
+    from spatialsim_tpu_torch.ops import bh_window as bw
+    p, v, m = distributions.generate_distribution(
+        "galaxy", n, NBODY.spawn_radius, NBODY.G, seed=0)
+    pos, vel, mass = (torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                      device=device) for a in (p.T, v.T, m))
+    return bw.build_diagnostics(pos, vel, mass, NBODY.replace(num_bodies=n))
+
+
+def run_probes(entries, device, out=print):
+    """Time each probe (``REPS`` calls after a warm-up); print one line
+    each and return the entries with ``ms`` and ``ns`` added."""
+    for e in entries:
+        e["ms"] = time_ms(e["call"], REPS, device)
+        e["ns"] = e["ms"] * 1e6 / e["count"]
+        out(f"  {e['label']}: {e['ms']:.4f} ms, {e['ns']:.2f} "
+            f"ns/{e['unit']}")
+    return entries
+
+
+def run(device="cuda", quick=False, octree_cells=0, out=print):
+    """The probes of ``scripts/decide15.py``; returns the timed entries."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("decide15: device cuda requested but "
+                           "torch.cuda.is_available() is False")
+    out(device_line(device))
+    return run_probes(probes(device, quick, octree_cells), device, out)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quick", action="store_true",
+                    help="one in-kernel repetition (a CPU rehearsal)")
+    ap.add_argument("--octree-cells", type=int, default=None,
+                    help="rows of the past-L2 table (default: the 1M "
+                         "galaxy's octree on a card; 0 skips it)")
+    a = ap.parse_args(argv)
+    cells = a.octree_cells
+    if cells is None:
+        dev = torch.device(a.device)
+        cells = (sum(octree_diagnostics(dev)["cells_per_level"])
+                 if dev.type == "cuda" else 0)
+    run(a.device, a.quick, cells)
+    print("done")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -248,3 +248,115 @@ def test_dense_window_eval_kernel_near8_matches_plain(cuda, gsz):
     want = window_eval_reference(*args, **kw)
     torch.cuda.synchronize()
     assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+
+
+def _probe_cases(dev):
+    """Each traversal probe at a small size, as (wrapper, call, plain):
+    sums of arange rows stay integers below 2^24, so kernel and plain
+    version agree bit for bit."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    tree, idx = tp.table(64, dev), tp.indices(64, 256, dev)
+    idx2 = tp.indices(62, 256, dev)
+    idx16 = tp.indices(64 * 16, 256, dev)
+    x, idx4 = tp.lane_row(dev), torch.arange(4, dtype=torch.int32,
+                                             device=dev)
+    cases = {}
+    for w in (1, 2, 4, 8):
+        for c in (False, True):
+            for where in tp.WHERE:
+                cases[f"row_reads w{w} {c} {where}"] = (
+                    tp.row_reads,
+                    lambda w=w, c=c, where=where: tp.row_reads(
+                        tree, idx, 2, w, chained=c, where=where),
+                    lambda w=w: tp.row_reads_reference(tree, idx, 2, w))
+    for c in (False, True):
+        cases[f"block_read {c}"] = (
+            tp.block_read, lambda c=c: tp.block_read(tree, idx2, 2,
+                                                     chained=c),
+            lambda: tp.block_read_reference(tree, idx2, 2))
+        for fn, ref in ((tp.scalar_load_dynsub,
+                         tp.scalar_load_dynsub_reference),
+                        (tp.scalar_load_dyn_dyn,
+                         tp.scalar_load_dyn_dyn_reference)):
+            cases[f"{fn.__name__} {c}"] = (
+                fn, lambda fn=fn, c=c: fn(tree, idx, 2, chained=c),
+                lambda ref=ref: ref(tree, idx, 2))
+        for roll in (False, True):
+            cases[f"extract8 {roll} {c}"] = (
+                tp.extract8, lambda roll=roll, c=c: tp.extract8(
+                    tree, idx16, 2, use_roll=roll, chained=c),
+                lambda: tp.extract8_reference(tree, idx16, 2))
+    for n_ops, reps, b in ((4096, 40, 1), (256, 2, 4), (256, 2, 8)):
+        cases[f"reduce_roundtrip {reps} {b}"] = (
+            tp.reduce_roundtrip,
+            lambda n_ops=n_ops, reps=reps, b=b: tp.reduce_roundtrip(
+                x, n_ops, reps, b),
+            lambda n_ops=n_ops, reps=reps, b=b: tp.reduce_roundtrip_reference(
+                x.cpu(), n_ops, reps, b))
+    cases["row_write"] = (tp.row_write, lambda: tp.row_write(tree, idx, 2),
+                          lambda: tp.row_write_reference(tree, idx, 2))
+    for s in (0, 5, 126, -3):
+        cases[f"roll {s}"] = (tp.roll, lambda s=s: tp.roll(x, s),
+                              lambda s=s: torch.roll(x, s, 1))
+    for n in (256, 8192):
+        for where in tp.WHERE:
+            cases[f"smem_table {n} {where}"] = (
+                tp.smem_table, lambda n=n, where=where: tp.smem_table(
+                    idx4, n, 512, 2, where=where),
+                lambda n=n: tp.smem_table_reference(idx4.cpu(), n, 512, 2))
+    for pct in (0, 15, 100):
+        cases[f"gated_reduce {pct}"] = (
+            tp.gated_reduce, lambda pct=pct: tp.gated_reduce(x, pct, 512, 2),
+            lambda pct=pct: tp.gated_reduce_reference(x.cpu(), pct, 512, 2))
+    cases["row_store"] = (tp.row_store, lambda: tp.row_store(idx, 64, 2),
+                          lambda: tp.row_store_reference(idx, 64, 2))
+    for k in tp.K_RUNS:
+        for scale in (1e-6, 1e-6 * 2 ** 18):
+            t6, i6 = tp.iteration_inputs(k, scale=scale, n_iters=1024,
+                                         device=dev)
+            cases[f"iteration_core {k} {scale}"] = (
+                tp.iteration_core,
+                lambda t6=t6, i6=i6, k=k: tp.iteration_core(t6, i6, k, 1024,
+                                                            2),
+                lambda t6=t6, i6=i6, k=k: tp.iteration_core_reference(
+                    t6.cpu(), i6.cpu(), k, 1024, 2))
+    return cases
+
+
+def test_probe_kernels_match_plain(cuda):
+    failed = []
+    for name, (wrapper, call, plain) in _probe_cases(cuda).items():
+        before = wrapper.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, name
+        want = plain()
+        # The row write and row store return (scr[0], scr): both compared.
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want, strict=True):
+            if not torch.equal(g.cpu(), w.cpu()):
+                failed.append((name, g.cpu().ravel()[:4].tolist(),
+                               w.cpu().ravel()[:4].tolist()))
+    assert not failed, failed
+
+
+def test_probe_shared_placements_refuse_past_the_optin_limit(cuda):
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    limit = tp.smem_optin_bytes(cuda)
+    idx4 = torch.arange(4, dtype=torch.int32, device=cuda)
+    before = (tp.smem_table.launches, tp.row_reads.launches)
+    with pytest.raises(ValueError):
+        tp.smem_table(idx4, limit // 4 + 1, where="shared")
+    rows = limit // 512 + 1
+    with pytest.raises(ValueError):
+        tp.row_reads(tp.table(rows, cuda), tp.indices(rows, 64, cuda), 1,
+                     where="shared")
+    assert (tp.smem_table.launches, tp.row_reads.launches) == before
+    # The largest tables that fit run.
+    got = tp.row_reads(tp.table(tp.SHARED_ROWS, cuda),
+                       tp.indices(tp.SHARED_ROWS, 64, cuda), 1,
+                       where="shared")
+    torch.cuda.synchronize()
+    assert tp.row_reads.launches == before[1] + 1
+    assert bool(torch.isfinite(got).all())

@@ -50,6 +50,31 @@ def test_source_scan_catches_jax_imports():
                  "from spatialsim_tpu_torch.io import codec",
                  "# from spatialsim_tpu.io import codec"):
         assert not _JAX_IMPORT.search(line), line
+    for line in ("import jax", "import jax.numpy as jnp",
+                 "from jax.experimental import pallas as pl",
+                 "    from scripts import decide15", "import scripts.eval_ab"):
+        assert _JAX_OR_SCRIPTS.search(line), line
+    for line in ("import jaxlib_free_module", "from scriptsx import y",
+                 "# import jax"):
+        assert not _JAX_OR_SCRIPTS.search(line), line
+
+
+_JAX_OR_SCRIPTS = re.compile(
+    r"^\s*(import\s+(jax|scripts)\b|from\s+(jax|scripts)(\s|\.))", re.M)
+
+
+def test_port_sources_import_neither_jax_nor_scripts():
+    """The traversal-probe modules port ``scripts/decide15.py`` and
+    ``decide18.py`` without importing them; no port module imports jax."""
+    files = sorted((ROOT / "spatialsim_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"spatialsim_tpu_torch/ops/traversal_probes.py",
+            "spatialsim_tpu_torch/tools/decide15.py",
+            "spatialsim_tpu_torch/tools/decide18.py"} <= names
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+           for f in files for m in _JAX_OR_SCRIPTS.finditer(f.read_text())]
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("name", jax_distributions.DISTRIBUTIONS)
