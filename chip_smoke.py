@@ -9,11 +9,19 @@ without one: there is no CPU fallback, no phase's error is caught, and any
 failure exits non-zero.  Phases, each printed with its seconds:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   and a fresh nvcc build of every kernel in ``spatialsim_tpu_torch/csrc``;
+   a fresh nvcc build of every kernel in ``spatialsim_tpu_torch/csrc``
+   (registers and spills by kernel), and the SASS instructions a pair of
+   every instance of kernels 2 and 3 (``tools/eval_tiles.py``), and of
+   their previous versions when those sources lie in
+   ``spatialsim_tpu_torch/_build/parent/`` (git-ignored; without them the
+   previous kernels' lines say "not measured");
 2. kernel 1 (all-pairs) against its plain version at N = 32,768 and a
    ragged 30,001, galaxy ICs: max|da|/max|a| and CUDA-event times;
 3. kernel 2 (pooled window eval) against its plain version on the lists
-   the port builds for the 1M galaxy, at steps_since 0 and 23;
+   the port builds for the 1M galaxy, at steps_since 0 and 23; then every
+   T (targets a thread) and the heavy-first launch order, each held to the
+   plain version, beside the previous kernel, with the bound, SASS
+   instructions a pair, the issue-limited time, blocks per SM and waves;
 4. the main path with every kernel launch counted from zero: the
    all-pairs engine (``NBodySimulation(num_bodies=32_768)``, 10 steps) and
    the window engine (``NBodySimulation(num_bodies=1_000_000,
@@ -24,8 +32,12 @@ failure exits non-zero.  Phases, each printed with its seconds:
    package's accuracy table), under that table's protocol (5 warm-up
    steps, then lists frozen to tau = 23; limits 5% fresh, 8% at tau=23),
    and for the main path's own last interval (reported);
-6. the recorder CLI at 1M (bar_galaxy, 10 frames) and 8K (tiny_galaxy,
-   30 frames, the all-pairs engine), last frames decoded;
+6. the recorder: the bar_galaxy preset at 1M in this process (a frame's
+   steps timed, then a plain frame and a rebuild frame, steps and capture,
+   under ``torch.cuda.set_sync_debug_mode("warn")``: a plain frame may not
+   synchronise), then the CLI at 1M (10 frames; its frame time beside the
+   steps of a frame) and 8K (tiny_galaxy, 30 frames, the all-pairs
+   engine), last frames decoded;
 7. kernel 3 (boids Morton window) against its plain version on the 500K
    ``Flock``'s initial state and again after 48 steps: pass 1 (no dedup)
    and pass 2 (dedup against pass 1's window), max|d|/max|ref| per
@@ -50,8 +62,9 @@ failure exits non-zero.  Phases, each printed with its seconds:
     the 1M galaxy's dense lists from ranges emission (R = 10), the same
     with a seeded near table (K = 4), and the 50M ``extreme_50m_galaxy``
     lists (R = 8) on 512 seeded groups; CUDA-event times, pairs a second
-    and the bound.  The 50M ``NBodySimulation`` is built here and stepped
-    in phase 13;
+    and the bound, and at steps_since 23 phase 3's T and previous-kernel
+    report.  The 50M ``NBodySimulation`` is built here and stepped in
+    phase 13;
 12. the dense path at 1M: dense and pooled lists of one calibrated
     config (equal ``far_n`` in every group, evals within 1e-4 of
     max|a|); the quadrupole main path (``NBodySimulation(num_bodies=
@@ -63,8 +76,10 @@ failure exits non-zero.  Phases, each printed with its seconds:
     at the preset's dt (one rebuild, launches counted from zero), peak
     memory, per-group mass conservation after both builds (1e-4), force
     error on 4,096 bodies against a direct sum (the run's lists and fresh
-    ones), a ``torch.profiler`` breakdown of the next rebuild step and 4
-    plain steps, and the recorder CLI for 2 frames (last frame decoded).
+    ones), the eval kernel on the run's lists beside the previous one, a
+    ``torch.profiler`` breakdown of the next rebuild step and 4 plain
+    steps, and the recorder CLI for 3 frames (its frame time beside the
+    median step; last frame decoded).
 
 14. near groups: ``NBodySimulation(num_bodies=1_000_000,
     config=NBODY.replace(near_groups=8))``, 48 steps (dense R = 10 lists,
@@ -111,11 +126,13 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 N_MAIN = 1_000_000
@@ -325,22 +342,29 @@ def dense_work(lists, gsz, wg, near):
 
 
 def check_dense(kernels, label, lists, s_pos, s_mass, near, steps_since,
-                kw, groups=None):
+                kw, groups=None, tiles=None):
     """The dense kernel against its plain version on one set of lists
     (only ``groups``' bodies, when given): error, CUDA-event times, pairs a
     second and the bound; the first call's timing is the one the summary
-    keeps."""
+    keeps.  With ``tiles`` (the previous kernels' library and the SASS
+    tables of phase 1), also :func:`report_tiles`."""
     import torch
     from spatialsim_tpu_torch.ops.bh_eval_kernel import (
-        far_layout, window_eval, window_eval_reference)
+        dense_launch, far_layout, heavy_first, occupancy, tile_targets,
+        window_eval, window_eval_reference)
+    from spatialsim_tpu_torch.tools import eval_tiles
     gsz = kw["group_size"]
     args = (s_pos, s_mass, lists.far, lists.far_n, near, steps_since, DT)
     got = window_eval(*args, **kw)
     want = window_eval_reference(*args, groups=groups, **kw)
     torch.cuda.synchronize()
-    if groups is not None:
-        got = got[:, (groups[:, None] * gsz
-                      + torch.arange(gsz, device=groups.device)).reshape(-1)]
+
+    def pick(out):
+        if groups is None:
+            return out
+        return out[:, (groups[:, None] * gsz + torch.arange(
+            gsz, device=groups.device)).reshape(-1)]
+    got = pick(got)
     abs_err, err = kernel_errors(got, want)
     ms = cuda_ms(lambda: window_eval(*args, **kw), 5)
     plain_ms = cuda_ms(lambda: window_eval_reference(*args, groups=groups,
@@ -361,6 +385,89 @@ def check_dense(kernels, label, lists, s_pos, s_mass, near, steps_since,
     require(err <= TOL_WINDOW, f"{label}: dense window eval error {err}")
     record_kernel(kernels, "window_eval", abs_err, err, ms, plain_ms, ops,
                   nbytes)
+    if tiles is None:
+        return
+    R = lists.far.shape[1]
+    quad = far_layout(R)[0]
+    t = tile_targets(gsz, R)
+    K = 0 if near is None else near.shape[1]
+    plib = tiles["plib"]
+    report_tiles(
+        label, lambda T, order: pick(dense_launch(*args, targets=T,
+                                                  order=order, **kw)),
+        None if plib is None else lambda: pick(eval_tiles.parent_dense(
+            plib, *args, **kw)),
+        want, (1, 2, 4), t, win + far, b_ms,
+        lists.far_n.shape[0],
+        lambda T: occupancy(gsz, T, R, kw["window_groups"], K),
+        tiles["sass"].get(f"dense R={R} T={t}"),
+        tiles["sass_old"].get(f"dense R={R} (previous, "
+                              f"<={256 if gsz <= 256 else 1024} threads)"),
+        order=heavy_first(lists.far_n, near, gsz),
+        quad_pairs=far if quad else 0)
+
+
+def report_tiles(label, launch, previous, want, ts, chosen, pairs, b_ms,
+                 ng, occ, sass_new, sass_old, order=None, quad_pairs=0):
+    """The redesigned kernel at every T in ``ts`` (``launch(T, order)``;
+    ``chosen`` is the table's T), in group order and, with ``order``, heavy
+    groups first (equal bit for bit), each held to the plain version's
+    ``want`` (None: held in another phase); the previous kernel
+    (``previous()``, None without its sources) timed before and after
+    them; resident blocks per SM and waves (``occ(T)``), SASS instructions
+    a pair (``sass_new``/``sass_old``: the tool's entries or None) and the
+    issue-limited time of ``pairs`` at those counts (``quad_pairs`` of
+    them at the quadrupole loop's, the costliest)."""
+    import torch
+    from spatialsim_tpu_torch.tools.eval_tiles import ISSUE_RATE
+    res, prev = {}, []
+    if previous is not None:
+        got = previous()
+        torch.cuda.synchronize()
+        prev_err = None if want is None else kernel_errors(got, want)[1]
+        prev.append(cuda_ms(previous, 5))
+    for T in ts:
+        got = launch(T, None)
+        torch.cuda.synchronize()
+        if want is not None:
+            err = kernel_errors(got, want)[1]
+            require(err <= TOL_WINDOW, f"{label} T={T}: {err}")
+        res[f"T={T}"] = cuda_ms(lambda: launch(T, None), 5)
+        if order is not None:
+            ordered = launch(T, order)
+            torch.cuda.synchronize()
+            require(torch.equal(ordered, got),
+                    f"{label} T={T}: heavy-first differs")
+            res[f"T={T} heavy-first"] = cuda_ms(lambda: launch(T, order), 5)
+    table = f"T={chosen}" + (" heavy-first" if order is not None else "")
+    print(f"    {label}: ms by T: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res.items())
+          + f" (the table: {table}); bound {b_ms:.4f} ms")
+    if previous is not None:
+        prev.append(cuda_ms(previous, 5))
+        err = "" if prev_err is None else f" (max|da|/max|a| {prev_err:.3e})"
+        print(f"    {label}: previous kernel (one thread a target) "
+              f"{prev[0]:.4f} and {prev[1]:.4f} ms, before and after{err}; "
+              f"the table's takes {2 * res[table] / sum(prev):.3f}x its time")
+    else:
+        print(f"    {label}: previous kernel not measured (no sources in "
+              f"spatialsim_tpu_torch/_build/parent/)")
+    for who, rec in (("new", sass_new), ("previous", sass_old)):
+        if rec is not None:
+            quad = max(n / r for n, r in rec[1])
+            instr = rec[0] * (pairs - quad_pairs) + quad * quad_pairs
+            kind = (f", {quad:.3f} a quadrupole pair" if quad_pairs
+                    else "")
+            print(f"    {label}: SASS ({who}) {rec[0]:.3f} instructions a "
+                  f"pair{kind} (loops {rec[1]}); issue-limited "
+                  f"{instr / ISSUE_RATE * 1e3:.4f} ms for {pairs:.4e} pairs")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for T in ts:
+        blocks, regs, threads = occ(T)
+        print(f"    {label}: T={T}: {threads} threads a block, {regs} "
+              f"registers a thread, {blocks} blocks per SM resident, "
+              f"{ng / (blocks * sms):.2f} waves over {ng} groups on {sms} "
+              f"SMs")
 
 
 def check_probes(entries, probes):
@@ -428,7 +535,7 @@ def timed_steps(step, steps, dt):
 
 def report_steps(label, step_s):
     """Print steps/s over the run, the median step and the rebuild step
-    (the slowest)."""
+    (the slowest); returns the median step's milliseconds."""
     total = sum(step_s)
     plain = sorted(step_s)[len(step_s) // 2]
     rebuild = max(step_s)
@@ -436,6 +543,7 @@ def report_steps(label, step_s):
           f"{len(step_s) / total:.3f} steps/s (rebuild included); median "
           f"step {plain * 1e3:.3f} ms; rebuild step {rebuild * 1e3:.3f} ms "
           f"(step {step_s.index(rebuild) + 1})")
+    return plain * 1e3
 
 
 def require_mass_conserved(st, config, label):
@@ -502,6 +610,8 @@ def original_order(st):
 
 
 def run_recorder(args, rec_root):
+    """Run the port's recorder CLI on the card; returns its median frame
+    milliseconds."""
     env = dict(os.environ, SPATIALSIM_RECORDINGS=str(rec_root),
                PYTHONPATH=os.pathsep.join(
                    [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")]
@@ -512,12 +622,14 @@ def run_recorder(args, rec_root):
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                           text=True)
     secs = time.perf_counter() - t0
-    kept_raw = 0
+    kept_raw, frame_ms = 0, None
     for line in proc.stdout.splitlines():
         if line.startswith("[Compress] frame"):
             kept_raw += "keeping staged npz" in line
         elif line.startswith(("[Record]", "[Compress]")):
             print("    " + line.strip())
+        if line.startswith("[Record] Frame time: median "):
+            frame_ms = float(line.split()[4])
     if kept_raw:
         print(f"    {kept_raw} frames kept as staged .npz (the compressor "
               f"could not pack them; the codec reads both forms)")
@@ -526,6 +638,26 @@ def run_recorder(args, rec_root):
                            f"{' '.join(cmd)}\n{proc.stdout[-4000:]}\n"
                            f"{proc.stderr[-4000:]}")
     print(f"    recorder wall seconds: {secs:.3f}")
+    require(frame_ms is not None, "the recorder printed no frame time")
+    return frame_ms
+
+
+def sync_warnings(fn):
+    """The first line of each warning ``torch.cuda.set_sync_debug_mode
+    ("warn")`` raises while ``fn()`` runs: the host waits on the device."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
 
 
 def check_frame(rec_dir, frame, n):
@@ -550,15 +682,18 @@ def main() -> int:
     from spatialsim_tpu_torch.ops.allpairs import (
         allpairs_accel, allpairs_accel_reference)
     from spatialsim_tpu_torch.ops.bh_eval_kernel import (
-        window_eval, window_eval_cols, window_eval_mxu, window_eval_pool,
+        dense_launch, heavy_first, occupancy, pool_launch, tile_targets,
+        window_eval,
+        window_eval_cols, window_eval_mxu, window_eval_pool,
         window_eval_pool_reference)
     from spatialsim_tpu_torch.ops import bh_window as bw
     from spatialsim_tpu_torch.ops.barnes_hut import barnes_hut_accel
-    from spatialsim_tpu_torch.tools import eval_ab
+    from spatialsim_tpu_torch.tools import eval_ab, eval_tiles
     from spatialsim_tpu_torch.models.nbody import NBodySimulation
     from spatialsim_tpu_torch.config.nbody import NBODY, resolve_config
     from spatialsim_tpu_torch.presets import get_preset_config
-    from spatialsim_tpu_torch.tools.record import config_from_preset
+    from spatialsim_tpu_torch.tools.record import (
+        FrameOverlap, config_from_preset)
     from spatialsim_tpu_torch.config.boids import BOIDS
     from spatialsim_tpu_torch.models.boids import Flock
     from spatialsim_tpu_torch.ops import boids_ops as bo
@@ -586,9 +721,30 @@ def main() -> int:
     _kernels.library(force_build=True, verbose=True)
     print(f"    kernel build seconds (nvcc, sm_90a): "
           f"{_kernels.build_info['seconds']:.3f}")
+    # Registers of the window-eval instances; any kernel's spills.
+    fn, label = "", None
     for line in _kernels.build_info["log"].splitlines():
-        if "Used" in line or "spill" in line:
-            print("    ptxas: " + line.strip())
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+            label = eval_tiles.instance(fn)
+        elif ("spill" in line and "0 bytes spill stores, 0 bytes spill "
+              "loads" not in line) or ("Used" in line and label):
+            print(f"    ptxas [{label or fn}]: " + line.strip())
+    # SASS instructions a pair of the window-eval kernels, and of the
+    # previous ones (one thread a target) when their sources are in
+    # spatialsim_tpu_torch/_build/parent/.
+    plib = eval_tiles.parent_library()
+    sass = eval_tiles.sass_table(_kernels.build_info["path"])
+    sass_old = ({} if plib is None
+                else eval_tiles.sass_table(plib.path, previous=True))
+    for label, (per_pair, loops, _) in sorted({**sass, **sass_old}.items()):
+        print(f"    SASS {label}: {per_pair:.3f} instructions a pair "
+              f"(innermost loops, instructions / MUFU.RSQ: {loops})")
+    if not sass:
+        print("    SASS: no cuobjdump found; instructions a pair not "
+              "measured")
+    print("    previous window-eval kernels: "
+          + (f"built from {eval_tiles.PARENT_DIR}" if plib else "absent"))
     done(t0)
 
     # ---- 2. kernel 1 vs plain -------------------------------------------
@@ -679,6 +835,15 @@ def main() -> int:
                       + got.numel())
         record_kernel(kernels, "window_eval_pool", abs_err, err, ms,
                       plain_ms, 18.0 * pairs, nbytes)
+    t3 = tile_targets(gsz)
+    report_tiles(
+        "1M pooled, steps_since=23",
+        lambda T, order: pool_launch(*args, targets=T, order=order, **kw),
+        (None if plib is None
+         else lambda: eval_tiles.parent_pool(plib, *args, **kw)),
+        want, (1, 2, 4), t3, pairs, bound(18.0 * pairs, nbytes)[0], ng,
+        lambda T: occupancy(gsz, T), sass.get(f"pool T={t3}"),
+        sass_old.get("pool (previous)"), order=heavy_first(lists.far_n))
     del st, lists, acc, s_pos, s_mass, got, want
     done(t0)
 
@@ -795,11 +960,59 @@ def main() -> int:
 
     # ---- 6. recorder drive ------------------------------------------------
     t0 = phase("6. recorder CLI")
+    # The recorder's 1M preset in this process: the step time of a frame,
+    # and a plain frame and a rebuild frame (step, then the recorder's
+    # capture) under CUDA sync debug mode.
+    rcfg = get_preset_config("bar_galaxy")
+    rcfg["num_bodies"] = N_MAIN
+    rsub = int(rcfg["substeps"])
+    rdt = float(rcfg["dt_per_frame"]) / rsub
+    rsim = NBodySimulation(config=config_from_preset(rcfg), substeps=rsub,
+                           device="cuda")
+    frame_step_ms = statistics.median(timed_steps(rsim.step_raw, 6, rdt)) * 1e3
+    with tempfile.TemporaryDirectory(prefix=".smoke_rec_", dir=ROOT) as tmp:
+        fo = FrameOverlap(rsim, Path(tmp), SimpleNamespace(
+            check_and_queue=lambda k: None), [])
+        fo.capture(0)                     # allocates the pinned buffers
+        plain_syncs = sync_warnings(
+            lambda: (rsim.step_raw(rdt), fo.capture(1)))
+        rsim.step_raw(rdt)
+        rebuilds = rsim.rebuilds
+        rebuild_syncs = sync_warnings(
+            lambda: (rsim.step_raw(rdt), fo.capture(2)))
+        rebuilt = rsim.rebuilds - rebuilds
+        # Frames 3-8 written before the next step, 9-14 overlapped.
+        serial, overlapped = [], []
+        for k in range(3, 15):
+            t = time.perf_counter()
+            rsim.step_raw(rdt)
+            fo.capture(k)
+            if k < 9:
+                fo.flush()
+            (serial if k < 9 else overlapped).append(
+                time.perf_counter() - t)
+        fo.flush()
+    print(f"    synchronising calls in a plain frame (3 steps and the "
+          f"capture): {len(plain_syncs)} {plain_syncs[:3]}; in the frame of "
+          f"a rebuild: {len(rebuild_syncs)} (the build sizes its outputs "
+          f"on the host)")
+    require(not plain_syncs and rebuilt == 1, (plain_syncs, rebuilt))
+    print(f"    1M bar_galaxy in this process, median of 6 frames: "
+          f"{statistics.median(serial) * 1e3:.3f} ms a frame written before "
+          f"the next frame's steps, {statistics.median(overlapped) * 1e3:.3f}"
+          f" ms overlapped with them (the recorder's way); the steps of a "
+          f"frame alone {frame_step_ms:.3f} ms")
+    del rsim, fo
     with tempfile.TemporaryDirectory(prefix=".smoke_rec_", dir=ROOT) as tmp:
         rec_root = Path(tmp)
-        run_recorder(["--preset", "bar_galaxy", "--bodies", "1m",
-                      "--frames", "10", "--name", "smoke_1m"], rec_root)
+        frame_ms = run_recorder(["--preset", "bar_galaxy", "--bodies", "1m",
+                                 "--frames", "10", "--name", "smoke_1m"],
+                                rec_root)
         check_frame(rec_root / "smoke_1m", 9, N_MAIN)
+        print(f"    1M bar_galaxy, {rsub} steps a frame: recorder "
+              f"{frame_ms:.3f} ms a frame (median of 10) beside "
+              f"{frame_step_ms:.3f} ms for a frame's steps alone (median of "
+              f"6, in this process)")
         run_recorder(["--preset", "tiny_galaxy", "--bodies", "8k",
                       "--frames", "30", "--name", "smoke_8k"], rec_root)
         check_frame(rec_root / "smoke_8k", 29, 8_000)
@@ -945,13 +1158,13 @@ def main() -> int:
                alignment_weight=bcfg.alignment_weight,
                cohesion_weight=bcfg.cohesion_weight,
                max_speed=bcfg.max_speed, max_force=bcfg.max_force)
-    occupancy = int(torch.bincount(bo.cell_index(st.pos, **gkw).long()).max())
+    cell_cap = int(torch.bincount(bo.cell_index(st.pos, **gkw).long()).max())
     fw, cw, nw = bo.flocking_forces_window_frozen(
         st.pos, st.vel, st.col, st.p21, st.s21, group_size=gsz,
         window_groups=wg1, pass2_window_groups=bcfg.pass2_window_groups,
         second_pass=bcfg.second_pass, return_counts=True, **fkw)
     fe, ce, ne = bo.flocking_forces(
-        st.pos, st.vel, st.col, cell_range=1, cell_capacity=occupancy,
+        st.pos, st.vel, st.col, cell_range=1, cell_capacity=cell_cap,
         return_counts=True, **gkw, **fkw)
     agree = float(torch.isclose(fw, fe, rtol=1e-5, atol=1e-4).all(0)
                   .float().mean())
@@ -960,7 +1173,7 @@ def main() -> int:
     # float32 path sits from the exact sums (reported, no limit).
     f64 = bo.flocking_forces(
         st.pos.double(), st.vel.double(), st.col.double(), cell_range=1,
-        cell_capacity=occupancy, **gkw, **fkw)[0]
+        cell_capacity=cell_cap, **gkw, **fkw)[0]
     for name, f in (("window", fw), ("grid", fe)):
         share = float(torch.isclose(f.double(), f64, rtol=1e-5, atol=1e-4)
                       .all(0).float().mean())
@@ -968,7 +1181,7 @@ def main() -> int:
               f"at atol 1e-4 for {share:.6f} of boids; max|d| "
               f"{float((f.double() - f64).abs().max()):.3e}")
     print(f"    steps since re-sort {st.steps_since}; largest cell occupancy "
-          f"{occupancy} (grid cell_capacity); forces agreeing at atol 1e-4: "
+          f"{cell_cap} (grid cell_capacity); forces agreeing at atol 1e-4: "
           f"{agree:.6f} of boids (limit 0.99); neighbour pairs window "
           f"{captured} / grid {exact} = {captured / exact:.6f} (limit 0.99)")
     require(bool((nw <= ne).all()), "window counted a pair twice")
@@ -1019,9 +1232,11 @@ def main() -> int:
           f"far_n mean {float(qlists.far_n.float().mean()):.1f} max "
           f"{int(qlists.far_n.max())}")
     s_pos, s_mass = eval_ab.sorted_inputs(qlists, pos, mass)
+    tiles = dict(plib=plib, sass=sass, sass_old=sass_old)
     for ss in (0, 23):
         check_dense(kernels, f"1M quadrupole R=16, steps_since={ss}",
-                    qlists, s_pos, s_mass, None, ss, ekw)
+                    qlists, s_pos, s_mass, None, ss, ekw,
+                    tiles=tiles if ss else None)
     del st, acc, qlists
 
     # (2) The 1M galaxy's calibrated config with the pool off and ranges
@@ -1041,7 +1256,7 @@ def main() -> int:
     del st, acc
     s_pos, s_mass = eval_ab.sorted_inputs(dlists, pos, mass)
     check_dense(kernels, "1M dense R=10, steps_since=23", dlists, s_pos,
-                s_mass, None, 23, ekw)
+                s_mass, None, 23, ekw, tiles=tiles)
 
     # (3) The same lists with a seeded near table: K = 4 ids outside each
     # window, ~10% of slots empty (-1).
@@ -1053,7 +1268,7 @@ def main() -> int:
     near[rng.random((ng, 4)) < 0.1] = -1
     near = torch.as_tensor(near, dtype=torch.int32, device=dev)
     check_dense(kernels, "1M dense R=10 + near K=4, steps_since=23",
-                dlists, s_pos, s_mass, near, 23, ekw)
+                dlists, s_pos, s_mass, near, 23, ekw, tiles=tiles)
     del near
 
     # (4) The 50M EXTREME preset: its simulation is built here (phase 13
@@ -1093,7 +1308,8 @@ def main() -> int:
     kw50 = bw._eval_kw(sim50.config)
     for ss in (0, 23):
         check_dense(kernels, f"50M R=8 on 512 groups, steps_since={ss}",
-                    l50, s_pos, s_mass, None, ss, kw50, groups=groups)
+                    l50, s_pos, s_mass, None, ss, kw50, groups=groups,
+                    tiles=tiles if ss else None)
     del s_pos, s_mass, l50
     done(t0)
 
@@ -1191,7 +1407,7 @@ def main() -> int:
     launches_50m = window_eval.launches
     print(f"    launches in the 50M main path: window_eval {launches_50m}, "
           f"window_eval_pool {window_eval_pool.launches}")
-    report_steps(f"50M at the preset's dt {dt50}", step_s)
+    step50_ms = report_steps(f"50M at the preset's dt {dt50}", step_s)
     print(f"    peak device memory GB over the steps: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} of "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.3f}")
@@ -1202,6 +1418,29 @@ def main() -> int:
         require(t_.shape == (3, n50) and bool(torch.isfinite(t_).all()),
                 f"50M {name} finite, shape {tuple(t_.shape)}")
     require_mass_conserved(sim50.state, sim50.config, "rebuild at step 25")
+    # The eval kernel on the run's own lists: the table's T beside the
+    # previous kernel (held to the plain version in phase 11).
+    l50 = sim50.state.lists
+    s_pos, s_mass = padded_sorted(sim50.state)
+    args50 = (s_pos, s_mass, l50.far, l50.far_n, None, l50.steps_since,
+              dt50)
+    win, far, nbytes = dense_work(l50, sim50.config.group_size,
+                                  kw50["window_groups"], None)
+    gsz50, t50 = sim50.config.group_size, tile_targets(
+        sim50.config.group_size, 8)
+    report_tiles(
+        f"50M R=8, the run's lists at steps_since={l50.steps_since}",
+        lambda T, order: dense_launch(*args50, targets=T, order=order,
+                                      **kw50),
+        None if plib is None else lambda: eval_tiles.parent_dense(
+            plib, *args50, **kw50),
+        None, (t50,), t50, win + far, bound(18.0 * (win + far), nbytes)[0],
+        l50.far_n.shape[0],
+        lambda T: occupancy(gsz50, T, 8, kw50["window_groups"], 0),
+        sass.get(f"dense R=8 T={t50}"),
+        sass_old.get("dense R=8 (previous, <=1024 threads)"),
+        order=heavy_first(l50.far_n))
+    del l50, s_pos, s_mass, args50
 
     # Force error on 4,096 bodies: the run's own lists, and fresh lists of
     # the same state (no staleness: what theta 1.5 and list cap 2048 give).
@@ -1243,9 +1482,11 @@ def main() -> int:
     # The recorder CLI: 2 frames, staged in a directory removed after.
     with tempfile.TemporaryDirectory(prefix=".smoke_rec_", dir=ROOT) as tmp:
         rec_root = Path(tmp)
-        run_recorder(["--preset", PRESET_50M, "--frames", "2", "--name",
-                      "smoke_50m"], rec_root)
-        check_frame(rec_root / "smoke_50m", 1, n50)
+        frame_ms = run_recorder(["--preset", PRESET_50M, "--frames", "3",
+                                 "--name", "smoke_50m"], rec_root)
+        check_frame(rec_root / "smoke_50m", 2, n50)
+        print(f"    50M: recorder {frame_ms:.3f} ms a frame (median of 3; one "
+              f"step a frame) beside the median step {step50_ms:.3f} ms")
     done(t0)
 
     counted = (allpairs_accel, window_eval_pool, window_eval,

@@ -35,10 +35,12 @@ _F = ctypes.c_float
 # C signatures: name -> argtypes (every entry point returns an int error).
 SIGNATURES = {
     "spatialsim_allpairs": (_P, _P, _P, _I, _F, _F, _P),
-    "spatialsim_window_eval_pool": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _F, _F, _F, _F, _P),
-    "spatialsim_window_eval": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _F, _F, _F, _P),
+    "spatialsim_window_eval_pool": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    "spatialsim_window_eval_pool_occupancy": (_I, _I, _P),
+    "spatialsim_window_eval": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    "spatialsim_window_eval_occupancy": (_I, _I, _I, _I, _I, _P),
     "spatialsim_window_eval_cols": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "spatialsim_window_eval_mxu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

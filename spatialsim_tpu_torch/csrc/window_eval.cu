@@ -1,7 +1,7 @@
 // Windowed Barnes-Hut force evaluation over the dense (ng, R, L) far
 // lists, for Hopper (sm_90a).  The every-step kernel of the dense layout:
-// N-body runs above 20.5M bodies (monopole, R = 8) and the quadrupole
-// option (R = 13/16).
+// N-body runs above 20.5M bodies (monopole, R = 8) and the quadrupole and
+// near-group options (R = 10/13/16).
 //
 // Replaces: spatialsim_tpu/ops/bh_eval_kernel.py, _eval_kernel (the Pallas
 // kernel behind pallas_window_eval).  For each Morton group g of gsz
@@ -22,215 +22,218 @@
 // Q.d/r^5 + 2.5 (d^T Q d) d/r^7 with the same gate on 1/r^3.  G multiplies
 // the sum once at the end.
 //
-// What bounds it on this card: arithmetic.  At 50M bodies a step is
-// 48,829 groups x 1024 targets x (5 x 1024 window + ~2K far) sources, some
-// 3e11 pairs of ~18 FP32 ops and one rsqrt; the quadrupole law is ~49 ops
-// a pair.  The bytes read are the bodies (~0.8 GB at 50M) and the live far
-// entries (<= 3.2 GB), far under the 3.35 TB/s line.
+// What bounds it on this card: instruction issue.  At 50M bodies a step is
+// 48,829 groups x 1024 targets x (5 x 1024 window + ~300 far) sources,
+// 2.7e11 pairs of ~15 issued instructions and one MUFU.RSQ each; the
+// quadrupole law is ~35 a pair.  The bytes read are the bodies (~0.8 GB
+// at 50M) and the live far entries, far under the 3.35 TB/s line.
 //
-// Design (window_eval_pool.cu's): one block per group, one thread per
-// target body (blockDim == gsz), position and accumulators in registers.
-// Sources are staged into shared memory blockDim at a time -- a window or
-// near group, or a chunk of far entries advanced once, cooperatively, on
-// the way in (with Q rows for R = 13/16) -- and every thread reads them as
-// broadcasts.  Each staged batch sums into its own partial first: a
-// single f32 accumulator over tens of thousands of terms drifts ~1e-5 of
-// max|a|.  Templated on R, so the monopole path pays nothing for Q, and on
-// the launch bound: blocks above 256 threads compile for <= 64 registers
-// (1024 threads x 64 = the SM's 65,536).  Every skipped block (a window
-// group past either end, an empty near slot) is skipped by all threads
-// alike, so the barriers stay safe.  Offsets into the far tensor are
-// size_t (800M floats at 50M).  No TMA, cp.async or tensor cores yet.
+// Design (window_eval_tile.cuh, as window_eval_pool.cu): one block per
+// group of gsz / T threads, each holding T targets in registers.  Sources
+// go through shared memory in batches of one per thread, double-buffered
+// with one barrier a batch: a batch is a slice of a window or near group,
+// or the next far entries, advanced on their way from registers to
+// shared memory (with their Q rows, as a float4 and a float2, for
+// R = 13/16).  The block's source groups (window, then valid near ids)
+// are listed once in shared memory.  Templated on R, so the monopole path
+// pays nothing for Q, and on T.  Offsets into the far tensor are size_t
+// (800M floats at 50M).  `order` (optional) maps block i to group
+// order[i], so the wrapper can launch heavy groups first.
 
 #include <cuda_runtime.h>
 
+#include "window_eval_tile.cuh"
+
 namespace {
 
-__device__ __forceinline__ void accumulate_mono(
-    const float* sx, const float* sy, const float* sz, const float* sm,
-    int cnt, float xi, float yi, float zi, float soft_sq, float& ax,
-    float& ay, float& az) {
-  float tx = 0.f, ty = 0.f, tz = 0.f;
-  for (int k = 0; k < cnt; ++k) {
-    const float dx = sx[k] - xi;
-    const float dy = sy[k] - yi;
-    const float dz = sz[k] - zi;
-    const float r2 = dx * dx + dy * dy + dz * dz + soft_sq;
-    const float inv = rsqrtf(r2);
-    const float w = (r2 > soft_sq) ? sm[k] * (inv * inv * inv) : 0.f;
-    tx += w * dx;
-    ty += w * dy;
-    tz += w * dz;
-  }
-  ax += tx;
-  ay += ty;
-  az += tz;
+using window_tile::Targets;
+using window_tile::round_up8;
+
+__host__ __device__ constexpr bool quad_rows(int R) {
+  return R == 13 || R == 16;
 }
 
-// sq holds the six Q rows (qxx, qyy, qzz, qxy, qxz, qyz), stride gsz.
-__device__ __forceinline__ void accumulate_quad(
-    const float* sx, const float* sy, const float* sz, const float* sm,
-    const float* sq, int gsz, int cnt, float xi, float yi, float zi,
-    float soft_sq, float& ax, float& ay, float& az) {
-  float tx = 0.f, ty = 0.f, tz = 0.f;
-  for (int k = 0; k < cnt; ++k) {
-    const float dx = sx[k] - xi;
-    const float dy = sy[k] - yi;
-    const float dz = sz[k] - zi;
-    const float r2 = dx * dx + dy * dy + dz * dz + soft_sq;
-    const float inv = rsqrtf(r2);
-    const float inv2 = inv * inv;
-    const float inv3 = (r2 > soft_sq) ? inv * inv2 : 0.f;
-    const float qxx = sq[k], qyy = sq[gsz + k], qzz = sq[2 * gsz + k];
-    const float qxy = sq[3 * gsz + k], qxz = sq[4 * gsz + k];
-    const float qyz = sq[5 * gsz + k];
-    const float qdx = qxx * dx + qxy * dy + qxz * dz;
-    const float qdy = qxy * dx + qyy * dy + qyz * dz;
-    const float qdz = qxz * dx + qyz * dy + qzz * dz;
-    const float dqd = dx * qdx + dy * qdy + dz * qdz;
-    const float inv5 = inv3 * inv2;
-    const float cw = sm[k] * inv3 + 2.5f * dqd * inv5 * inv2;
-    tx += cw * dx - inv5 * qdx;
-    ty += cw * dy - inv5 * qdy;
-    tz += cw * dz - inv5 * qdz;
-  }
-  ax += tx;
-  ay += ty;
-  az += tz;
+// Bytes of dynamic shared memory: two buffers of float4 (x, y, z, m), with
+// a float4 and a float2 of Q for R = 13/16, then the source-group list.
+size_t smem_bytes(int R, int nthr, int wg, int K) {
+  const size_t per = sizeof(float4) + (quad_rows(R) ? sizeof(float4)
+                                        + sizeof(float2) : 0);
+  return 2 * round_up8(nthr) * per + (2 * wg + 2 + K) * sizeof(int);
 }
 
-template <int R, int kMaxThreads>
-__global__ void __launch_bounds__(kMaxThreads) window_eval_kernel(
+template <int R, int T>
+__global__ void __launch_bounds__(1024 / T) window_eval_kernel(
     const float* __restrict__ pos, const float* __restrict__ mass,
     const float* __restrict__ far, const int* __restrict__ far_n,
-    const int* __restrict__ near, float* __restrict__ out, int npad, int ng,
-    int wg, int K, int L, float soft_sq, float G, float tau, float coef2) {
-  constexpr bool kQuad = (R == 13 || R == 16);
+    const int* __restrict__ near, const int* __restrict__ order,
+    float* __restrict__ out, int npad, int ng, int wg, int K, int L,
+    float soft_sq, float G, float tau, float coef2) {
+  constexpr bool kQuad = quad_rows(R);
   constexpr int kAcc = (R == 10) ? 7 : (R == 16) ? 13 : -1;
-  extern __shared__ float sh[];
-  const int gsz = blockDim.x;
-  float* sx = sh;
-  float* sy = sx + gsz;
-  float* sz = sy + gsz;
-  float* sm = sz + gsz;
-  float* sq = sm + gsz;  // 6 * gsz floats, quadrupole layouts only
+  constexpr int kRaw = 7 + (kQuad ? 6 : 0) + (kAcc >= 0 ? 3 : 0);
+  extern __shared__ float4 sh4[];
+  const int nthr = blockDim.x;
+  const int stride = round_up8(nthr);
+  const int tid = threadIdx.x;
+  const int gsz = nthr * T;
+  const int g = order ? order[blockIdx.x] : blockIdx.x;
+  float4* q4 = sh4 + 2 * stride;                       // quadrupole only
+  float2* q2 = reinterpret_cast<float2*>(q4 + (kQuad ? 2 * stride : 0));
+  int* groups = reinterpret_cast<int*>(q2 + (kQuad ? 2 * stride : 0));
 
-  const int g = blockIdx.x;
-  const int i = threadIdx.x;
-  const size_t b = static_cast<size_t>(g) * gsz + i;
-  const float xi = pos[b];
-  const float yi = pos[npad + b];
-  const float zi = pos[2 * static_cast<size_t>(npad) + b];
-  float ax = 0.f, ay = 0.f, az = 0.f;
-
-  // Near field: the Morton window, then the near groups, one per pass.
-  for (int k = -wg; k <= wg + K; ++k) {
-    int h;
-    if (k <= wg) {
-      h = g + k;
-    } else {
-      h = near[static_cast<size_t>(g) * K + (k - wg - 1)];
+  // Slots past nthr (when nthr is not a multiple of 8) stay zero.
+  for (int s = nthr + tid; s < 2 * stride; s += nthr) {
+    sh4[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (kQuad) {
+      q4[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+      q2[s] = make_float2(0.f, 0.f);
     }
-    if (h < 0 || h >= ng) continue;  // block-uniform
-    const size_t s = static_cast<size_t>(h) * gsz + i;
-    sx[i] = pos[s];
-    sy[i] = pos[npad + s];
-    sz[i] = pos[2 * static_cast<size_t>(npad) + s];
-    sm[i] = mass[s];
-    __syncthreads();
-    accumulate_mono(sx, sy, sz, sm, gsz, xi, yi, zi, soft_sq, ax, ay, az);
-    __syncthreads();
+  }
+  // The window groups in range, then the valid near ids.
+  if (tid == 0) {
+    int c = 0;
+    for (int h = max(g - wg, 0); h <= min(g + wg, ng - 1); ++h) {
+      groups[1 + c++] = h;
+    }
+    for (int k = 0; k < K; ++k) {
+      const int h = near[static_cast<size_t>(g) * K + k];
+      if (h >= 0 && h < ng) groups[1 + c++] = h;
+    }
+    groups[0] = c;
   }
 
-  // Far field: the group's first far_n entries, gsz per pass.
+  Targets<T> t;
+  const size_t b0 = static_cast<size_t>(g) * gsz + tid;
+  t.load(pos, npad, b0, nthr);
   const int n = min(max(far_n[g], 0), L);
   const float* fg = far + static_cast<size_t>(g) * R * L;
-  for (int e0 = 0; e0 < n; e0 += gsz) {
-    const int e = e0 + i;
-    if (e < n) {
-      float x = fg[e] + fg[3 * L + e] * tau;
-      float y = fg[L + e] + fg[4 * L + e] * tau;
-      float z = fg[2 * L + e] + fg[5 * L + e] * tau;
-      if constexpr (kAcc >= 0) {
-        x += fg[kAcc * L + e] * coef2;
-        y += fg[(kAcc + 1) * L + e] * coef2;
-        z += fg[(kAcc + 2) * L + e] * coef2;
-      }
-      sx[i] = x;
-      sy[i] = y;
-      sz[i] = z;
-      sm[i] = fg[6 * L + e];
-      if constexpr (kQuad) {
-#pragma unroll
-        for (int r = 0; r < 6; ++r) sq[r * gsz + i] = fg[(7 + r) * L + e];
-      }
-    }
-    __syncthreads();
-    const int cnt = min(gsz, n - e0);
-    if constexpr (kQuad) {
-      accumulate_quad(sx, sy, sz, sm, sq, gsz, cnt, xi, yi, zi, soft_sq, ax,
-                      ay, az);
+  __syncthreads();
+  const int n_win = groups[0] * T;                     // window, near batches
+  const int nb = n_win + (n + nthr - 1) / nthr;
+
+  // One source a thread a batch, raw in registers: (x, y, z, m) of a body,
+  // or an entry's rows 0..kRaw-1: com3, vel3, mass (then Q6, then acc3).
+  float r[kRaw];
+  auto fetch = [&](int b) {
+    if (b < n_win) {
+      const size_t s = static_cast<size_t>(groups[1 + b / T]) * gsz
+                       + (b % T) * nthr + tid;
+      r[0] = pos[s];
+      r[1] = pos[npad + s];
+      r[2] = pos[2 * static_cast<size_t>(npad) + s];
+      r[3] = mass[s];
     } else {
-      accumulate_mono(sx, sy, sz, sm, cnt, xi, yi, zi, soft_sq, ax, ay, az);
+      const int e = (b - n_win) * nthr + tid;
+#pragma unroll
+      for (int k = 0; k < kRaw; ++k) {
+        r[k] = e < n ? fg[static_cast<size_t>(k) * L + e] : 0.f;
+      }
     }
+  };
+  auto stage = [&](int b, int p) {
+    const int s = p * stride + tid;
+    if (b < n_win) {
+      sh4[s] = make_float4(r[0], r[1], r[2], r[3]);
+      return;
+    }
+    float x = r[0] + r[3] * tau;
+    float y = r[1] + r[4] * tau;
+    float z = r[2] + r[5] * tau;
+    if constexpr (kAcc >= 0) {
+      x += r[kRaw - 3] * coef2;
+      y += r[kRaw - 2] * coef2;
+      z += r[kRaw - 1] * coef2;
+    }
+    sh4[s] = make_float4(x, y, z, r[6]);
+    if constexpr (kQuad) {
+      q4[s] = make_float4(r[7], r[8], r[9], r[10]);
+      q2[s] = make_float2(r[11], r[12]);
+    }
+  };
+
+  fetch(0);
+  stage(0, 0);
+  __syncthreads();
+  for (int b = 0; b < nb; ++b) {
+    const bool more = b + 1 < nb;
+    if (more) fetch(b + 1);
+    const int p = (b & 1) * stride;
+    if (b < n_win) {
+      t.sum_mono(sh4 + p, round_up8(nthr), soft_sq);
+    } else {
+      const int cnt8 = round_up8(min(nthr, n - (b - n_win) * nthr));
+      if constexpr (kQuad) {
+        t.sum_quad(sh4 + p, q4 + p, q2 + p, cnt8, soft_sq);
+      } else {
+        t.sum_mono(sh4 + p, cnt8, soft_sq);
+      }
+    }
+    if (more) stage(b + 1, (b + 1) & 1);
     __syncthreads();
   }
-
-  out[b] = ax * G;
-  out[npad + b] = ay * G;
-  out[2 * static_cast<size_t>(npad) + b] = az * G;
+  t.store(out, npad, b0, nthr, G);
 }
 
-template <int R>
-cudaError_t launch(int gsz, const float* pos, const float* mass,
-                   const float* far, const int* far_n, const int* near,
-                   float* out, int npad, int ng, int wg, int K, int L,
-                   float soft_sq, float G, float tau, float coef2,
-                   cudaStream_t stream) {
-  const size_t shmem = ((R == 13 || R == 16) ? 10 : 4) * gsz * sizeof(float);
-  if (gsz <= 256) {
-    window_eval_kernel<R, 256><<<ng, gsz, shmem, stream>>>(
-        pos, mass, far, far_n, near, out, npad, ng, wg, K, L, soft_sq, G,
-        tau, coef2);
-  } else {
-    window_eval_kernel<R, 1024><<<ng, gsz, shmem, stream>>>(
-        pos, mass, far, far_n, near, out, npad, ng, wg, K, L, soft_sq, G,
-        tau, coef2);
+// Dispatch on T at a fixed R; `op` is called with the kernel instance.
+template <int R, typename Op>
+cudaError_t with_t(int T, Op op) {
+  switch (T) {
+    case 1: return op(window_eval_kernel<R, 1>);
+    case 2: return op(window_eval_kernel<R, 2>);
+    default: return op(window_eval_kernel<R, 4>);
   }
-  return cudaGetLastError();
+}
+
+template <typename Op>
+cudaError_t with_rt(int R, int T, Op op) {
+  switch (R) {
+    case 8: return with_t<8>(T, op);
+    case 10: return with_t<10>(T, op);
+    case 13: return with_t<13>(T, op);
+    case 16: return with_t<16>(T, op);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// T in {1, 2, 4} dividing gsz.
+bool valid(int gsz, int T, int wg, int K) {
+  return gsz >= 1 && gsz <= 1024 && wg >= 0 && K >= 0
+         && (T == 1 || T == 2 || T == 4) && gsz % T == 0;
 }
 
 }  // namespace
 
 extern "C" int spatialsim_window_eval(
     const float* pos, const float* mass, const float* far, const int* far_n,
-    const int* near, float* out, int npad, int ng, int gsz, int wg, int K,
-    int R, int L, float soft_sq, float G, float tau, float coef2,
-    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gsz < 1 || gsz > 1024 || K < 0 || (K > 0 && near == nullptr)) {
+    const int* near, const int* order, float* out, int npad, int ng, int gsz,
+    int T, int wg, int K, int R, int L, float soft_sq, float G, float tau,
+    float coef2, void* stream) {
+  if (!valid(gsz, T, wg, K) || (K > 0 && near == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err;
-  switch (R) {
-    case 8:
-      err = launch<8>(gsz, pos, mass, far, far_n, near, out, npad, ng, wg, K,
-                      L, soft_sq, G, tau, coef2, s);
-      break;
-    case 10:
-      err = launch<10>(gsz, pos, mass, far, far_n, near, out, npad, ng, wg,
-                       K, L, soft_sq, G, tau, coef2, s);
-      break;
-    case 13:
-      err = launch<13>(gsz, pos, mass, far, far_n, near, out, npad, ng, wg,
-                       K, L, soft_sq, G, tau, coef2, s);
-      break;
-    case 16:
-      err = launch<16>(gsz, pos, mass, far, far_n, near, out, npad, ng, wg,
-                       K, L, soft_sq, G, tau, coef2, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  const int nthr = gsz / T;
+  const size_t smem = smem_bytes(R, nthr, wg, K);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_rt(R, T, [&](auto kernel) {
+    const cudaError_t err = window_tile::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<ng, nthr, smem, s>>>(pos, mass, far, far_n, near, order, out,
+                                  npad, ng, wg, K, L, soft_sq, G, tau,
+                                  coef2);
+    return cudaGetLastError();
+  }));
+}
+
+// Resident blocks per SM, registers a thread and threads of a launch at
+// (R, gsz, T) with window and near sizes (wg, K), into out[0..2].
+extern "C" int spatialsim_window_eval_occupancy(int R, int gsz, int T,
+                                                int wg, int K, int* out) {
+  if (!valid(gsz, T, wg, K)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  const int nthr = gsz / T;
+  const size_t smem = smem_bytes(R, nthr, wg, K);
+  return static_cast<int>(with_rt(R, T, [&](auto kernel) {
+    return window_tile::occupancy(kernel, nthr, smem, out);
+  }));
 }

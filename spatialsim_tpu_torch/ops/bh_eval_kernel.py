@@ -30,10 +30,17 @@ d/r^7``.  G multiplies once at the end.  Two far layouts:
 
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version for CPU tensors.  The plain versions chunk over groups (a
-``(ng, 256, 6144)`` pair tensor at 1M bodies would not fit).
+``(ng, 256, 6144)`` pair tensor at 1M bodies would not fit).  The pooled
+and the dense row-form kernels hold T targets a thread
+(``csrc/window_eval_tile.cuh``) and launch heavy groups first:
+:func:`tile_targets` picks T from a fixed table, :func:`heavy_first` the
+block order, and :func:`pool_launch` / :func:`dense_launch` take both
+explicitly, for the card tests and ``chip_smoke.py``'s comparisons.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -131,6 +138,69 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+# Targets a thread holds (T) in the pooled and dense row-form kernels
+# (csrc/window_eval_tile.cuh), by group size and quadrupole rows: a group
+# runs as group_size / T threads.  Chosen by timing T 1, 2, 4 and 8, heavy
+# groups first, on an H100 at the main path's shapes (PERF.md, kernels 2
+# and 3): at 1M bodies (group 256, 2-4 waves) a larger T lengthens the
+# heaviest blocks, at 50M (group 1024, ~120 waves) T 4 and 8 tie; the
+# kernels have no T = 8 instance.
+_TILE_TARGETS = {(256, False): 2, (1024, False): 4,
+                 (256, True): 2, (1024, True): 2}
+
+
+def tile_targets(group_size: int, rows: int = 8) -> int:
+    """T for groups of ``group_size`` with ``rows`` far rows (8 for the
+    pool): the table's entry, else 2, halved until it divides the group
+    size."""
+    t = _TILE_TARGETS.get((int(group_size), rows in (13, 16)), 2)
+    while group_size % t:
+        t //= 2
+    return t
+
+
+def heavy_first(far_n, near=None, group_size=0):
+    """Group ids by their sources, most first (ties by id): far_n, plus
+    ``group_size`` for each near id in range.  The launch order that puts
+    the longest blocks in the first wave, so none of them is left to run
+    alone at the end."""
+    work = far_n.to(torch.int64)
+    if near is not None:
+        ng = far_n.shape[0]
+        work = work + group_size * ((near >= 0) & (near < ng)).sum(1)
+    return torch.argsort(work, descending=True, stable=True).to(torch.int32)
+
+
+class _OrderCache:
+    """The heavy-first order of the last lists a wrapper saw, kept while
+    their ``far_n`` (and ``near``) tensors live unchanged: lists change at
+    a rebuild, so the sort runs once per rebuild, not once per step."""
+
+    def __init__(self):
+        self.refs, self.key, self.order = (None, None), None, None
+
+    def __call__(self, far_n, near=None, group_size=0):
+        tensors = (far_n, near)
+        key = tuple(None if t is None else t._version for t in tensors) + (
+            group_size,)
+        if self.key != key or any((r() if r else None) is not t
+                                  for r, t in zip(self.refs, tensors)):
+            self.order = heavy_first(far_n, near, group_size)
+            self.refs = tuple(None if t is None else weakref.ref(t)
+                              for t in tensors)
+            self.key = key
+        return self.order
+
+
+def _group_args(s_pos, group_size):
+    gsz = int(group_size)
+    npad = s_pos.shape[1]
+    if gsz < 1 or gsz > 1024 or npad % gsz:
+        raise ValueError(f"group_size {gsz} must divide npad {npad} and "
+                         f"be <= 1024")
+    return npad, npad // gsz, gsz
+
+
 def window_eval_pool(s_pos, s_mass, pool, pstart, far_n, steps_since, dt, *,
                      G, softening, group_size=256, window_groups=2,
                      tau_clamp=24.0):
@@ -139,23 +209,36 @@ def window_eval_pool(s_pos, s_mass, pool, pstart, far_n, steps_since, dt, *,
     Same arguments and result as :func:`window_eval_pool_reference`
     (``pstart``/``far_n`` must be int32).  CPU tensors take the plain
     version.  CUDA tensors launch ``csrc/window_eval_pool.cu`` -- one block
-    of ``group_size`` threads per group -- on the current stream without
-    synchronising, and add one to ``window_eval_pool.launches``.
+    of ``group_size / T`` threads per group, T targets a thread
+    (:func:`tile_targets`), heavy groups first (:func:`heavy_first`,
+    sorted once per lists) -- on the current stream without synchronising,
+    and add one to ``window_eval_pool.launches``.
     """
-    dev = s_pos.device
-    if dev.type == "cpu":
+    if s_pos.device.type == "cpu":
         return window_eval_pool_reference(
             s_pos, s_mass, pool, pstart, far_n, steps_since, dt, G=G,
             softening=softening, group_size=group_size,
             window_groups=window_groups, tau_clamp=tau_clamp)
+    return pool_launch(s_pos, s_mass, pool, pstart, far_n, steps_since, dt,
+                       G=G, softening=softening, group_size=group_size,
+                       window_groups=window_groups, tau_clamp=tau_clamp,
+                       targets=tile_targets(group_size),
+                       order=_pool_order(far_n))
+
+
+_pool_order = _OrderCache()
+
+
+def pool_launch(s_pos, s_mass, pool, pstart, far_n, steps_since, dt, *, G,
+                softening, group_size, window_groups, tau_clamp, targets,
+                order=None):
+    """Launch ``csrc/window_eval_pool.cu`` with ``targets`` (T) targets a
+    thread and blocks in ``order`` (int32 group ids; None: group i is block
+    i) on checked CUDA inputs; adds one to ``window_eval_pool.launches``."""
+    dev = s_pos.device
     if dev.type != "cuda":
         raise ValueError(f"window_eval_pool: unsupported device {dev}")
-    gsz = int(group_size)
-    npad = s_pos.shape[1]
-    if gsz < 1 or gsz > 1024 or npad % gsz:
-        raise ValueError(f"group_size {gsz} must divide npad {npad} and "
-                         f"be <= 1024 (one thread per body)")
-    ng = npad // gsz
+    npad, ng, gsz = _group_args(s_pos, group_size)
     ct, rows, tile = pool.shape
     if rows != POOL_ROWS or ct < 1 or tile < 1:
         raise ValueError(f"pool must be (ct>=1, 16, tile), got {pool.shape}")
@@ -164,14 +247,16 @@ def window_eval_pool(s_pos, s_mass, pool, pstart, far_n, steps_since, dt, *,
     _check("pool", pool, (ct, rows, tile), torch.float32, dev)
     _check("pstart", pstart, (ng,), torch.int32, dev)
     _check("far_n", far_n, (ng,), torch.int32, dev)
+    if order is not None:
+        _check("order", order, (ng,), torch.int32, dev)
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     out = torch.empty_like(s_pos)
-    lib = _kernels.library()
-    err = lib.spatialsim_window_eval_pool(
+    err = _kernels.library().spatialsim_window_eval_pool(
         s_pos.data_ptr(), s_mass.data_ptr(), pool.data_ptr(),
-        pstart.data_ptr(), far_n.data_ptr(), out.data_ptr(), npad, ng, gsz,
-        int(window_groups), ct, tile, float(softening) ** 2, float(G), tau,
-        coef2, _kernels.stream_ptr(dev))
+        pstart.data_ptr(), far_n.data_ptr(),
+        None if order is None else order.data_ptr(), out.data_ptr(), npad,
+        ng, gsz, int(targets), int(window_groups), ct, tile,
+        float(softening) ** 2, float(G), tau, coef2, _kernels.stream_ptr(dev))
     _kernels.check(err, "window_eval_pool")
     window_eval_pool.launches += 1
     return out
@@ -462,12 +547,7 @@ def _dense_args(name, s_pos, s_mass, far, far_n, near, group_size, rows):
     dev = s_pos.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    gsz = int(group_size)
-    npad = s_pos.shape[1]
-    if gsz < 1 or gsz > 1024 or npad % gsz:
-        raise ValueError(f"group_size {gsz} must divide npad {npad} and "
-                         f"be <= 1024 (one thread per body)")
-    ng = npad // gsz
+    npad, ng, gsz = _group_args(s_pos, group_size)
     if far.dim() != 3 or far.shape[0] != ng or far.shape[1] not in rows:
         raise ValueError(f"{name}: far must be (ng={ng}, R in {rows}, L), "
                          f"got {tuple(far.shape)}")
@@ -496,10 +576,11 @@ def window_eval(s_pos, s_mass, far, far_n, near=None, steps_since=0, dt=0.0,
     and R is 8 or 10; else the column form (:func:`window_eval_cols`) when
     ``use_cols`` and R is not 13 or 16; else the row form.  CPU tensors
     take the form's plain version.  CUDA tensors launch the row form's
-    ``csrc/window_eval.cu`` -- one block of ``group_size`` threads per
-    group -- on the current stream without synchronising, and add one to
-    ``window_eval.launches``; a kernel that does not build or launch
-    raises.
+    ``csrc/window_eval.cu`` -- one block of ``group_size / T`` threads per
+    group, T targets a thread (:func:`tile_targets`), heavy groups first
+    (:func:`heavy_first`, sorted once per lists) -- on the current stream
+    without synchronising, and add one to ``window_eval.launches``; a
+    kernel that does not build or launch raises.
     """
     kw = dict(G=G, softening=softening, group_size=group_size,
               window_groups=window_groups, tau_clamp=tau_clamp)
@@ -513,16 +594,35 @@ def window_eval(s_pos, s_mass, far, far_n, near=None, steps_since=0, dt=0.0,
     if s_pos.device.type == "cpu":
         return window_eval_reference(s_pos, s_mass, far, far_n, near,
                                      steps_since, dt, **kw)
+    return dense_launch(s_pos, s_mass, far, far_n, near, steps_since, dt,
+                        targets=tile_targets(group_size, R),
+                        order=_dense_order(far_n, near, int(group_size)),
+                        **kw)
+
+
+_dense_order = _OrderCache()
+
+
+def dense_launch(s_pos, s_mass, far, far_n, near, steps_since, dt, *, G,
+                 softening, group_size, window_groups, tau_clamp, targets,
+                 order=None):
+    """Launch ``csrc/window_eval.cu`` (the row form) with ``targets`` (T)
+    targets a thread and blocks in ``order`` (int32 group ids; None: group
+    i is block i) on checked CUDA inputs; adds one to
+    ``window_eval.launches``."""
     npad, ng, gsz, K, R, L = _dense_args("window_eval", s_pos, s_mass, far,
                                          far_n, near, group_size, DENSE_ROWS)
+    if order is not None:
+        _check("order", order, (ng,), torch.int32, s_pos.device)
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     out = torch.empty_like(s_pos)
-    lib = _kernels.library()
-    err = lib.spatialsim_window_eval(
+    err = _kernels.library().spatialsim_window_eval(
         s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
-        far_n.data_ptr(), near.data_ptr() if K else None, out.data_ptr(),
-        npad, ng, gsz, int(window_groups), K, R, L, float(softening) ** 2,
-        float(G), tau, coef2, _kernels.stream_ptr(s_pos.device))
+        far_n.data_ptr(), near.data_ptr() if K else None,
+        None if order is None else order.data_ptr(), out.data_ptr(), npad,
+        ng, gsz, int(targets), int(window_groups), K, R, L,
+        float(softening) ** 2, float(G), tau, coef2,
+        _kernels.stream_ptr(s_pos.device))
     _kernels.check(err, "window_eval")
     window_eval.launches += 1
     return out
@@ -611,3 +711,21 @@ def window_eval_mxu(s_pos, s_mass, far, far_n, near=None, steps_since=0,
 
 
 window_eval_mxu.launches = 0
+
+
+def occupancy(group_size, targets, rows=None, window_groups=0, K=0):
+    """(resident blocks per SM, registers a thread, threads a block) of the
+    pooled kernel (``rows`` None) or of the dense row-form kernel at
+    ``rows``, as the card's occupancy calculator gives them."""
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    lib = _kernels.library()
+    if rows is None:
+        err = lib.spatialsim_window_eval_pool_occupancy(
+            int(group_size), int(targets), out)
+    else:
+        err = lib.spatialsim_window_eval_occupancy(
+            int(rows), int(group_size), int(targets), int(window_groups),
+            int(K), out)
+    _kernels.check(err, "occupancy")
+    return tuple(out)

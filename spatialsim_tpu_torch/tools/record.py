@@ -6,8 +6,10 @@ resume/extend contract and CLI flags as the JAX recorder, with the port's
 own copies of its framework-neutral helpers (presets,
 ``config_from_preset``, progress bars, ``--status``); frames are
 byte-compatible with the JAX recordings, so the JAX package's playback and
-export read them as they are.  ``--device`` (default ``cuda``) picks the
-torch device; there is no silent CPU fallback.
+export read them as they are.  As in the JAX recorder, frame i is copied
+and written while frame i+1 computes (:class:`FrameOverlap`).
+``--device`` (default ``cuda``) picks the torch device; there is no silent
+CPU fallback.
 
     python -m spatialsim_tpu_torch.tools.record --preset bar_galaxy \\
         --bodies 1m --frames 10 --name demo
@@ -16,6 +18,7 @@ torch device; there is no silent CPU fallback.
 from __future__ import annotations
 
 import argparse
+import statistics
 import sys
 import time
 from typing import Optional
@@ -105,7 +108,6 @@ def _device_name(device) -> str:
 def record(config: dict, resume: bool = False, device="cuda") -> None:
     """Run (or resume) one offline recording session on ``device``."""
     from spatialsim_tpu_torch.models.nbody import NBodySimulation
-    from spatialsim_tpu_torch.ops.colors import colors_by_velocity
 
     rec_dir = get_recording_dir(config["session_name"])
     total_frames = int(config["total_frames"])
@@ -149,28 +151,29 @@ def record(config: dict, resume: bool = False, device="cuda") -> None:
 
     start_time = time.time()
     frame_times: list = []
-    frame = start_frame
+    all_times: list = []
+    write_times: list = []
     # Each frame advances dt_per_frame of simulated time in `substeps`
     # equal sub-iterations; the step runs `substeps` of the dt we pass.
     dt_sub = dt_frame / max(substeps, 1)
+    frames = FrameOverlap(sim, rec_dir, compressor, write_times)
+    stepped = start_frame - 1          # the last frame whose step ran
 
     try:
         for frame in range(start_frame, total_frames):
             t0 = time.time()
             sim.step_raw(dt_sub)
-            # Capture in original body order (the window engine's state
-            # lives Morton-sorted); the host copy synchronises.
-            pos_o, vel_o = sim.device_frame()
-            col = colors_by_velocity(vel_o, RECORD_MAX_SPEED_COLOR)
-            save_frame(rec_dir, frame, pos_o.T.contiguous().cpu().numpy(),
-                       col.T.contiguous().cpu().numpy())
-            compressor.check_and_queue(frame)
-
+            stepped = frame
+            # Queue frame `frame`'s copy, then write the previous frame
+            # while this one's step and copy run on the device.
+            frames.capture(frame)
             if (frame + 1) % STATE_INTERVAL == 0:
+                frames.flush()         # a checkpoint names a written frame
                 save_state(rec_dir, frame, sim.get_positions(),
                            sim.get_velocities(), sim.get_masses())
 
             frame_times.append(time.time() - t0)
+            all_times.append(frame_times[-1])
             del frame_times[:-10]
             avg = sum(frame_times) / len(frame_times)
             print_progress(frame, total_frames, frame_times[-1],
@@ -178,6 +181,7 @@ def record(config: dict, resume: bool = False, device="cuda") -> None:
                            avg * (total_frames - frame - 1),
                            compressor.stats(),
                            first=(frame == start_frame))
+        frames.flush()
         # Final checkpoint so --extend resumes instantly.
         save_state(rec_dir, total_frames - 1, sim.get_positions(),
                    sim.get_velocities(), sim.get_masses(),
@@ -187,20 +191,98 @@ def record(config: dict, resume: bool = False, device="cuda") -> None:
         s = compressor.stats()
         print(f"\n[Record] ✓ Complete in "
               f"{format_time(time.time() - start_time)}")
+        if all_times:
+            print(f"[Record] Frame time: median "
+                  f"{statistics.median(all_times) * 1e3:.3f} ms over "
+                  f"{len(all_times)} frames (step, capture and the previous "
+                  f"frame's write); writing a frame: median "
+                  f"{statistics.median(write_times) * 1e3:.3f} ms")
         print(f"[Compress] {s['compressed']} frames packed, "
               f"{s['ratio'] * 100:.1f}% size reduction")
         print(f"[Record] Output: {rec_dir}")
         print(f"[Record] Playback: python -m spatialsim_tpu.tools.playback "
               f"{config['session_name']}")
     except KeyboardInterrupt:
-        print(f"\n\n[Record] Paused at frame {frame}")
-        save_state(rec_dir, frame, sim.get_positions(), sim.get_velocities(),
-                   sim.get_masses(), keep_previous=True)
+        # Every frame whose step ran is written, and the checkpoint holds
+        # the state after the last of them, so a resume finds every frame
+        # it counts as completed and continues from the next one.
+        frames.flush()
+        if frames.written < stepped:
+            frames.capture(stepped)
+            frames.flush()
+        print(f"\n\n[Record] Paused after frame {stepped}")
+        if stepped >= 0:
+            save_state(rec_dir, stepped, sim.get_positions(),
+                       sim.get_velocities(), sim.get_masses(),
+                       keep_previous=True)
         print("[Record] Finishing compression of staged frames...")
-        compressor.compress_remaining(frame + 1)
+        compressor.compress_remaining(stepped + 1)
         compressor.stop()
         print(f"[Record] To resume: python -m spatialsim_tpu_torch.tools."
               f"record --resume {config['session_name']}")
+
+
+class FrameOverlap:
+    """Frame i's copy and write overlap frame i+1's step (the JAX
+    recorder's ``flush_pending``).
+
+    :meth:`capture` queues a frame's device-to-host copies (positions and
+    colours, original body order) into the next of two alternating host
+    buffers -- pinned, with ``non_blocking`` copies and a CUDA event on the
+    card -- and writes the frame captured before it, waiting on its event.
+    :meth:`flush` writes the pending frame.  On the CPU the same code runs
+    with plain buffers and synchronous copies.  ``written`` is the last
+    frame written; ``write_times`` gets each write's seconds (the wait on
+    the copy included).
+    """
+
+    def __init__(self, sim, rec_dir, compressor, write_times):
+        self.sim, self.rec_dir, self.compressor = sim, rec_dir, compressor
+        self.write_times = write_times
+        self.cuda = sim.device.type == "cuda"
+        self.buffers = [None, None]
+        self.pending = None            # (frame, pos, col, event)
+        self.written = -1
+
+    def _buffers(self, k, shape):
+        import torch
+        if self.buffers[k % 2] is None:
+            self.buffers[k % 2] = tuple(
+                torch.empty(shape, dtype=torch.float32, pin_memory=self.cuda)
+                for _ in range(2))
+        return self.buffers[k % 2]
+
+    def capture(self, frame: int) -> None:
+        import torch
+        from spatialsim_tpu_torch.ops.colors import colors_by_velocity
+        # Original body order (the window engine's state lives
+        # Morton-sorted), (N, 3) rows as the frame files hold them.
+        pos_o, vel_o = self.sim.device_frame()
+        pos_d = pos_o.T.contiguous()
+        col_d = colors_by_velocity(vel_o,
+                                   RECORD_MAX_SPEED_COLOR).T.contiguous()
+        pos_h, col_h = self._buffers(frame, tuple(pos_d.shape))
+        pos_h.copy_(pos_d, non_blocking=self.cuda)
+        col_h.copy_(col_d, non_blocking=self.cuda)
+        event = None
+        if self.cuda:
+            event = torch.cuda.Event()
+            event.record()
+        self.flush()
+        self.pending = (frame, pos_h, col_h, event)
+
+    def flush(self) -> None:
+        if self.pending is None:
+            return
+        t = time.time()
+        frame, pos_h, col_h, event = self.pending
+        if event is not None:
+            event.synchronize()
+        save_frame(self.rec_dir, frame, pos_h.numpy(), col_h.numpy())
+        self.compressor.check_and_queue(frame)
+        self.pending = None
+        self.written = frame
+        self.write_times.append(time.time() - t)
 
 
 def select_preset_interactive(input_fn=input) -> Optional[dict]:

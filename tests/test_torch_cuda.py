@@ -117,11 +117,12 @@ def test_boids_window_kernel_matches_plain(cuda, n, dedup):
         assert err <= 2e-4 * float(want[r:r + 3].abs().max()), (r, err)
 
 
-def _dense_inputs(ng, gsz, R, K, L, seed, device):
+def _dense_inputs(ng, gsz, R, K, L, seed, device, far_n=None):
     """Synthetic dense-layout kernel inputs: bodies in Morton-like groups
     along a random walk, far entries 50-300 units from their group (the
     slots past ``far_n`` zero, as the build leaves them), and a near table
-    of ids outside each window with ~10% empty (-1) and some >= ng."""
+    of ids outside each window with ~10% empty (-1) and some >= ng.
+    ``far_n`` (ng,) replaces the drawn counts (above L: the first L)."""
     rng = np.random.default_rng(seed)
     npad = ng * gsz
     centre = np.cumsum(rng.normal(size=(3, ng)) * 5.0, axis=1)
@@ -129,8 +130,9 @@ def _dense_inputs(ng, gsz, R, K, L, seed, device):
     mass = rng.uniform(0.5, 2.0, npad)
     mass[-gsz // 3:] = 0.0                       # padding bodies
     far = np.zeros((ng, R, L))
-    far_n = rng.integers(0, L + 1, ng)
-    far_n[:2] = (0, L)
+    if far_n is None:
+        far_n = rng.integers(0, L + 1, ng)
+        far_n[:2] = (0, L)
     slot = np.arange(L)[None, :] < far_n[:, None]
     u = rng.normal(size=(3, ng, L))
     u *= rng.uniform(50.0, 300.0, (1, ng, L)) / np.linalg.norm(u, axis=0)
@@ -248,6 +250,155 @@ def test_dense_window_eval_kernel_near8_matches_plain(cuda, gsz):
     want = window_eval_reference(*args, **kw)
     torch.cuda.synchronize()
     assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+
+
+def _edge_far_n(ng, nthr, cap, seed):
+    """far_n of ng groups: 0, 1, one below and one above a batch of nthr
+    entries, the cap and above it on the first groups, above the cap on
+    the last group, random in [0, cap] between."""
+    far_n = np.random.default_rng(seed).integers(0, cap + 1, ng)
+    edges = [0, 1, max(nthr - 1, 0), nthr + 1, cap, cap + 7]
+    far_n[:len(edges)] = edges
+    far_n[-1] = cap + 7
+    return far_n
+
+
+def _pool_inputs(ng, gsz, tile, far_n, seed, device):
+    """Synthetic pooled kernel inputs: bodies as in ``_dense_inputs``, each
+    group's first far_n entries (com3, vel3, mass, acc3) packed into its
+    ceil(far_n / tile) tiles from pstart, every other slot zero, as the
+    pool finish leaves them."""
+    rng = np.random.default_rng(seed)
+    npad = ng * gsz
+    centre = np.cumsum(rng.normal(size=(3, ng)) * 5.0, axis=1)
+    pos = np.repeat(centre, gsz, axis=1) + rng.normal(size=(3, npad)) * 3.0
+    mass = rng.uniform(0.5, 2.0, npad)
+    mass[-gsz // 3:] = 0.0
+    n_t = np.maximum(1, -(-far_n // tile))
+    pstart = np.concatenate([[0], np.cumsum(n_t)[:-1]])
+    pool = np.zeros((int(n_t.sum()), 16, tile))
+    for g in range(ng):
+        e = np.arange(far_n[g])
+        u = rng.normal(size=(3, e.size))
+        u *= rng.uniform(50.0, 300.0, e.size) / np.linalg.norm(u, axis=0)
+        rows = np.concatenate([centre[:, g:g + 1] + u,
+                               rng.normal(size=(3, e.size)),
+                               rng.uniform(0.5, 50.0, (1, e.size)),
+                               rng.normal(size=(3, e.size)) * 0.1])
+        pool[pstart[g] + e // tile, :10, e % tile] = rows.T
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+    return (t(pos, torch.float32), t(mass, torch.float32),
+            t(pool, torch.float32), t(pstart, torch.int32),
+            t(far_n, torch.int32))
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("gsz", [64, 256, 1024])
+def test_pool_kernel_every_tile_matches_plain(cuda, gsz):
+    """Every T, far_n at the batch and tile edges, the first and last
+    groups, and the heavy-first launch order (each group's sum unchanged,
+    bit for bit)."""
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    ng, tile = 40, 128
+    kw = dict(G=0.1, softening=2.0, group_size=gsz, window_groups=2,
+              tau_clamp=24.0)
+    for T in (1, 2, 4):
+        args = _pool_inputs(ng, gsz, tile,
+                            _edge_far_n(ng, gsz // T, tile, T), T, cuda)
+        args = args + (7, 0.02)
+        before = ek.window_eval_pool.launches
+        got = ek.pool_launch(*args, targets=T, **kw)
+        ordered = ek.pool_launch(*args, targets=T,
+                                 order=ek.heavy_first(args[4]), **kw)
+        torch.cuda.synchronize()
+        assert ek.window_eval_pool.launches == before + 2
+        want = ek.window_eval_pool_reference(*args, **kw)
+        assert _rel(got, want) < 1e-4, T
+        assert torch.equal(ordered, got), T
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("gsz", [64, 256, 1024])
+@pytest.mark.parametrize("K", [0, 4])
+@pytest.mark.parametrize("R", [8, 10, 13, 16])
+def test_dense_kernel_every_tile_matches_plain(cuda, R, K, gsz):
+    """Every T the kernel takes at R, far_n at the batch and cap edges,
+    near ids -1 and >= ng, the first and last groups, and the heavy-first
+    launch order (each group's sum unchanged, bit for bit)."""
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    ng, L = 48, 256
+    kw = dict(G=0.1, softening=2.0, group_size=gsz, window_groups=2,
+              tau_clamp=24.0)
+    for T in (1, 2, 4):
+        args = _dense_inputs(ng, gsz, R, K, L, R * 10 + K + T, cuda,
+                             _edge_far_n(ng, gsz // T, L, T))
+        args = args + (7, 0.02)
+        got = ek.dense_launch(*args, targets=T, **kw)
+        ordered = ek.dense_launch(*args, targets=T, order=ek.heavy_first(
+            args[3], args[4], gsz), **kw)
+        torch.cuda.synchronize()
+        want = ek.window_eval_reference(*args, **kw)
+        assert _rel(got, want) < 1e-4, T
+        assert torch.equal(ordered, got), T
+        assert bool(torch.isfinite(got).all())
+
+
+def test_window_kernels_softening_zero_coincident_bodies(cuda):
+    """Softening 0: coincident bodies (and far entries on a body) add
+    nothing through the gate, near-coincident ones (|d| = 2^-10) stay
+    finite; both kernels at every T against their plain versions."""
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    ng, gsz, tile = 24, 256, 128
+    far_n = _edge_far_n(ng, 64, tile, 0)
+    pos, mass, pool, pstart, far_n_t = _pool_inputs(ng, gsz, tile, far_n, 3,
+                                                    cuda)
+    pos[:, 1::7] = pos[:, 0::7][:, :pos[:, 1::7].shape[1]]
+    pos[:, 2::9] = pos[:, 3::9][:, :pos[:, 2::9].shape[1]]
+    pos[0, 5::11] = pos[0, 4::11][:pos[0, 5::11].shape[0]] + 2.0 ** -10
+    pos[:, 300] = pos[:, 20]                       # across groups
+    pool[int(pstart[1]), 0:3, 0] = pos[:, gsz + 3]   # an entry on a body
+    kw = dict(G=0.1, softening=0.0, group_size=gsz, window_groups=2,
+              tau_clamp=24.0)
+    args = (pos, mass, pool, pstart, far_n_t, 0, 0.02)
+    want = ek.window_eval_pool_reference(*args, **kw)
+    assert bool(torch.isfinite(want).all())
+    for T in (1, 2, 4):
+        got = ek.pool_launch(*args, targets=T, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), T
+        assert _rel(got, want) < 1e-4, T
+    # The dense kernel on the same bodies (R = 8 entries of the pool).
+    L = tile
+    far = torch.zeros((ng, 8, L), device=cuda)
+    n_dense = far_n_t.clamp(max=L)
+    for g in range(ng):
+        far[g, :7, :int(n_dense[g])] = pool[int(pstart[g]), :7,
+                                            :int(n_dense[g])]
+    far[1, 0:3, 0] = pos[:, gsz + 3]
+    args = (pos, mass, far, n_dense.contiguous(), None, 0, 0.02)
+    want = ek.window_eval_reference(*args, **kw)
+    assert bool(torch.isfinite(want).all())
+    for T in (1, 2, 4):
+        got = ek.dense_launch(*args, targets=T, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), T
+        assert _rel(got, want) < 1e-4, T
+
+
+def test_window_kernels_report_occupancy(cuda):
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    for T in (1, 2, 4):
+        blocks, regs, threads = ek.occupancy(256, T)
+        assert blocks >= 1 and 0 < regs <= 255 and threads == 256 // T
+        for R in (8, 16):
+            blocks, regs, threads = ek.occupancy(1024, T, R, 2, 8)
+            assert blocks >= 1 and 0 < regs <= 255 and threads == 1024 // T
 
 
 def _probe_cases(dev):

@@ -13,7 +13,8 @@ the one-shot and diagnostic entry points.
   vel``, residual rebase included: rows to rtol 2e-5 / atol 2e-3;
 * the window step across a refresh and a rebuild (pooled, and dense with
   near groups) against ``make_window_step``: 1e-4 of the largest value;
-* (slow) ``chip_smoke.py`` phase 15's refresh protocol at 20K bodies.
+* (slow) ``chip_smoke.py`` phase 15's refresh protocol and phase 14's
+  near-group protocol at 20K bodies.
 
 The pooled ranges and values finishes and the one-shot entry points are in
 ``test_torch_pooled_finishes.py``.
@@ -265,3 +266,97 @@ def test_refresh_protocol_matches_jax_at_20k():
             allpairs_accel_reference(ts.pos, ts.mass, c.G,
                                      c.softening).numpy())
         np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.slow
+def test_near_groups_match_jax_at_20k():
+    """``chip_smoke.py`` phase 14's protocol at 20K bodies (the default
+    config, calibrated, ``near_groups`` 0 and 8): fresh dense lists of one
+    warmed state (5 steps at rebuild interval 4), then each configuration's
+    own lists aged 23 steps.  The rms and median of |da|/|a| and
+    rms|da|/rms|a| against a direct sum equal the JAX package's to 1e-5
+    relative, so what near groups do to the per-body rms is the JAX
+    function's."""
+    import dataclasses
+    from spatialsim_tpu.config.nbody import NBodyConfig as JaxConfig
+    from spatialsim_tpu.ops.allpairs import allpairs_accel_reference as jref
+    from spatialsim_tpu_torch.config.nbody import NBODY, resolve_config
+    from spatialsim_tpu_torch.ops.allpairs import allpairs_accel_reference
+    n, dt = 20_000, 0.02
+    cfg = resolve_config(NBODY.replace(num_bodies=n, engine="window"), n)
+    p, v, m = distributions.generate_distribution(
+        "galaxy", n, cfg.spawn_radius, cfg.G, seed=0)
+    arrays = tuple(np.ascontiguousarray(a, np.float32) for a in (p.T, v.T, m))
+    tarr = tuple(torch.from_numpy(a) for a in arrays)
+    cal = tbw.calibrate_config(cfg, *tarr)
+
+    def stats(acc, exact):
+        e = np.linalg.norm(acc - exact, axis=0)
+        a = np.linalg.norm(exact, axis=0)
+        r = e / a
+        return np.array([np.sqrt((r * r).mean()), np.median(r),
+                         np.sqrt((e * e).mean() / (a * a).mean())])
+
+    def jax_cfg(c):
+        return JaxConfig(**dataclasses.asdict(c))
+
+    def warmed(c):
+        js = jbw.init_window_state(*(jnp.asarray(a) for a in arrays),
+                                   jax_cfg(c))
+        js = jbw.make_window_step(jax_cfg(c).replace(rebuild_interval=4), n,
+                                  5)(js, jnp.float32(dt))
+        ts = tbw.init_window_state(*tarr, c)
+        ts = tbw.make_window_step(c.replace(rebuild_interval=4), n, 5)(ts, dt)
+        return js, ts
+
+    def ekw(c):
+        return dict(G=c.G, softening=c.softening, group_size=c.group_size,
+                    window_groups=c.window_groups)
+
+    # Fresh lists: both packages build from the JAX package's warmed state.
+    js, _ = warmed(cal)
+    state = tuple(np.array(a) for a in (js.pos, js.vel, js.mass))
+    exact = np.asarray(jref(*(jnp.asarray(a) for a in state[::2]), cal.G,
+                            cal.softening))
+    fresh = {}
+    for K in (0, 8):
+        c = cal.replace(near_groups=K)
+        kw = dict(tbw._build_kw(c), pool_tile=0)
+        jl = jbw.build_lists(*(jnp.asarray(a) for a in state), **kw)
+        tl = tbw.build_lists(*(torch.from_numpy(a) for a in state), **kw)
+        assert (tl.near is None) == (K == 0)
+        want = stats(np.asarray(jbw.eval_accel(
+            jl, jnp.asarray(state[0]), jnp.asarray(state[2]),
+            jnp.float32(0.0), **ekw(c))), exact)
+        got = stats(tbw.eval_accel(tl, torch.from_numpy(state[0]),
+                                   torch.from_numpy(state[2]), 0.0,
+                                   **tbw._eval_kw(c)).numpy(), exact)
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        fresh[K] = got
+        print(f"fresh K={K}: rms, median of |da|/|a|, rms|da|/rms|a| "
+              f"{got} (JAX {want})")
+    # The JAX bar (tests/test_bh_window.py:359): the median does not worsen.
+    assert fresh[8][1] <= 1.05 * fresh[0][1] + 1e-5, fresh
+
+    # Each configuration's own lists, aged 23 steps from the warmed state.
+    for K in (0, 8):
+        c = cal.replace(near_groups=K)
+        js, ts = warmed(c)
+        js = jbw.make_window_step(jax_cfg(c).replace(rebuild_interval=10 ** 6),
+                                  n, 22)(js, jnp.float32(dt))
+        ts = tbw.make_window_step(c.replace(rebuild_interval=10 ** 6), n,
+                                  22)(ts, dt)
+        assert ts.lists.steps_since == int(js.lists.steps_since) == 23
+        assert (ts.lists.near is None) == (K == 0)
+        want = stats(
+            np.asarray(jbw.eval_accel_sorted(js.lists, js.pos, js.mass,
+                                             jnp.float32(dt), **ekw(c))),
+            np.asarray(jref(js.pos, js.mass, c.G, c.softening)))
+        got = stats(
+            tbw.eval_accel_sorted(ts.lists, ts.pos, ts.mass, dt,
+                                  **tbw._eval_kw(c)).numpy(),
+            allpairs_accel_reference(ts.pos, ts.mass, c.G,
+                                     c.softening).numpy())
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        print(f"K={K} lists 23 steps old: rms, median of |da|/|a|, "
+              f"rms|da|/rms|a| {got} (JAX {want})")
