@@ -8,22 +8,32 @@ Run from the root of a checkout.  It needs one CUDA card and raises
 without one: there is no CPU fallback, no phase's error is caught, and any
 failure exits non-zero.  Phases, each printed with its seconds:
 
+Kernels are numbered as in ``PERF.md``: 1 all-pairs, 2 pooled window
+eval, 3 dense window eval (3b, 3c its column and matrix forms), 4 boids
+Morton window, 5a-6d the traversal probes.
+
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    a fresh nvcc build of every kernel in ``spatialsim_tpu_torch/csrc``
-   (registers and spills by kernel), and the SASS instructions a pair of
-   every instance of kernels 2 and 3 (``tools/eval_tiles.py``), and of
-   their previous versions when those sources lie in
-   ``spatialsim_tpu_torch/_build/parent/`` (git-ignored; without them the
-   previous kernels' lines say "not measured");
-2. kernel 1 (all-pairs) against its plain version at N = 32,768 and a
-   ragged 30,001, galaxy ICs: max|da|/max|a| and CUDA-event times;
+   (registers and spills of kernels 1-4 by instance), and the SASS
+   instructions a pair of every instance of kernels 1-4
+   (``tools/eval_tiles.py``), and of their previous versions when those
+   sources lie in ``spatialsim_tpu_torch/_build/parent/`` (git-ignored;
+   without them the previous kernels' lines say "not measured");
+2. kernel 1 (all-pairs) against its plain version at N = 32,768, 30,001
+   (ragged), 20,000, 15,000 and 10,000, galaxy ICs: the plan's instance
+   (``allpairs_plan``) and every (threads, T, S) instance, each within
+   1e-5 of max|a|, CUDA-event times beside the previous kernel's, the
+   bound and its share, SASS instructions a pair, the issue-limited time,
+   blocks per SM and waves;
 3. kernel 2 (pooled window eval) against its plain version on the lists
    the port builds for the 1M galaxy, at steps_since 0 and 23; then every
    T (targets a thread) and the heavy-first launch order, each held to the
    plain version, beside the previous kernel, with the bound, SASS
    instructions a pair, the issue-limited time, blocks per SM and waves;
 4. the main path with every kernel launch counted from zero: the
-   all-pairs engine (``NBodySimulation(num_bodies=32_768)``, 10 steps) and
+   all-pairs engine (``NBodySimulation(num_bodies=32_768)`` and
+   ``num_bodies=10_000``, ``tiny_galaxy``'s count, 10 steps each, their
+   median step beside the same steps through the previous kernel) and
    the window engine (``NBodySimulation(num_bodies=1_000_000,
    device="cuda")`` with the default config, 48 steps at dt 0.02: one
    rebuild at step 25 on top of the initial build);
@@ -38,26 +48,33 @@ failure exits non-zero.  Phases, each printed with its seconds:
    synchronise), then the CLI at 1M (10 frames; its frame time beside the
    steps of a frame) and 8K (tiny_galaxy, 30 frames, the all-pairs
    engine), last frames decoded;
-7. kernel 3 (boids Morton window) against its plain version on the 500K
+7. kernel 4 (boids Morton window) against its plain version on the 500K
    ``Flock``'s initial state and again after 48 steps: pass 1 (no dedup)
    and pass 2 (dedup against pass 1's window), max|d|/max|ref| per
    accumulator group (limit 2e-4) and the share of boids whose counts
-   differ (limit 1e-4), CUDA-event times;
+   differ (limit 1e-4), CUDA-event times; then every T with the box cull
+   on and off, each equal bit for bit to the previous kernel (or, without
+   its sources, to the wrapper's instance), with the share of window
+   pairs the cull skips, the bound over the window's pairs and over the
+   pairs tested, SASS counts, the issue-limited time, blocks per SM and
+   waves;
 8. the boids main path with every kernel launch counted from zero:
    ``Flock(num_boids=500_000)`` and ``Flock(num_boids=100_000)`` at the
    default config, 96 steps each at dt 1/30 (2 launches a step, 15
-   re-sorts), under ``bench.py``'s metric names, and the 20K grid mode
-   (no kernel, 10 steps);
+   re-sorts), under ``bench.py``'s metric names, then the same runs
+   through the previous kernel (when its sources are there), and the 20K
+   grid mode (no kernel, 10 steps);
 9. the 500K flock after those 96 steps: window forces against the exact
    grid (``cell_capacity`` at the largest cell occupancy), the share of
    boids whose force agrees at atol 1e-4 and the share of neighbour pairs
    the window captures (both >= 0.99);
 10. where the device time goes, under ``torch.profiler``: the 500K flock
-    over 12 more steps (2 re-sorts), and the 1M N-body window engine over
+    over 12 more steps (2 re-sorts; then 12 through the previous kernel
+    when its sources are there), and the 1M N-body window engine over
     the 3 steps around a rebuild and 20 steps between rebuilds: wall and
     device-busy milliseconds, the idle share, the kernels by device time
     (the profiler adds host time, so the idle share is an upper bound);
-11. kernel 4 (dense window eval) against its plain version (limit 1e-4
+11. kernel 3 (dense window eval) against its plain version (limit 1e-4
     of max|a|): the 1M quadrupole lists (R = 16) at steps_since 0 and 23,
     the 1M galaxy's dense lists from ranges emission (R = 10), the same
     with a seeded near table (K = 4), and the 50M ``extreme_50m_galaxy``
@@ -83,7 +100,7 @@ failure exits non-zero.  Phases, each printed with its seconds:
 
 14. near groups: ``NBodySimulation(num_bodies=1_000_000,
     config=NBODY.replace(near_groups=8))``, 48 steps (dense R = 10 lists,
-    kernel 4 with K = 8), per-group mass (window + near + far + residual)
+    kernel 3 with K = 8), per-group mass (window + near + far + residual)
     after both builds (1e-4), and phase 5's protocol: fresh K = 8 and K = 0
     lists of one state (median ratio <= 1.05, ``tests/test_bh_window.py:
     359``), then each configuration's lists aged to tau = 23 (reported);
@@ -116,7 +133,10 @@ failure exits non-zero.  Phases, each printed with its seconds:
     too), every output not 0 but where the probe's own inputs give 0,
     with its bound and the time of one PyTorch call that computes the
     same function where there is one (``embedding_bag`` for the row,
-    block and column-5 reads, ``torch.roll``).
+    block and column-5 reads, ``torch.roll``); then the roll probe and
+    ``torch.roll`` on equal terms: CUDA events over 100 back-to-back
+    calls, the host's enqueue time a call, and their kernels' device time
+    under the profiler.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -124,6 +144,7 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -140,6 +161,11 @@ DT = 0.02
 STEPS = 48
 N_SAMPLE = 4096
 AP_STEPS = 10
+# Kernel 1's sizes: 32,768 (the all-pairs engine's threshold), a ragged
+# 30,001, and the presets' 20,000 (demo_cluster), 15,000 (tiny_collision)
+# and 10,000 (tiny_galaxy).
+AP_SIZES = (32_768, 30_001, 20_000, 15_000, 10_000)
+AP_ENGINE_SIZES = (32_768, 10_000)
 TOL_ALLPAIRS = 1e-5    # rsqrtf (~2 ulp) + FMA contraction vs plain rsqrt/div
 TOL_WINDOW = 1e-4      # same, summed over ~4K sources in another order
 N_BOIDS = 500_000
@@ -147,6 +173,7 @@ BOIDS_DT = 1.0 / 30.0
 BOIDS_STEPS = 96
 TOL_BOIDS = 2e-4       # the JAX package's bar for its kernel vs XLA form
 TOL_BOIDS_COUNTS = 1e-4   # share of boids whose counts may differ
+ROLL_CALLS = 100       # back-to-back calls timing 5e beside torch.roll
 PRESET_50M = "extreme_50m_galaxy"
 STEPS_50M = 26         # at rebuild interval 24: one rebuild, at step 25
 # H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the tensor
@@ -395,8 +422,8 @@ def check_dense(kernels, label, lists, s_pos, s_mass, near, steps_since,
     report_tiles(
         label, lambda T, order: pick(dense_launch(*args, targets=T,
                                                   order=order, **kw)),
-        None if plib is None else lambda: pick(eval_tiles.parent_dense(
-            plib, *args, **kw)),
+        None if not eval_tiles.has_parent(plib, "window_eval")
+        else lambda: pick(eval_tiles.parent_dense(plib, *args, **kw)),
         want, (1, 2, 4), t, win + far, b_ms,
         lists.far_n.shape[0],
         lambda T: occupancy(gsz, T, R, kw["window_groups"], K),
@@ -518,6 +545,22 @@ def check_probes(entries, probes):
             max_abs_err=0.0, ms=e["ms"], plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=library_ms, label=e["label"]))
         rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+
+
+def device_ms(fn, reps):
+    """Milliseconds a call of ``fn`` spends in device kernels, from
+    ``torch.profiler`` over ``reps`` calls after one warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def timed_steps(step, steps, dt):
@@ -680,7 +723,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from spatialsim_tpu_torch import _kernels
     from spatialsim_tpu_torch.ops.allpairs import (
-        allpairs_accel, allpairs_accel_reference)
+        ALLPAIRS_TARGETS, ALLPAIRS_THREADS, ALLPAIRS_TILE, MAX_SLICES,
+        allpairs_accel, allpairs_accel_reference, allpairs_launch,
+        allpairs_occupancy, allpairs_plan)
     from spatialsim_tpu_torch.ops.bh_eval_kernel import (
         dense_launch, heavy_first, occupancy, pool_launch, tile_targets,
         window_eval,
@@ -697,8 +742,10 @@ def main() -> int:
     from spatialsim_tpu_torch.config.boids import BOIDS
     from spatialsim_tpu_torch.models.boids import Flock
     from spatialsim_tpu_torch.ops import boids_ops as bo
+    from spatialsim_tpu_torch.ops import boids_window_kernel as bo_kernel
     from spatialsim_tpu_torch.ops.boids_window_kernel import (
-        boids_window_accumulate)
+        BOIDS_TARGETS, DEFAULT_TARGETS, boids_occupancy,
+        boids_window_accumulate, boids_window_launch)
     from spatialsim_tpu_torch.ops import traversal_probes as tp
     from spatialsim_tpu_torch.tools import decide15, decide18
     import numpy as np
@@ -721,7 +768,7 @@ def main() -> int:
     _kernels.library(force_build=True, verbose=True)
     print(f"    kernel build seconds (nvcc, sm_90a): "
           f"{_kernels.build_info['seconds']:.3f}")
-    # Registers of the window-eval instances; any kernel's spills.
+    # Registers of the instances of kernels 1-4; any kernel's spills.
     fn, label = "", None
     for line in _kernels.build_info["log"].splitlines():
         if "Compiling entry function" in line:
@@ -740,36 +787,119 @@ def main() -> int:
     for label, (per_pair, loops, _) in sorted({**sass, **sass_old}.items()):
         print(f"    SASS {label}: {per_pair:.3f} instructions a pair "
               f"(innermost loops, instructions / MUFU.RSQ: {loops})")
+    bsass = {k: v[0] for k, v in eval_tiles.boids_sass(
+        _kernels.build_info["path"]).items()}
+    if eval_tiles.has_parent(plib, "boids_window"):
+        bsass.update({k: v[0] for k, v in eval_tiles.boids_sass(
+            plib.path, previous=True).items()})
+    for label, rec in sorted(bsass.items()):
+        print("    SASS " + eval_tiles.boids_line(label, rec))
     if not sass:
         print("    SASS: no cuobjdump found; instructions a pair not "
               "measured")
-    print("    previous window-eval kernels: "
-          + (f"built from {eval_tiles.PARENT_DIR}" if plib else "absent"))
+    print("    previous kernels: "
+          + (f"{sorted(plib.entries)} built from {eval_tiles.PARENT_DIR}"
+             if plib else "absent"))
     done(t0)
 
     # ---- 2. kernel 1 vs plain -------------------------------------------
-    t0 = phase("2. all-pairs kernel vs plain")
-    cfg_ap = NBODY
-    for n in (32_768, 30_001):
+    t0 = phase("2. all-pairs kernel vs plain: the plan and every instance")
+    ap_kw = (NBODY.G, NBODY.softening)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ap_prev = eval_tiles.has_parent(plib, "allpairs")
+    for T in ALLPAIRS_TARGETS:
+        for threads in ALLPAIRS_THREADS:
+            blocks, regs, _ = allpairs_occupancy(threads, T, MAX_SLICES)
+            print(f"    T={T}, {threads} threads: {regs} registers a thread, "
+                  f"{blocks} blocks per SM resident")
+    for n in AP_SIZES:
         pos, _, mass = galaxy(n, 1, dev)
-        got = allpairs_accel(pos, mass, cfg_ap.G, cfg_ap.softening)
-        want = allpairs_accel_reference(pos, mass, cfg_ap.G,
-                                        cfg_ap.softening)
+        want = allpairs_accel_reference(pos, mass, *ap_kw)
+        got = allpairs_accel(pos, mass, *ap_kw)
         torch.cuda.synchronize()
         abs_err, err = kernel_errors(got, want)
-        ms = cuda_ms(lambda: allpairs_accel(pos, mass, cfg_ap.G,
-                                            cfg_ap.softening), 20)
-        plain_ms = cuda_ms(lambda: allpairs_accel_reference(
-            pos, mass, cfg_ap.G, cfg_ap.softening), 3)
-        print(f"    N={n}: max|da| = {abs_err:.3e}, max|da|/max|a| = "
-              f"{err:.3e} (tol {TOL_ALLPAIRS})"
-              f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  kernel "
-              f"{n * n / ms / 1e6:.1f} Gpairs/s")
-        require(err <= TOL_ALLPAIRS, f"allpairs error {err}")
+        require(err <= TOL_ALLPAIRS, f"N={n}: allpairs error {err}")
+        prev, prev_err = [], None
+
+        def previous():
+            return eval_tiles.parent_allpairs(plib, pos, mass, *ap_kw)
+        if ap_prev:
+            prev_err = kernel_errors(previous(), want)[1]
+            prev.append(cuda_ms(previous, 20))
+        ms = cuda_ms(lambda: allpairs_accel(pos, mass, *ap_kw), 20)
+        plain_ms = cuda_ms(lambda: allpairs_accel_reference(pos, mass,
+                                                            *ap_kw), 3)
         # 19 FP32 operations a pair (FMA as 2) and one rsqrt; pos and
         # mass read once, acc written once.
-        record_kernel(kernels, "allpairs", abs_err, err, ms, plain_ms,
-                      19.0 * n * n, 4 * n * (4 + 3))
+        ops, nbytes = 19.0 * n * n, 4 * n * (4 + 3)
+        b_ms, b_by = bound(ops, nbytes)
+        record_kernel(kernels, "allpairs", abs_err, err, ms, plain_ms, ops,
+                      nbytes)
+        tiles = -(-n // ALLPAIRS_TILE)
+        res, worst = {}, 0.0
+        for threads in ALLPAIRS_THREADS:
+            for T in ALLPAIRS_TARGETS:
+                for S in (1, 2, 4, 8):
+                    if S > tiles:
+                        continue
+
+                    def launch(threads=threads, T=T, S=S):
+                        return allpairs_launch(pos, mass, *ap_kw,
+                                               threads=threads, targets=T,
+                                               slices=S)
+                    e = kernel_errors(launch(), want)[1]
+                    require(e <= TOL_ALLPAIRS, f"N={n} {threads}/{T}/{S}: {e}")
+                    worst = max(worst, e)
+                    res[(threads, T, S)] = (cuda_ms(launch, 10), e)
+        if ap_prev:
+            prev.append(cuda_ms(previous, 20))
+        def issue_ms(T):
+            rec = sass.get(f"allpairs T={T}")
+            return (None if rec is None
+                    else n * n * rec[0] / eval_tiles.ISSUE_RATE * 1e3)
+
+        def waves(threads, T, S):
+            blocks = -(-n // (threads * T)) * S
+            per_sm = allpairs_occupancy(threads, T, S)[0]
+            return blocks, per_sm, blocks / (per_sm * sms)
+        threads, T, S = allpairs_plan(n)
+        blocks, per_sm, plan_waves = waves(threads, T, S)
+        rec = sass.get(f"allpairs T={T}")
+        issue = ("not measured" if rec is None else
+                 f"SASS {rec[0]:.3f} instructions a pair, issue-limited "
+                 f"{issue_ms(T):.4f} ms")
+        rec_old = sass_old.get("allpairs (previous)")
+        if rec_old is not None:
+            issue += (f" (previous: {rec_old[0]:.3f}, "
+                      f"{n * n * rec_old[0] / eval_tiles.ISSUE_RATE * 1e3:.4f}"
+                      f" ms)")
+        was = ("previous kernel not measured (no sources in "
+               "spatialsim_tpu_torch/_build/parent/)" if not prev else
+               f"previous kernel {prev[0]:.4f} and {prev[1]:.4f} ms, before "
+               f"and after (max|da|/max|a| {prev_err:.3e}): the plan takes "
+               f"{2 * ms / sum(prev):.3f}x its time")
+        print(f"    N={n}: plan {threads} threads, T={T}, S={S}: max|da| = "
+              f"{abs_err:.3e}, max|da|/max|a| = {err:.3e} (tol "
+              f"{TOL_ALLPAIRS}); kernel {ms:.4f} ms = "
+              f"{n * n / ms / 1e6:.1f} Gpairs/s; plain {plain_ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it; {issue}; "
+              f"{blocks} blocks, {per_sm} per SM resident = "
+              f"{plan_waves:.2f} waves on {sms} SMs")
+        print(f"    N={n}: {was}")
+        best = min(res, key=lambda k: res[k][0])
+        print(f"    N={n}: every instance, threads/T/S (worst max|da|/max|a| "
+              f"{worst:.3e}; fastest {'/'.join(map(str, best))}):")
+        for (threads, T, S), (i_ms, e) in res.items():
+            blocks, per_sm, w = waves(threads, T, S)
+            iss = issue_ms(T)
+            iss = ("not measured" if iss is None
+                   else f"issue-limited {iss:.4f} ms")
+            prev_x = (f", {2 * i_ms / sum(prev):.3f}x the previous kernel"
+                      if prev else "")
+            print(f"      {threads}/{T}/{S}: {i_ms:.4f} ms, max|da|/max|a| "
+                  f"{e:.3e}, {b_ms / i_ms:.1%} of the bound, {iss}, "
+                  f"{blocks} blocks, {w:.2f} waves{prev_x}")
+    del pos, mass, got, want
     done(t0)
 
     # ---- 3. kernel 2 vs plain on the 1M lists ---------------------------
@@ -839,7 +969,7 @@ def main() -> int:
     report_tiles(
         "1M pooled, steps_since=23",
         lambda T, order: pool_launch(*args, targets=T, order=order, **kw),
-        (None if plib is None
+        (None if not eval_tiles.has_parent(plib, "window_eval_pool")
          else lambda: eval_tiles.parent_pool(plib, *args, **kw)),
         want, (1, 2, 4), t3, pairs, bound(18.0 * pairs, nbytes)[0], ng,
         lambda T: occupancy(gsz, T), sass.get(f"pool T={t3}"),
@@ -854,13 +984,17 @@ def main() -> int:
     window_eval_pool.launches = 0
     window_eval.launches = 0
     boids_window_accumulate.launches = 0
-    # The all-pairs engine at its threshold (N <= 32,768)...
-    sim_ap = NBodySimulation(num_bodies=32_768, device="cuda")
-    for _ in range(AP_STEPS):
-        sim_ap.update(DT)
-    require(sim_ap.engine == "allpairs", sim_ap.engine)
-    require(bool(torch.isfinite(sim_ap.state.pos).all()), "allpairs state")
-    del sim_ap
+    # The all-pairs engine at its threshold (N <= 32,768) and at
+    # tiny_galaxy's 10,000 bodies...
+    ap_step_ms = {}
+    for n_ap in AP_ENGINE_SIZES:
+        sim_ap = NBodySimulation(num_bodies=n_ap, device="cuda")
+        step_s = timed_steps(sim_ap.update, AP_STEPS, DT)
+        require(sim_ap.engine == "allpairs", sim_ap.engine)
+        require(bool(torch.isfinite(sim_ap.state.pos).all()),
+                "allpairs state")
+        ap_step_ms[n_ap] = sorted(step_s)[AP_STEPS // 2] * 1e3
+        del sim_ap
     # ...and the window engine at 1M bodies.
     t = time.perf_counter()
     sim = NBodySimulation(num_bodies=N_MAIN, device="cuda")
@@ -895,13 +1029,35 @@ def main() -> int:
     print(f"    list builds: 1 at init + {sim.rebuilds} in the run")
     require(sim.engine == "window", sim.engine)
     require(launches["window_eval_pool"] == STEPS, launches)
-    require(launches["allpairs"] == AP_STEPS, launches)
+    require(launches["allpairs"] == len(AP_ENGINE_SIZES) * AP_STEPS,
+            launches)
     require(sim.rebuilds + 1 == 2, f"list builds {sim.rebuilds + 1}")
     for name, t_ in (("pos", sim.state.pos), ("vel", sim.state.vel)):
         require(t_.shape == (3, N_MAIN) and bool(torch.isfinite(t_).all()),
                 f"final {name} finite, shape {tuple(t_.shape)}")
     print(f"    peak device memory GB: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    # The all-pairs engine's steps, and the same steps through the previous
+    # kernel (its launches are not counted).
+    prev_ms = {}
+    if eval_tiles.has_parent(plib, "allpairs"):
+        import spatialsim_tpu_torch.models.nbody as nbody_mod
+        kernel_fn = nbody_mod.allpairs_accel
+        nbody_mod.allpairs_accel = functools.partial(
+            eval_tiles.parent_allpairs, plib)
+        try:
+            for n_ap in AP_ENGINE_SIZES:
+                sim_ap = NBodySimulation(num_bodies=n_ap, device="cuda")
+                step_s = timed_steps(sim_ap.update, AP_STEPS, DT)
+                prev_ms[n_ap] = sorted(step_s)[AP_STEPS // 2] * 1e3
+                del sim_ap
+        finally:
+            nbody_mod.allpairs_accel = kernel_fn
+    for n_ap, step_ms in ap_step_ms.items():
+        was = (f"{prev_ms[n_ap]:.3f} ms through the previous kernel"
+               if n_ap in prev_ms else "the previous kernel not measured")
+        print(f"    all-pairs engine N={n_ap}: median step {step_ms:.3f} ms "
+              f"({AP_STEPS} steps, plan {allpairs_plan(n_ap)}); {was}")
     done(t0)
 
     # ---- 5. accuracy against direct sum ---------------------------------
@@ -1019,31 +1175,45 @@ def main() -> int:
     done(t0)
 
     # ---- 7. boids kernel vs plain ----------------------------------------
-    t0 = phase("7. boids window kernel vs plain, 500K Flock state")
+    t0 = phase("7. boids window kernel vs plain, 500K Flock state; every T "
+               "with the cull on and off")
     bcfg = BOIDS
     gsz, wg1 = bcfg.group_size, bcfg.window_groups
     wg2 = bcfg.pass2_window_groups or wg1
-    kw1 = dict(gsz=gsz, wg=wg1, perception_sq=bcfg.perception_radius ** 2,
+    psq = bcfg.perception_radius ** 2
+    kw1 = dict(gsz=gsz, wg=wg1, perception_sq=psq,
                separation_sq=bcfg.separation_radius ** 2)
     kw2 = dict(kw1, wg=wg2, prev_wg=wg1)
     flock = Flock(num_boids=N_BOIDS, device="cuda")
     npad = flock.state.p21.numel()
     ng = npad // gsz
-    pairs = window_pairs(ng, gsz, wg1) + window_pairs(ng, gsz, wg2)
+    pairs_ps = (window_pairs(ng, gsz, wg1), window_pairs(ng, gsz, wg2))
+    pairs = sum(pairs_ps)
+    b_prev = eval_tiles.has_parent(plib, "boids_window")
+    instances = [(T, cull) for T in BOIDS_TARGETS for cull in (False, True)]
     print(f"    npad {npad} ({ng} groups of {gsz}); pairs a step: "
-          f"{window_pairs(ng, gsz, wg1):.4e} (pass 1, wg {wg1}) + "
-          f"{window_pairs(ng, gsz, wg2):.4e} (pass 2, wg {wg2}) = "
-          f"{pairs:.4e}")
+          f"{pairs_ps[0]:.4e} (pass 1, wg {wg1}) + {pairs_ps[1]:.4e} "
+          f"(pass 2, wg {wg2}) = {pairs:.4e}; the wrapper's instance: "
+          f"T={DEFAULT_TARGETS}, cull on")
+    for T, cull in instances:
+        for ps in (1, 2):
+            blocks, regs, threads = boids_occupancy(gsz, T, cull, ps == 2)
+            print(f"    T={T} cull {'on' if cull else 'off'} pass {ps}: "
+                  f"{threads} threads a block, {regs} registers a thread, "
+                  f"{blocks} blocks per SM resident = "
+                  f"{ng / (blocks * sms):.2f} waves over {ng} groups")
     for label, steps in (("initial state", 0), ("after 48 steps", 48)):
         for _ in range(steps):
             flock.update(BOIDS_DT)
         ms = plain_ms = nb_pairs = abs_err = rel_err = 0.0
+        sweep = {k: [0.0, 0, 0.0] for k in instances}  # ms, tested, issue
+        prev = [0.0, 0.0]
         for ps, args, kw in zip((1, 2), boids_pass_inputs(flock.state, bcfg),
                                 (kw1, kw2)):
-            got = boids_window_accumulate(*args, **kw)
+            full = boids_window_accumulate(*args, **kw)
             want = bo.window_accumulate_reference(*args, **kw)
             torch.cuda.synchronize()
-            got, want = got[:, :N_BOIDS], want[:, :N_BOIDS]
+            got, want = full[:, :N_BOIDS], want[:, :N_BOIDS]
             errs = []
             for r, nm in zip(range(0, 12, 3), ("sep", "align", "coh",
                                                "csum")):
@@ -1057,7 +1227,8 @@ def main() -> int:
             differ = float((got[12:] != want[12:]).any(0).float().mean())
             require(differ <= TOL_BOIDS_COUNTS,
                     f"boids pass {ps}: counts differ for {differ:.3e}")
-            nb_pairs += float(want[13].sum())
+            nb = float(want[13].sum())
+            nb_pairs += nb
             k_ms = cuda_ms(lambda: boids_window_accumulate(*args, **kw), 20)
             p_ms = cuda_ms(lambda: bo.window_accumulate_reference(
                 *args, **kw), 10)
@@ -1065,22 +1236,81 @@ def main() -> int:
             print(f"    {label}, pass {ps}: max|d|/max|ref| {', '.join(errs)}"
                   f" (tol {TOL_BOIDS}); counts differ for {differ:.3e} of "
                   f"boids (tol {TOL_BOIDS_COUNTS}); neighbour pairs "
-                  f"{int(want[13].sum())}; kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms")
+                  f"{int(nb)}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            # Every instance against the previous kernel (or, without its
+            # sources, the wrapper's), bit for bit; the previous kernel
+            # timed before and after them.
+            ref_rows, who = full, "the wrapper's instance"
+            if b_prev:
+                def previous():
+                    return eval_tiles.parent_boids(plib, *args, **kw)
+                ref_rows, who = previous(), "the previous kernel"
+                torch.cuda.synchronize()
+                require(torch.equal(full, ref_rows),
+                        f"{label} pass {ps}: the wrapper differs from the "
+                        f"previous kernel")
+                prev[ps - 1] += cuda_ms(previous, 20) / 2
+            for T, cull in instances:
+                def launch(T=T, cull=cull):
+                    return boids_window_launch(*args, targets=T, cull=cull,
+                                               **kw)
+                out = launch()
+                torch.cuda.synchronize()
+                require(torch.equal(out, ref_rows),
+                        f"{label} pass {ps} T={T} cull={cull}: differs from "
+                        f"{who}")
+                tested = pairs_ps[ps - 1]
+                if cull:
+                    tested = bo_kernel.chunk_cull_reference(
+                        args[0], gsz=gsz, wg=kw["wg"], perception_sq=psq,
+                        targets=T)["tested"]
+                rec = bsass.get(f"boids T={T} cull {'on' if cull else 'off'}"
+                                f" pass {ps}")
+                issue = (None if rec is None else
+                         tested * rec["pair"] + (pairs_ps[ps - 1] - tested)
+                         * (rec["skipped"] or 0) / (32 * T))
+                acc = sweep[(T, cull)]
+                acc[0] += cuda_ms(launch, 20)
+                acc[1] += tested
+                acc[2] = None if issue is None or acc[2] is None else (
+                    acc[2] + issue)
+            if b_prev:
+                prev[ps - 1] += cuda_ms(previous, 20) / 2
         # One step's work: both passes.  ~10 FP32 operations for a pair's
         # distance test, ~30 more for a neighbour pair; each pass reads
         # its 9-10 input rows once and writes its 14 rows once.
         ops = 10.0 * pairs + 30.0 * nb_pairs
         nbytes = 4 * npad * ((9 + 14) + (10 + 14))
+        b_ms, b_by = bound(ops, nbytes)
         print(f"    {label}, both passes: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound(ops, nbytes)[0]:.4f} ms "
-              f"({bound(ops, nbytes)[1]}); kernel "
-              f"{pairs / ms / 1e6:.1f} Gpairs/s; by the TPU kernel's cost "
-              f"model (40 flops a pair) the bound is "
-              f"{40.0 * pairs / PEAK_FP32 * 1e3:.4f} ms")
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms:.1%} of it; kernel {pairs / ms / 1e6:.1f} "
+              f"Gpairs/s; by the TPU kernel's cost model (40 flops a pair) "
+              f"the bound is {40.0 * pairs / PEAK_FP32 * 1e3:.4f} ms")
+        if b_prev:
+            print(f"    {label}: previous kernel {prev[0]:.4f} + "
+                  f"{prev[1]:.4f} = {sum(prev):.4f} ms (mean of before and "
+                  f"after the instances); the wrapper's instance takes "
+                  f"{ms / sum(prev):.3f}x its time")
+        else:
+            print(f"    {label}: previous kernel not measured (no sources in "
+                  f"spatialsim_tpu_torch/_build/parent/); every instance "
+                  f"held to the wrapper's bit for bit")
+        for (T, cull), (i_ms, tested, issue) in sweep.items():
+            t_ms = bound(10.0 * tested + 30.0 * nb_pairs, nbytes)[0]
+            iss = ("not measured" if issue is None else
+                   f"{issue / eval_tiles.ISSUE_RATE * 1e3:.4f} ms")
+            print(f"    {label}: T={T} cull {'on ' if cull else 'off'} "
+                  f"{i_ms:.4f} ms; skips {1 - tested / pairs:.4f} of the "
+                  f"window pairs; bound {b_ms:.4f} ms ({b_ms / i_ms:.1%}), "
+                  f"over the {tested:.4e} tested pairs {t_ms:.4f} ms "
+                  f"({t_ms / i_ms:.1%}); issue-limited {iss}; equal bit for "
+                  f"bit to {'the previous kernel' if b_prev else 'the wrapper'}"
+                  f" in both passes, so its errors against the plain version "
+                  f"are the wrapper's above")
         record_kernel(kernels, "boids_window", abs_err, rel_err, ms,
                       plain_ms, ops, nbytes)
-    del flock, got, want
+    del flock, got, want, full, out, ref_rows
     torch.cuda.empty_cache()
     done(t0)
 
@@ -1145,6 +1375,24 @@ def main() -> int:
           f" window_eval_pool {window_eval_pool.launches}")
     require(launches["boids_window"] == 4 * BOIDS_STEPS, launches)
     del grid, flock
+    # The same runs through the previous kernel (not counted).
+    if eval_tiles.has_parent(plib, "boids_window"):
+        kernel_fn = bo.boids_window_accumulate
+        bo.boids_window_accumulate = functools.partial(
+            eval_tiles.parent_boids, plib)
+        try:
+            for n in (N_BOIDS, 100_000):
+                flock = Flock(num_boids=n, device="cuda")
+                step_s = timed_steps(flock.update, BOIDS_STEPS, BOIDS_DT)
+                print(f"    through the previous kernel: boids_steps_per_sec_"
+                      f"{n // 1000}k = {BOIDS_STEPS / sum(step_s):.3f} steps/s"
+                      f"; median step {float(np.median(step_s)) * 1e3:.4f} "
+                      f"ms")
+                del flock
+        finally:
+            bo.boids_window_accumulate = kernel_fn
+        require(boids_window_accumulate.launches == launches["boids_window"],
+                "the previous kernel's runs launched the kernel")
     done(t0)
 
     # ---- 9. boids accuracy vs the exact grid ------------------------------
@@ -1194,6 +1442,15 @@ def main() -> int:
     profile_steps("boids 500K, 12 steps", lambda: flock500.update(BOIDS_DT),
                   12)
     print(f"      (re-sorts in the window: {flock500.resorts - resorts})")
+    if eval_tiles.has_parent(plib, "boids_window"):
+        kernel_fn = bo.boids_window_accumulate
+        bo.boids_window_accumulate = functools.partial(
+            eval_tiles.parent_boids, plib)
+        try:
+            profile_steps("boids 500K, 12 more steps through the previous "
+                          "kernel", lambda: flock500.update(BOIDS_DT), 12)
+        finally:
+            bo.boids_window_accumulate = kernel_fn
     del flock500, st
     sim = NBodySimulation(num_bodies=N_MAIN, device="cuda")
     for _ in range(23):
@@ -1432,8 +1689,8 @@ def main() -> int:
         f"50M R=8, the run's lists at steps_since={l50.steps_since}",
         lambda T, order: dense_launch(*args50, targets=T, order=order,
                                       **kw50),
-        None if plib is None else lambda: eval_tiles.parent_dense(
-            plib, *args50, **kw50),
+        None if not eval_tiles.has_parent(plib, "window_eval")
+        else lambda: eval_tiles.parent_dense(plib, *args50, **kw50),
         None, (t50,), t50, win + far, bound(18.0 * (win + far), nbytes)[0],
         l50.far_n.shape[0],
         lambda T: occupancy(gsz50, T, 8, kw50["window_groups"], 0),
@@ -1779,6 +2036,27 @@ def main() -> int:
     check_probes(entries, probes)
     print("    (latency probes: one warp or thread of one SM, so each sits "
           "far above its bytes-or-operations bound by design)")
+    # 5e and torch.roll on equal terms: CUDA events over 100 back-to-back
+    # calls, the host's time a call on its own (enqueue, no synchronise)
+    # and the kernels' own device time under the profiler.
+    x = tp.lane_row(dev)
+    rolls = {}
+    for name, fn in (("tp.roll", lambda: tp.roll(x, 5)),
+                     ("torch.roll", lambda: torch.roll(x, 5, 1))):
+        ev_ms = cuda_ms(fn, ROLL_CALLS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(ROLL_CALLS):
+            fn()
+        host_ms = (time.perf_counter() - t) * 1e3 / ROLL_CALLS
+        torch.cuda.synchronize()
+        dev_ms = device_ms(fn, ROLL_CALLS)
+        rolls[name] = ev_ms
+        print(f"    {name}: {ev_ms:.4f} ms a call by CUDA events over "
+              f"{ROLL_CALLS} calls; host {host_ms:.4f} ms a call to "
+              f"enqueue; device {dev_ms:.4f} ms a call in its kernels")
+    probes["roll"].update(ms=rolls["tp.roll"], library_ms=rolls["torch.roll"],
+                          label=f"roll, {ROLL_CALLS} calls")
     del entries
     torch.cuda.empty_cache()
     done(t0)

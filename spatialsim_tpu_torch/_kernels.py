@@ -34,7 +34,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: name -> argtypes (every entry point returns an int error).
 SIGNATURES = {
-    "spatialsim_allpairs": (_P, _P, _P, _I, _F, _F, _P),
+    "spatialsim_allpairs": (_P, _P, _P, _I, _F, _F, _I, _I, _I, _P),
+    "spatialsim_allpairs_occupancy": (_I, _I, _I, _P),
     "spatialsim_window_eval_pool": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "spatialsim_window_eval_pool_occupancy": (_I, _I, _P),
@@ -45,8 +46,9 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "spatialsim_window_eval_mxu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _F, _F, _F, _F, _P),
-    "spatialsim_boids_window":(_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                                _P),
+    "spatialsim_boids_window": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                                _I, _I, _P),
+    "spatialsim_boids_window_occupancy": (_I, _I, _I, _I, _P),
     # The traversal-primitive probes (csrc/probes_decide15.cu, 18.cu).
     "spatialsim_probe_row_reads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "spatialsim_probe_block_read": (_P, _P, _P, _I, _I, _I, _P),

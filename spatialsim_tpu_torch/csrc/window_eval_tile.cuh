@@ -1,5 +1,7 @@
 // Register tiles of targets for the window-eval kernels
-// (window_eval_pool.cu, window_eval.cu), for Hopper (sm_90a).
+// (window_eval_pool.cu, window_eval.cu), for Hopper (sm_90a).  The
+// all-pairs kernel (allpairs.cu) shares rsqrt_mufu, and it and the boids
+// kernel (boids_window.cu) share allow_smem and occupancy.
 //
 // What bounds those kernels on this card is instruction issue: a pair
 // costs ~15 FP32 instructions and one MUFU.RSQ, while the bytes they read

@@ -117,6 +117,102 @@ def test_boids_window_kernel_matches_plain(cuda, n, dedup):
         assert err <= 2e-4 * float(want[r:r + 3].abs().max()), (r, err)
 
 
+@pytest.mark.parametrize("n", [1, 255, 1000, 4096, 30_001])
+def test_allpairs_every_instance_matches_plain(cuda, n):
+    """Every (threads, T, S) instance, the plan's too, against the plain
+    version (1e-5 of max|a|; a lone body feels nothing), and the same
+    instance twice: the fixed-order cluster sum gives equal bits."""
+    from spatialsim_tpu_torch.ops.allpairs import (
+        ALLPAIRS_TARGETS, ALLPAIRS_THREADS, ALLPAIRS_TILE, MAX_SLICES,
+        allpairs_accel, allpairs_accel_reference, allpairs_launch)
+    pos, _, mass = _galaxy(n, 4, cuda)
+    want = allpairs_accel_reference(pos, mass, 0.1, 2.0)
+    scale = max(float(want.abs().max()), 1e-30)
+    tiles = -(-n // ALLPAIRS_TILE)
+    got = allpairs_accel(pos, mass, 0.1, 2.0)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    for threads in ALLPAIRS_THREADS:
+        for T in ALLPAIRS_TARGETS:
+            for S in (1, 2, 3, 8):
+                if S > max(tiles, 2):
+                    continue
+                kw = dict(threads=threads, targets=T, slices=S)
+                got = allpairs_launch(pos, mass, 0.1, 2.0, **kw)
+                again = allpairs_launch(pos, mass, 0.1, 2.0, **kw)
+                torch.cuda.synchronize()
+                assert bool(torch.isfinite(got).all()), kw
+                assert float((got - want).abs().max()) <= 1e-5 * scale, kw
+                assert torch.equal(got, again), kw
+    with pytest.raises(ValueError):
+        allpairs_launch(pos, mass, 0.1, 2.0, threads=96, targets=4,
+                        slices=MAX_SLICES + 1)
+
+
+def test_allpairs_softening_zero_coincident_bodies(cuda):
+    """With softening 0 the gate alone drops self and coincident pairs;
+    zero-mass padding at 1e18 adds nothing."""
+    from spatialsim_tpu_torch.ops.allpairs import (
+        allpairs_accel_reference, allpairs_launch)
+    pos, _, mass = _galaxy(700, 6, cuda)
+    pos[:, 1] = pos[:, 0]
+    want = allpairs_accel_reference(pos, mass, 0.1, 0.0)
+    for S in (1, 3):
+        got = allpairs_launch(pos, mass, 0.1, 0.0, threads=64, targets=4,
+                              slices=S)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
+def test_allpairs_occupancy(cuda):
+    from spatialsim_tpu_torch.ops.allpairs import allpairs_occupancy
+    for T in (2, 4, 8):
+        blocks, regs, threads = allpairs_occupancy(128, T, 8)
+        assert blocks >= 1 and 0 < regs <= 255 and threads == 128
+
+
+@pytest.mark.parametrize("gsz", [96, 128, 256])
+@pytest.mark.parametrize("dedup", [False, True])
+def test_boids_every_instance_equals_bit_for_bit(cuda, gsz, dedup):
+    """Every T and the cull on and off give the same 14 rows, bit for bit
+    (each target meets its passing sources in one order), counts equal to
+    the plain version's and sums within 2e-4 of its max; gsz 96 leaves
+    slots past the group at T 2 and 4."""
+    from spatialsim_tpu_torch.ops.boids_ops import (
+        window_accumulate_reference)
+    from spatialsim_tpu_torch.ops.boids_window_kernel import (
+        BOIDS_TARGETS, boids_window_accumulate, boids_window_launch)
+    n = 5000 - 5000 % gsz + gsz // 3
+    args = _boids_pass_inputs(n, gsz, 11, cuda)[1 if dedup else 0]
+    kw = dict(gsz=gsz, wg=1 if dedup else 2, perception_sq=25.0,
+              separation_sq=9.0, prev_wg=2 if dedup else None)
+    want = window_accumulate_reference(*args, **kw)
+    first = boids_window_accumulate(*args, **kw)
+    torch.cuda.synchronize()
+    assert float(want[13, :n].sum()) > 100
+    assert torch.equal(first[12:], want[12:])
+    for r in range(0, 12, 3):
+        err = float((first[r:r + 3] - want[r:r + 3]).abs().max())
+        assert err <= 2e-4 * float(want[r:r + 3].abs().max()), (r, err)
+    for T in BOIDS_TARGETS:
+        for cull in (False, True):
+            got = boids_window_launch(*args, targets=T, cull=cull, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, first), (T, cull)
+
+
+def test_boids_occupancy(cuda):
+    from spatialsim_tpu_torch.ops.boids_window_kernel import (
+        boids_occupancy, boids_threads)
+    for T in (1, 2, 4):
+        for dedup in (False, True):
+            blocks, regs, threads = boids_occupancy(256, T, True, dedup)
+            assert blocks >= 1 and 0 < regs <= 255
+            assert threads == boids_threads(256, T)
+
+
 def _dense_inputs(ng, gsz, R, K, L, seed, device, far_n=None):
     """Synthetic dense-layout kernel inputs: bodies in Morton-like groups
     along a random walk, far entries 50-300 units from their group (the

@@ -121,3 +121,60 @@ def test_sass_inner_loops_and_labels():
     assert eval_tiles.instance(dense, previous=True) == \
         "dense R=16 (previous, <=2 threads)"
     assert eval_tiles.instance("_ZN12window_eval_cols_kernelILi8EEEv") is None
+
+
+BOIDS_SASS = """
+		Function : _ZN12_GLOBAL__N_119boids_window_kernelILi1ELb1ELb0EEEvPKfS2_\
+S2_S2_Pfiiifff
+        /*0000*/                   MOV R0, R1 ;
+        /*0010*/                   FADD R2, R2, R3 ;
+        /*0020*/                   FSETP.GEU.AND P0, PT, R2, UR6, PT ;
+        /*0030*/               @P0 BRA 0xa0 ;
+        /*0040*/                   LDS.128 R4, [R8] ;
+        /*0050*/                   FADD R4, -R4, R9 ;
+        /*0060*/                   NOP ;
+        /*0070*/                   SEL R5, RZ, 0x1, !P2 ;
+        /*0080*/              @!P0 BRA 0xa0 ;
+        /*0090*/                   LDS.64 R10, [R9] ;
+        /*00a0*/                   IADD3 R1, R1, 0x1, RZ ;
+        /*00b0*/              @!P1 BRA 0x10 ;
+        /*00c0*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_119boids_window_kernelEPKfS1_S1_S1_Pfiiifff
+        /*0000*/                   MOV R0, R1 ;
+        /*0010*/                   LDS.128 R12, [UR7] ;
+        /*0020*/                   FADD R2, R31, -R12 ;
+        /*0030*/                   FSETP.GT.AND P1, PT, R18, 1e-4, PT ;
+        /*0040*/               @P1 BRA 0x70 ;
+        /*0050*/                   LDS.64 R16, [R36] ;
+        /*0060*/                   FADD R0, R0, 1 ;
+        /*0070*/                   LDS.128 R12, [UR7+0x10] ;
+        /*0080*/                   FADD R2, R31, -R12 ;
+        /*0090*/               @P1 BRA 0xc0 ;
+        /*00a0*/                   LDS.64 R16, [R36+0x8] ;
+        /*00b0*/                   FADD R0, R0, 1 ;
+        /*00c0*/               @P3 BRA 0x10 ;
+        /*00d0*/                   EXIT ;
+""".replace("\\\n", "")
+
+
+def test_boids_sass_counts():
+    """The redesigned kernel: the longest basic block is the test block
+    (4 instructions, NOP not counted, over 32 pairs at T=1); a tested
+    chunk walks the cull (not taken), the block and the taken neighbour
+    skip to the loop's tail (9); a culled chunk 5.  The previous kernel:
+    the no-neighbour path over its LDS.128 loads (8 over 2)."""
+    funcs = eval_tiles.parse_sass(BOIDS_SASS)
+    new, old = funcs
+    assert eval_tiles.instance(new) == "boids T=1 cull on pass 1"
+    assert eval_tiles.instance(old, previous=True) == "boids (previous)"
+    rec = eval_tiles.boids_counts(funcs[new], 1)
+    assert rec["test"] == 4 / 32 and rec["pair"] == 9 / 32
+    assert rec["skipped"] == 5 and rec["loop"] == (0x10, 0xb0)
+    rec = eval_tiles.boids_counts(funcs[old])
+    assert rec["pair"] == 4.0 and rec["test"] is None
+    assert rec["loop"] == (0x10, 0xc0)
+    assert eval_tiles.instance(
+        "_ZN12_GLOBAL__N_115allpairs_kernelILi2EEEvPKfS2_Pfiiff") == \
+        "allpairs T=2"
+    assert eval_tiles.instance("_Z15allpairs_kernelPKfS0_Pfiff",
+                               previous=True) == "allpairs (previous)"
