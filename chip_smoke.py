@@ -14,8 +14,8 @@ Morton window, 5a-6d the traversal probes.
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    a fresh nvcc build of every kernel in ``spatialsim_tpu_torch/csrc``
-   (registers and spills of kernels 1-4 by instance), and the SASS
-   instructions a pair of every instance of kernels 1-4
+   (registers and spills of kernels 1-4 and 3b by instance), and the SASS
+   instructions a pair of every instance of kernels 1-4 and 3b
    (``tools/eval_tiles.py``), and of their previous versions when those
    sources lie in ``spatialsim_tpu_torch/_build/parent/`` (git-ignored;
    without them the previous kernels' lines say "not measured");
@@ -116,7 +116,12 @@ Morton window, 5a-6d the traversal probes.
     its CUDA-event times are the kernels' times), then each against its
     own plain version on the K = 0 and K = 8 lists (1e-4 of max|a|),
     pairs a second and the bound over the live far entries; the matrix
-    form's distance from the row form (report, fails above 1e-3);
+    form's distance from the row form (report, fails above 1e-3); then
+    every instance of kernel 3b (T 1, 2, 4, in group order and
+    heavy-first, equal bit for bit) held to its plain version, beside the
+    previous kernel, with its share of the bound, the plan's instance
+    beside the fastest, SASS instructions a pair, the issue-limited time,
+    registers and spills, blocks per SM and waves;
 18. the exact engine: ``NBodySimulation(num_bodies=1_000_000,
     config=NBODY.replace(engine="exact"))``, 5 steps, and its force error
     on 4,096 bodies against the all-pairs kernel's direct sum, beside the
@@ -133,10 +138,15 @@ Morton window, 5a-6d the traversal probes.
     too), every output not 0 but where the probe's own inputs give 0,
     with its bound and the time of one PyTorch call that computes the
     same function where there is one (``embedding_bag`` for the row,
-    block and column-5 reads, ``torch.roll``); then the roll probe and
-    ``torch.roll`` on equal terms: CUDA events over 100 back-to-back
-    calls, the host's enqueue time a call, and their kernels' device time
-    under the profiler.
+    block and column-5 reads, ``torch.roll``); then the roll probe,
+    ``torch.roll`` and the roll probe through the previous launch path
+    (``PreviousRollPath``) on equal terms, in 8 rounds of alternating
+    order (medians compared): CUDA events over 100 back-to-back calls and
+    the host's enqueue time a call; their kernels' device time under the
+    profiler; the launch path's pieces,
+    previous and new, over 10,000 calls each; and the host enqueue time a
+    call of every kernel wrapper at its main-path shape (measured in
+    phases 2, 3, 7, 11, 17 and here).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -174,6 +184,11 @@ BOIDS_STEPS = 96
 TOL_BOIDS = 2e-4       # the JAX package's bar for its kernel vs XLA form
 TOL_BOIDS_COUNTS = 1e-4   # share of boids whose counts may differ
 ROLL_CALLS = 100       # back-to-back calls timing 5e beside torch.roll
+ROLL_ROUNDS = 8        # rounds of those, in alternating order
+SPLIT_CALLS = 10_000   # calls timing each piece of the launch path
+# Kernel wrapper name -> host microseconds a call to enqueue, at its
+# main-path shape (phases 2, 3, 7, 11, 17 and 19).
+ENQUEUE_US = {}
 PRESET_50M = "extreme_50m_galaxy"
 STEPS_50M = 26         # at rebuild interval 24: one rebuild, at step 25
 # H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the tensor
@@ -394,6 +409,9 @@ def check_dense(kernels, label, lists, s_pos, s_mass, near, steps_since,
     got = pick(got)
     abs_err, err = kernel_errors(got, want)
     ms = cuda_ms(lambda: window_eval(*args, **kw), 5)
+    if "window_eval" not in ENQUEUE_US:
+        ENQUEUE_US["window_eval"] = enqueue_us(
+            lambda: window_eval(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: window_eval_reference(*args, groups=groups,
                                                      **kw), 1)
     win, far, nbytes = dense_work(lists, gsz, kw["window_groups"], near)
@@ -435,16 +453,21 @@ def check_dense(kernels, label, lists, s_pos, s_mass, near, steps_since,
 
 
 def report_tiles(label, launch, previous, want, ts, chosen, pairs, b_ms,
-                 ng, occ, sass_new, sass_old, order=None, quad_pairs=0):
+                 ng, occ, sass_new, sass_old, order=None, quad_pairs=0,
+                 sass_of=None, regs_of=None, chosen_order=True):
     """The redesigned kernel at every T in ``ts`` (``launch(T, order)``;
-    ``chosen`` is the table's T), in group order and, with ``order``, heavy
-    groups first (equal bit for bit), each held to the plain version's
-    ``want`` (None: held in another phase); the previous kernel
-    (``previous()``, None without its sources) timed before and after
-    them; resident blocks per SM and waves (``occ(T)``), SASS instructions
-    a pair (``sass_new``/``sass_old``: the tool's entries or None) and the
-    issue-limited time of ``pairs`` at those counts (``quad_pairs`` of
-    them at the quadrupole loop's, the costliest)."""
+    ``chosen`` is the table's T, heavy-first when ``chosen_order``), in
+    group order and, with ``order``, heavy groups first (equal bit for
+    bit), each held to the plain version's ``want`` (None: held in another
+    phase), with its share of the bound ``b_ms``; the table's instance
+    beside the fastest; the previous kernel (``previous()``, None without
+    its sources) timed before and after them; resident blocks per SM and
+    waves (``occ(T)``), SASS instructions a pair (``sass_new``/
+    ``sass_old``: the tool's entries or None) and the issue-limited time
+    of ``pairs`` at those counts (``quad_pairs`` of them at the quadrupole
+    loop's, the costliest); with ``sass_of(T)`` and ``regs_of(T)`` (the
+    tool's SASS entry, and (registers, spill store, spill load bytes) from
+    ptxas), every T's.  Returns ``{instance: ms}``."""
     import torch
     from spatialsim_tpu_torch.tools.eval_tiles import ISSUE_RATE
     res, prev = {}, []
@@ -466,10 +489,15 @@ def report_tiles(label, launch, previous, want, ts, chosen, pairs, b_ms,
             require(torch.equal(ordered, got),
                     f"{label} T={T}: heavy-first differs")
             res[f"T={T} heavy-first"] = cuda_ms(lambda: launch(T, order), 5)
-    table = f"T={chosen}" + (" heavy-first" if order is not None else "")
+    table = f"T={chosen}" + (" heavy-first" if order is not None
+                             and chosen_order else "")
     print(f"    {label}: ms by T: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in res.items())
-          + f" (the table: {table}); bound {b_ms:.4f} ms")
+          + ", ".join(f"{k} {v:.4f} ({b_ms / v:.1%})" for k, v in res.items())
+          + f" (the table: {table}); bound {b_ms:.4f} ms (share in "
+            f"brackets)")
+    best = min(res, key=res.get)
+    print(f"    {label}: the table's {table} {res[table]:.4f} ms, the fastest "
+          f"{best} {res[best]:.4f} ms: {res[table] / res[best] - 1:+.2%}")
     if previous is not None:
         prev.append(cuda_ms(previous, 5))
         err = "" if prev_err is None else f" (max|da|/max|a| {prev_err:.3e})"
@@ -491,10 +519,20 @@ def report_tiles(label, launch, previous, want, ts, chosen, pairs, b_ms,
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for T in ts:
         blocks, regs, threads = occ(T)
+        extra = ""
+        rec = None if sass_of is None else sass_of(T)
+        if rec is not None:
+            extra += (f"; SASS {rec[0]:.3f} instructions a pair, "
+                      f"issue-limited {rec[0] * pairs / ISSUE_RATE * 1e3:.4f}"
+                      f" ms")
+        if regs_of is not None and regs_of(T) is not None:
+            extra += ("; ptxas {} registers, spills {} B stored, {} B "
+                      "loaded").format(*regs_of(T))
         print(f"    {label}: T={T}: {threads} threads a block, {regs} "
               f"registers a thread, {blocks} blocks per SM resident, "
               f"{ng / (blocks * sms):.2f} waves over {ng} groups on {sms} "
-              f"SMs")
+              f"SMs{extra}")
+    return res
 
 
 def check_probes(entries, probes):
@@ -561,6 +599,160 @@ def device_ms(fn, reps):
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def enqueue_us(fn, calls):
+    """Host microseconds a call of ``fn`` takes to return, over ``calls``
+    back-to-back calls after a warm-up and a synchronise (the enqueue: no
+    call synchronises)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def per_call_ns(fn, calls):
+    """Host nanoseconds a call of ``fn`` over ``calls`` calls
+    (``time.perf_counter_ns``), after a warm-up; synchronises after."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    ns = (time.perf_counter_ns() - t) / calls
+    torch.cuda.synchronize()
+    return ns
+
+
+class PreviousRollPath:
+    """The roll probe's wrapper (5e) as it launched before the launch path's
+    redesign, reproduced for phase 19's comparison, piece by piece: the
+    device test and the checks through their former helpers, the library
+    through a ``library()`` call, the stream through a ``torch.cuda.Stream``
+    object, a ``ctypes.CDLL`` call (which lets go of the GIL) and a
+    ``check`` call.  It launches the same kernel of the same library, and
+    counts nothing (it is not a wrapper of the port)."""
+
+    def __init__(self):
+        import ctypes
+        from spatialsim_tpu_torch import _kernels
+        self._kernels = _kernels
+        self.lib = _kernels.bind(ctypes.CDLL(_kernels.build_info["path"]))
+
+    @staticmethod
+    def on_card(fn_name, *tensors):
+        dev = tensors[0].device
+        if any(t.device != dev for t in tensors) or dev.type not in (
+                "cpu", "cuda"):
+            raise ValueError(f"{fn_name}: unsupported devices")
+        return dev.type == "cuda"
+
+    @staticmethod
+    def check(name, t, dtype, shape=None):
+        if t.dtype != dtype or (shape is not None
+                                and tuple(t.shape) != tuple(shape)):
+            raise ValueError(f"{name}: expected {dtype} {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+    def library(self):
+        return self.lib
+
+    @staticmethod
+    def stream_ptr(device):
+        import torch
+        return torch.cuda.current_stream(device).cuda_stream
+
+    def lib_stream(self, t):
+        return self.library(), self.stream_ptr(t.device)
+
+    def __call__(self, x, shift):
+        import torch
+        if not self.on_card("roll", x):
+            raise ValueError("the previous path is timed on the card only")
+        self.check("roll: x", x, torch.float32, (1, 128))
+        out = torch.empty_like(x)
+        lib, st = self.lib_stream(x)
+        self._kernels.check(lib.spatialsim_probe_roll(
+            x.data_ptr(), int(shift), out.data_ptr(), st), "probe_roll")
+        return out
+
+
+def launch_split(x, calls):
+    """Host nanoseconds a call of each piece of the roll probe's launch
+    path, previous and new, and of the whole calls, over ``calls`` calls
+    each (``time.perf_counter_ns``).  A piece's time is less the loop's
+    empty call; the whole calls are as measured.  Returns ``{piece: ns}``."""
+    import ctypes
+    import torch
+    from spatialsim_tpu_torch import _kernels
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    prev = PreviousRollPath()
+    out = torch.empty_like(x)
+    xp, op = x.data_ptr(), out.data_ptr()
+    st = _kernels.stream(x)
+    old_fn, new_fn = prev.lib.spatialsim_probe_roll, (
+        _kernels.entry.spatialsim_probe_roll)
+    f32, shape = torch.float32, (1, tp.ROW)
+    occ_fn = _kernels.entry.spatialsim_allpairs_occupancy
+    pylib = _kernels.bind(ctypes.PyDLL(_kernels.build_info["path"]))
+    py_occ = pylib.spatialsim_allpairs_occupancy
+    raw_occ = pylib["spatialsim_allpairs_occupancy"]
+
+    def new_entry():
+        return _kernels.entry.spatialsim_probe_roll
+    pieces = {
+        "previous: _on_card": lambda: prev.on_card("roll", x),
+        "previous: _check": lambda: prev.check("roll: x", x, f32, shape),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "previous: _kernels.library()": prev.library,
+        "previous: stream_ptr (torch.cuda.current_stream(dev)"
+        ".cuda_stream)": lambda: prev.stream_ptr(x.device),
+        "x.data_ptr()": x.data_ptr,
+        "previous: ctypes.CDLL call (the launch)":
+            lambda: old_fn(xp, 5, op, st),
+        "previous: _kernels.check": lambda: _kernels.check(0, "probe_roll"),
+        "new: x.is_cuda (the device test)": lambda: x.is_cuda,
+        "new: the inline checks": lambda: (
+            x.dtype is not f32 or x.shape != shape
+            or not x.is_contiguous()),
+        "new: _on_card and _check (the other probes' helpers)": lambda: (
+            tp._on_card("roll", x), tp._check("roll: x", x, f32, shape)),
+        "new: _kernels.entry.<name>": new_entry,
+        "new: _kernels.stream(x) (raw stream)": lambda: _kernels.stream(x),
+        "new: the binding's call (METH_FASTCALL; the launch)":
+            lambda: new_fn(xp, 5, op, st),
+        # What a call costs without its launch: an entry point of the same
+        # arity that returns at once (no instance T=0), through the binding,
+        # through ctypes with argument types, previous (CDLL) and with the
+        # GIL kept (PyDLL), and through ctypes without them (small ints
+        # only: a pointer would be cut to 32 bits).
+        "new: the binding's call, 4 arguments, no launch":
+            lambda: occ_fn(0, 0, 0, None),
+        "ctypes.CDLL call, 4 arguments, no launch":
+            lambda: prev.lib.spatialsim_allpairs_occupancy(0, 0, 0, None),
+        "ctypes.PyDLL call, 4 arguments, no launch":
+            lambda: py_occ(0, 0, 0, None),
+        "ctypes.PyDLL call, 4 ints without argument types, no launch":
+            lambda: raw_occ(0, 0, 0, 0),
+        "torch.empty(shape, device=x.device)":
+            lambda: torch.empty(shape, device=x.device),
+        "x.new_empty(shape)": lambda: x.new_empty(shape),
+    }
+    empty = per_call_ns(lambda: None, calls)
+    res = {k: per_call_ns(fn, calls) - empty for k, fn in pieces.items()}
+    for name, fn in (("whole previous path", lambda: prev(x, 5)),
+                     ("whole new path (tp.roll)", lambda: tp.roll(x, 5)),
+                     ("torch.roll", lambda: torch.roll(x, 5, 1))):
+        res[name] = per_call_ns(fn, calls)
+    res["empty call"] = empty
+    return res
 
 
 def timed_steps(step, steps, dt):
@@ -727,10 +919,9 @@ def main() -> int:
         allpairs_accel, allpairs_accel_reference, allpairs_launch,
         allpairs_occupancy, allpairs_plan)
     from spatialsim_tpu_torch.ops.bh_eval_kernel import (
-        dense_launch, heavy_first, occupancy, pool_launch, tile_targets,
-        window_eval,
-        window_eval_cols, window_eval_mxu, window_eval_pool,
-        window_eval_pool_reference)
+        _tile_counts, cols_launch, cols_plan, dense_launch, heavy_first,
+        occupancy, pool_launch, tile_targets, window_eval, window_eval_cols,
+        window_eval_mxu, window_eval_pool, window_eval_pool_reference)
     from spatialsim_tpu_torch.ops import bh_window as bw
     from spatialsim_tpu_torch.ops.barnes_hut import barnes_hut_accel
     from spatialsim_tpu_torch.tools import eval_ab, eval_tiles
@@ -768,15 +959,14 @@ def main() -> int:
     _kernels.library(force_build=True, verbose=True)
     print(f"    kernel build seconds (nvcc, sm_90a): "
           f"{_kernels.build_info['seconds']:.3f}")
-    # Registers of the instances of kernels 1-4; any kernel's spills.
-    fn, label = "", None
-    for line in _kernels.build_info["log"].splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1] if "'" in line else line
-            label = eval_tiles.instance(fn)
-        elif ("spill" in line and "0 bytes spill stores, 0 bytes spill "
-              "loads" not in line) or ("Used" in line and label):
-            print(f"    ptxas [{label or fn}]: " + line.strip())
+    # Registers of the instances of kernels 1-4 and 3b; any kernel's
+    # spills.
+    ptxas = eval_tiles.ptxas_table(_kernels.build_info["log"])
+    for label, (regs, st, ld) in ptxas.items():
+        if label.startswith("_Z") and not st + ld:
+            continue
+        print(f"    ptxas [{label}]: {regs} registers, spills {st} B "
+              f"stored, {ld} B loaded")
     # SASS instructions a pair of the window-eval kernels, and of the
     # previous ones (one thread a target) when their sources are in
     # spatialsim_tpu_torch/_build/parent/.
@@ -827,6 +1017,9 @@ def main() -> int:
             prev_err = kernel_errors(previous(), want)[1]
             prev.append(cuda_ms(previous, 20))
         ms = cuda_ms(lambda: allpairs_accel(pos, mass, *ap_kw), 20)
+        if n == AP_SIZES[0]:
+            ENQUEUE_US["allpairs"] = enqueue_us(
+                lambda: allpairs_accel(pos, mass, *ap_kw), 20)
         plain_ms = cuda_ms(lambda: allpairs_accel_reference(pos, mass,
                                                             *ap_kw), 3)
         # 19 FP32 operations a pair (FMA as 2) and one rsqrt; pos and
@@ -950,6 +1143,9 @@ def main() -> int:
         torch.cuda.synchronize()
         abs_err, err = kernel_errors(got, want)
         ms = cuda_ms(lambda: window_eval_pool(*args, **kw), 10)
+        if ss == 0:
+            ENQUEUE_US["window_eval_pool"] = enqueue_us(
+                lambda: window_eval_pool(*args, **kw), 20)
         plain_ms = cuda_ms(lambda: window_eval_pool_reference(*args, **kw),
                            1)
         print(f"    steps_since={ss}: max|da| = {abs_err:.3e}, "
@@ -1230,6 +1426,9 @@ def main() -> int:
             nb = float(want[13].sum())
             nb_pairs += nb
             k_ms = cuda_ms(lambda: boids_window_accumulate(*args, **kw), 20)
+            if steps == 0 and ps == 1:
+                ENQUEUE_US["boids_window"] = enqueue_us(
+                    lambda: boids_window_accumulate(*args, **kw), 20)
             p_ms = cuda_ms(lambda: bo.window_accumulate_reference(
                 *args, **kw), 10)
             ms, plain_ms = ms + k_ms, plain_ms + p_ms
@@ -1955,13 +2154,50 @@ def main() -> int:
             record_kernel(kernels, name, abs_err, err, ms, plain_ms, ops,
                           nbytes)
             outs[form] = got
+            if form == "cols":
+                want_cols, b_cols = want, b_ms
         _, d_mxu = kernel_errors(outs["mxu"], outs["row"])
         _, d_cols = kernel_errors(outs["cols"], outs["row"])
         print(f"    K={K}: the matrix form differs from the row form by "
               f"{d_mxu:.3e} of max|a| (report; fails above 1e-3), the column "
               f"form by {d_cols:.3e}")
         require(d_mxu <= 1e-3, f"K={K}: mxu vs row {d_mxu}")
-    del ab, lists, s_pos, s_mass, outs, got, want
+        # Kernel 3b: every instance (T, group order or heavy-first) against
+        # the plain version at steps_since 23, beside the previous kernel.
+        args = (s_pos, s_mass, lists.far, lists.far_n, lists.near, 23, DT)
+        ckw = dict(eval_ab.eval_kw(acfg), far_tile=acfg.eval_far_tile)
+        ng, R, L = lists.far.shape
+        tiles = (L, min(acfg.eval_far_tile, L))
+        slots = int(_tile_counts(lists.far_n, *tiles).sum())
+        gsz = acfg.group_size
+        win_pairs = (eval_ab.form_work("cols", lists, acfg)[0]
+                     - int(lists.far_n.long().clamp(0, L).sum()) * gsz)
+        tile_pairs = win_pairs + slots * gsz
+        print(f"    K={K} cols: {tile_pairs:.4e} pairs over whole far tiles "
+              f"(the kernel's work; the bound counts the live entries)")
+        t_plan, heavy_plan = cols_plan(gsz)
+        K_near = 0 if lists.near is None else lists.near.shape[1]
+        report_tiles(
+            f"K={K} cols, steps_since=23",
+            lambda T, order: cols_launch(*args, targets=T, order=order,
+                                         **ckw),
+            (None if not eval_tiles.has_parent(plib, "window_eval_cols")
+             else lambda: eval_tiles.parent_cols(plib, *args, **ckw)),
+            want_cols, (1, 2, 4), t_plan, tile_pairs, b_cols, ng,
+            lambda T: occupancy(gsz, T, R, acfg.window_groups, K_near,
+                                cols=True),
+            sass.get(f"cols R={R} T={t_plan}"),
+            sass_old.get(f"cols R={R} (previous, <=256 threads)"),
+            order=heavy_first(lists.far_n, lists.near, gsz, tiles),
+            chosen_order=heavy_plan,
+            sass_of=lambda T: sass.get(f"cols R={R} T={T}"),
+            regs_of=lambda T: ptxas.get(f"cols R={R} T={T}"))
+        if K == 0:
+            for form in ("cols", "mxu"):
+                ENQUEUE_US[f"window_eval_{form}"] = enqueue_us(
+                    lambda: eval_ab.run_form(form, lists, s_pos, s_mass,
+                                             acfg), 20)
+    del ab, lists, s_pos, s_mass, outs, got, want, want_cols, args
     torch.cuda.empty_cache()
     done(t0)
 
@@ -2036,26 +2272,60 @@ def main() -> int:
     check_probes(entries, probes)
     print("    (latency probes: one warp or thread of one SM, so each sits "
           "far above its bytes-or-operations bound by design)")
+    # Host enqueue a call of every probe wrapper at its tool shape (the
+    # first entry of each kernel).
+    for e in entries:
+        if e["kernel"].__name__ not in ENQUEUE_US:
+            ENQUEUE_US[e["kernel"].__name__] = enqueue_us(e["call"], 20)
     # 5e and torch.roll on equal terms: CUDA events over 100 back-to-back
-    # calls, the host's time a call on its own (enqueue, no synchronise)
-    # and the kernels' own device time under the profiler.
+    # calls and the host's time a call on its own (enqueue, no
+    # synchronise), beside the previous launch path of the same kernel, in
+    # ROLL_ROUNDS rounds of alternating order (the host's pace moves by
+    # tens of percent within a call: the medians are compared); the
+    # kernels' own device time under the profiler once.
     x = tp.lane_row(dev)
-    rolls = {}
-    for name, fn in (("tp.roll", lambda: tp.roll(x, 5)),
-                     ("torch.roll", lambda: torch.roll(x, 5, 1))):
-        ev_ms = cuda_ms(fn, ROLL_CALLS)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(ROLL_CALLS):
-            fn()
-        host_ms = (time.perf_counter() - t) * 1e3 / ROLL_CALLS
-        torch.cuda.synchronize()
-        dev_ms = device_ms(fn, ROLL_CALLS)
-        rolls[name] = ev_ms
-        print(f"    {name}: {ev_ms:.4f} ms a call by CUDA events over "
-              f"{ROLL_CALLS} calls; host {host_ms:.4f} ms a call to "
-              f"enqueue; device {dev_ms:.4f} ms a call in its kernels")
-    probes["roll"].update(ms=rolls["tp.roll"], library_ms=rolls["torch.roll"],
+    prev_roll = PreviousRollPath()
+    paths = (("previous launch path", lambda: prev_roll(x, 5)),
+             ("tp.roll", lambda: tp.roll(x, 5)),
+             ("torch.roll", lambda: torch.roll(x, 5, 1)))
+    require(torch.equal(prev_roll(x, 5), torch.roll(x, 5, 1)),
+            "the previous launch path's roll")
+    for name, fn in paths:
+        print(f"    {name}: device {device_ms(fn, ROLL_CALLS):.4f} ms a call "
+              f"in its kernels (profiler)")
+    rolls = {name: [] for name, _ in paths}
+    for rnd in range(ROLL_ROUNDS):
+        for name, fn in (paths if rnd % 2 == 0 else paths[::-1]):
+            rolls[name].append((cuda_ms(fn, ROLL_CALLS),
+                                enqueue_us(fn, ROLL_CALLS) / 1e3))
+    med = {}
+    for name, v in rolls.items():
+        med[name] = tuple(statistics.median(r[i] for r in v) for i in (0, 1))
+        print(f"    {name}: ms a call by CUDA events over {ROLL_CALLS} calls, "
+              f"then host ms a call to enqueue, by round: "
+              + ", ".join(f"{e:.4f}/{h:.4f}" for e, h in v)
+              + f"; median {med[name][0]:.4f}/{med[name][1]:.4f}")
+    (ev, host), (ev_t, host_t) = med["tp.roll"], med["torch.roll"]
+    wins = sum(a[0] <= b[0] and a[1] <= b[1]
+               for a, b in zip(rolls["tp.roll"], rolls["torch.roll"]))
+    print(f"    5e on equal terms, medians of {ROLL_ROUNDS} rounds: {ev:.4f} "
+          f"ms by events and {host:.4f} ms host against torch.roll's "
+          f"{ev_t:.4f} and {host_t:.4f} ({ev / ev_t:.3f}x, "
+          f"{host / host_t:.3f}x; at or below it on both in {wins} of "
+          f"{ROLL_ROUNDS} rounds); the previous launch path "
+          f"{med['previous launch path'][0]:.4f} and "
+          f"{med['previous launch path'][1]:.4f}")
+    # The launch path piece by piece.
+    split = launch_split(x, SPLIT_CALLS)
+    print(f"    the roll probe's launch path, host ns a call over "
+          f"{SPLIT_CALLS:,} calls (pieces less the empty call's "
+          f"{split['empty call']:.1f} ns):")
+    for name, ns in split.items():
+        print(f"      {ns:9.1f}  {name}")
+    print("    host enqueue a call of every kernel wrapper at its main-path "
+          "shape, us: " + ", ".join(f"{k} {v:.2f}"
+                                   for k, v in ENQUEUE_US.items()))
+    probes["roll"].update(ms=ev, library_ms=ev_t,
                           label=f"roll, {ROLL_CALLS} calls")
     del entries
     torch.cuda.empty_cache()
@@ -2094,6 +2364,8 @@ def main() -> int:
              launches=ab_launches["window_eval_mxu"],
              **kernels["window_eval_mxu"]),
     ]}
+    for rec in summary["kernels"]:
+        rec["host_enqueue_us"] = ENQUEUE_US.get(rec["name"])
     for name, (script, line) in PROBE_KERNELS.items():
         rec = dict(probes[name])
         label = rec.pop("label")
@@ -2101,7 +2373,8 @@ def main() -> int:
             name=f"probe_{name}", route="cuda",
             source=f"{src}/probes_{script}.cu",
             replaces=f"scripts/{script}.py:{line}",
-            launches=probe_launches[name], timed=label, **rec))
+            launches=probe_launches[name], timed=label,
+            host_enqueue_us=ENQUEUE_US.get(name), **rec))
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,164 +15,203 @@
 //     read as stored; the build leaves them zero.
 // Pair law w = m * rsqrt(r2)^3, r2 = |d|^2 + eps^2, gated on r2 > eps^2,
 // as in the row form.  The TPU kernel puts sources on sublanes: source k
-// of every staged block (a window or near group, a far tile) adds into
-// partial sum k mod 8, and the 8 partials are added once at the end of the
-// group.  Here each thread (one target) keeps those 8 accumulator triples
-// in registers, so gsz, L and the tile must be multiples of 8.
+// of every staged block adds into partial sum k mod 8.  Here source k of a
+// staged batch adds into partial k mod 8 (the same partial as in the TPU
+// kernel when gsz / T is a multiple of 8, as the wrapper's plan keeps it),
+// so gsz, L and the tile must be multiples of 8.  The TPU kernel and the
+// plain version add the 8 partials once at the end of the group; here
+// each batch's 8 partials fold into the running sums (the tile's two-level
+// summation, which the float32 sums over ~10K sources need).  The order of
+// the adds differs, the terms do not: the kernel stays within 1e-4 of
+// max|a| of the plain version.
 //
-// What bounds it on this card: arithmetic, as for the row form (~18 FP32
-// operations and one rsqrt a pair; the bodies and the live far entries are
-// read once per group).  The 8 independent accumulator chains are
-// instruction-level parallelism that the row form's single chain lacks.
+// What bounds it on this card: instruction issue, as for the row form
+// (~15 issued instructions and one MUFU.RSQ a pair; the bodies and the
+// far tiles are read once per group, far under the 3.35 TB/s line).
 //
-// Design (window_eval.cu's): one block per group, one thread per target
-// (blockDim == gsz), sources staged through shared memory gsz at a time
-// and read as broadcasts, far entries advanced once on the way in.  Every
-// skipped block is skipped by all threads, so the barriers stay safe.
-// Blocks above 256 threads compile for <= 64 registers.
+// Design (window_eval_tile.cuh, as window_eval.cu): one block per group
+// of gsz / T threads, each holding T targets in registers; one 16-byte
+// broadcast load of a staged source (x, y, z, m) feeds T pairs; r2 one
+// FFMA chain seeded with eps^2; rsqrt as MUFU.RSQ alone; sources staged in
+// batches of one per thread, double-buffered in shared memory behind one
+// barrier a batch, the next batch prefetched into registers; far entries
+// advanced on their way to shared memory; `order` (optional) launches
+// heavy groups first.  The 8 partials are the form's own instruction-level
+// parallelism (8 independent FMA chains a component and target) and its
+// cost in registers: 24 T accumulators a thread (Targets::sum_cols).
 
 #include <cuda_runtime.h>
 
+#include "window_eval_tile.cuh"
+
 namespace {
 
-__device__ __forceinline__ void accumulate_cols(
-    const float* sx, const float* sy, const float* sz, const float* sm,
-    int cnt, float xi, float yi, float zi, float soft_sq, float (&ax)[8],
-    float (&ay)[8], float (&az)[8]) {
-  for (int k = 0; k < cnt; k += 8) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float dx = sx[k + j] - xi;
-      const float dy = sy[k + j] - yi;
-      const float dz = sz[k + j] - zi;
-      const float r2 = dx * dx + dy * dy + dz * dz + soft_sq;
-      const float inv = rsqrtf(r2);
-      const float w = (r2 > soft_sq) ? sm[k + j] * (inv * inv * inv) : 0.f;
-      ax[j] += w * dx;
-      ay[j] += w * dy;
-      az[j] += w * dz;
-    }
-  }
+using window_tile::Targets;
+using window_tile::round_up8;
+
+// Bytes of dynamic shared memory: two buffers of float4 (x, y, z, m), then
+// the source-group list.
+size_t smem_bytes(int nthr, int wg, int K) {
+  return 2 * round_up8(nthr) * sizeof(float4)
+         + (2 * wg + 2 + K) * sizeof(int);
 }
 
-__device__ __forceinline__ float sum8(const float (&a)[8]) {
-  return ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]));
-}
-
-template <int R, int kMaxThreads>
-__global__ void __launch_bounds__(kMaxThreads) window_eval_cols_kernel(
+template <int R, int T>
+__global__ void __launch_bounds__(1024 / T) window_eval_cols_kernel(
     const float* __restrict__ pos, const float* __restrict__ mass,
     const float* __restrict__ far, const int* __restrict__ far_n,
-    const int* __restrict__ near, float* __restrict__ out, int npad, int ng,
-    int wg, int K, int L, int tile, float soft_sq, float G, float tau,
-    float coef2) {
+    const int* __restrict__ near, const int* __restrict__ order,
+    float* __restrict__ out, int npad, int ng, int wg, int K, int L,
+    int tile, float soft_sq, float G, float tau, float coef2) {
   constexpr int kAcc = (R == 10) ? 7 : -1;
-  extern __shared__ float sh[];
-  const int gsz = blockDim.x;
-  float* sx = sh;
-  float* sy = sx + gsz;
-  float* sz = sy + gsz;
-  float* sm = sz + gsz;
+  constexpr int kRaw = 7 + (kAcc >= 0 ? 3 : 0);
+  extern __shared__ float4 sh4[];
+  const int nthr = blockDim.x;
+  const int stride = round_up8(nthr);
+  const int tid = threadIdx.x;
+  const int gsz = nthr * T;
+  const int g = order ? order[blockIdx.x] : blockIdx.x;
+  int* groups = reinterpret_cast<int*>(sh4 + 2 * stride);
 
-  const int g = blockIdx.x;
-  const int i = threadIdx.x;
-  const size_t b = static_cast<size_t>(g) * gsz + i;
-  const float xi = pos[b];
-  const float yi = pos[npad + b];
-  const float zi = pos[2 * static_cast<size_t>(npad) + b];
-  float ax[8], ay[8], az[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) ax[j] = ay[j] = az[j] = 0.f;
-
-  // Near field: the Morton window, then the near groups, one per pass.
-  for (int k = -wg; k <= wg + K; ++k) {
-    const int h = (k <= wg) ? g + k
-                            : near[static_cast<size_t>(g) * K + (k - wg - 1)];
-    if (h < 0 || h >= ng) continue;  // block-uniform
-    const size_t s = static_cast<size_t>(h) * gsz + i;
-    sx[i] = pos[s];
-    sy[i] = pos[npad + s];
-    sz[i] = pos[2 * static_cast<size_t>(npad) + s];
-    sm[i] = mass[s];
-    __syncthreads();
-    accumulate_cols(sx, sy, sz, sm, gsz, xi, yi, zi, soft_sq, ax, ay, az);
-    __syncthreads();
+  // Slots past nthr (when nthr is not a multiple of 8) stay zero.
+  for (int s = nthr + tid; s < 2 * stride; s += nthr) {
+    sh4[s] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-
-  // Far field: whole tiles up to far_n, gsz entries per pass.
-  const int n0 = min(max(far_n[g], 0), L);
-  const int n = min((n0 + tile - 1) / tile * tile, L);
-  const float* fg = far + static_cast<size_t>(g) * R * L;
-  for (int e0 = 0; e0 < n; e0 += gsz) {
-    const int e = e0 + i;
-    if (e < n) {
-      float x = fg[e] + fg[3 * L + e] * tau;
-      float y = fg[L + e] + fg[4 * L + e] * tau;
-      float z = fg[2 * L + e] + fg[5 * L + e] * tau;
-      if constexpr (kAcc >= 0) {
-        x += fg[kAcc * L + e] * coef2;
-        y += fg[(kAcc + 1) * L + e] * coef2;
-        z += fg[(kAcc + 2) * L + e] * coef2;
-      }
-      sx[i] = x;
-      sy[i] = y;
-      sz[i] = z;
-      sm[i] = fg[6 * L + e];
+  // The window groups in range, then the valid near ids.
+  if (tid == 0) {
+    int c = 0;
+    for (int h = max(g - wg, 0); h <= min(g + wg, ng - 1); ++h) {
+      groups[1 + c++] = h;
     }
-    __syncthreads();
-    accumulate_cols(sx, sy, sz, sm, min(gsz, n - e0), xi, yi, zi, soft_sq,
-                    ax, ay, az);
-    __syncthreads();
+    for (int k = 0; k < K; ++k) {
+      const int h = near[static_cast<size_t>(g) * K + k];
+      if (h >= 0 && h < ng) groups[1 + c++] = h;
+    }
+    groups[0] = c;
   }
 
-  out[b] = sum8(ax) * G;
-  out[npad + b] = sum8(ay) * G;
-  out[2 * static_cast<size_t>(npad) + b] = sum8(az) * G;
+  Targets<T> t;
+  const size_t b0 = static_cast<size_t>(g) * gsz + tid;
+  t.load(pos, npad, b0, nthr);
+  const int n0 = min(max(far_n[g], 0), L);
+  const int n = min((n0 + tile - 1) / tile * tile, L);   // whole tiles
+  const float* fg = far + static_cast<size_t>(g) * R * L;
+  __syncthreads();
+  const int n_win = groups[0] * T;                     // window, near batches
+  const int nb = n_win + (n + nthr - 1) / nthr;
+
+  // One source a thread a batch, raw in registers: (x, y, z, m) of a body,
+  // or an entry's rows 0..kRaw-1: com3, vel3, mass (then acc3).
+  float r[kRaw];
+  auto fetch = [&](int b) {
+    if (b < n_win) {
+      const size_t s = static_cast<size_t>(groups[1 + b / T]) * gsz
+                       + (b % T) * nthr + tid;
+      r[0] = pos[s];
+      r[1] = pos[npad + s];
+      r[2] = pos[2 * static_cast<size_t>(npad) + s];
+      r[3] = mass[s];
+    } else {
+      const int e = (b - n_win) * nthr + tid;
+#pragma unroll
+      for (int k = 0; k < kRaw; ++k) {
+        r[k] = e < n ? fg[static_cast<size_t>(k) * L + e] : 0.f;
+      }
+    }
+  };
+  auto stage = [&](int b, int p) {
+    const int s = p * stride + tid;
+    if (b < n_win) {
+      sh4[s] = make_float4(r[0], r[1], r[2], r[3]);
+      return;
+    }
+    float x = r[0] + r[3] * tau;
+    float y = r[1] + r[4] * tau;
+    float z = r[2] + r[5] * tau;
+    if constexpr (kAcc >= 0) {
+      x += r[kAcc] * coef2;
+      y += r[kAcc + 1] * coef2;
+      z += r[kAcc + 2] * coef2;
+    }
+    sh4[s] = make_float4(x, y, z, r[6]);
+  };
+
+  fetch(0);
+  stage(0, 0);
+  __syncthreads();
+  for (int b = 0; b < nb; ++b) {
+    const bool more = b + 1 < nb;
+    if (more) fetch(b + 1);
+    const int p = (b & 1) * stride;
+    const int cnt8 = b < n_win
+        ? stride : round_up8(min(nthr, n - (b - n_win) * nthr));
+    t.sum_cols(sh4 + p, cnt8, soft_sq);
+    if (more) stage(b + 1, (b + 1) & 1);
+    __syncthreads();
+  }
+  t.store(out, npad, b0, nthr, G);
 }
 
-template <int R>
-cudaError_t launch(int gsz, const float* pos, const float* mass,
-                   const float* far, const int* far_n, const int* near,
-                   float* out, int npad, int ng, int wg, int K, int L,
-                   int tile, float soft_sq, float G, float tau, float coef2,
-                   cudaStream_t stream) {
-  const size_t shmem = 4 * gsz * sizeof(float);
-  if (gsz <= 256) {
-    window_eval_cols_kernel<R, 256><<<ng, gsz, shmem, stream>>>(
-        pos, mass, far, far_n, near, out, npad, ng, wg, K, L, tile, soft_sq,
-        G, tau, coef2);
-  } else {
-    window_eval_cols_kernel<R, 1024><<<ng, gsz, shmem, stream>>>(
-        pos, mass, far, far_n, near, out, npad, ng, wg, K, L, tile, soft_sq,
-        G, tau, coef2);
+// Dispatch on (R, T); `op` is called with the kernel instance.
+template <int R, typename Op>
+cudaError_t with_t(int T, Op op) {
+  switch (T) {
+    case 1: return op(window_eval_cols_kernel<R, 1>);
+    case 2: return op(window_eval_cols_kernel<R, 2>);
+    default: return op(window_eval_cols_kernel<R, 4>);
   }
-  return cudaGetLastError();
+}
+
+template <typename Op>
+cudaError_t with_rt(int R, int T, Op op) {
+  switch (R) {
+    case 8: return with_t<8>(T, op);
+    case 10: return with_t<10>(T, op);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// T in {1, 2, 4} dividing gsz; gsz a multiple of 8.
+bool valid(int gsz, int T, int wg, int K) {
+  return gsz >= 8 && gsz <= 1024 && gsz % 8 == 0 && wg >= 0 && K >= 0
+         && (T == 1 || T == 2 || T == 4) && gsz % T == 0;
 }
 
 }  // namespace
 
 extern "C" int spatialsim_window_eval_cols(
     const float* pos, const float* mass, const float* far, const int* far_n,
-    const int* near, float* out, int npad, int ng, int gsz, int wg, int K,
-    int R, int L, int tile, float soft_sq, float G, float tau, float coef2,
-    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gsz < 8 || gsz > 1024 || gsz % 8 || L % 8 || tile < 8 || tile % 8 ||
-      K < 0 || (K > 0 && near == nullptr)) {
+    const int* near, const int* order, float* out, int npad, int ng, int gsz,
+    int T, int wg, int K, int R, int L, int tile, float soft_sq, float G,
+    float tau, float coef2, void* stream) {
+  if (!valid(gsz, T, wg, K) || L % 8 || tile < 8 || tile % 8
+      || (K > 0 && near == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err;
-  switch (R) {
-    case 8:
-      err = launch<8>(gsz, pos, mass, far, far_n, near, out, npad, ng, wg, K,
-                      L, tile, soft_sq, G, tau, coef2, s);
-      break;
-    case 10:
-      err = launch<10>(gsz, pos, mass, far, far_n, near, out, npad, ng, wg,
-                       K, L, tile, soft_sq, G, tau, coef2, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  const int nthr = gsz / T;
+  const size_t smem = smem_bytes(nthr, wg, K);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_rt(R, T, [&](auto kernel) {
+    const cudaError_t err = window_tile::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<ng, nthr, smem, s>>>(pos, mass, far, far_n, near, order, out,
+                                  npad, ng, wg, K, L, tile, soft_sq, G, tau,
+                                  coef2);
+    return cudaGetLastError();
+  }));
+}
+
+// Resident blocks per SM, registers a thread and threads of a launch at
+// (R, gsz, T) with window and near sizes (wg, K), into out[0..2].
+extern "C" int spatialsim_window_eval_cols_occupancy(int R, int gsz, int T,
+                                                     int wg, int K,
+                                                     int* out) {
+  if (!valid(gsz, T, wg, K)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  const int nthr = gsz / T;
+  const size_t smem = smem_bytes(nthr, wg, K);
+  return static_cast<int>(with_rt(R, T, [&](auto kernel) {
+    return window_tile::occupancy(kernel, nthr, smem, out);
+  }));
 }

@@ -1,7 +1,7 @@
 // Register tiles of targets for the window-eval kernels
-// (window_eval_pool.cu, window_eval.cu), for Hopper (sm_90a).  The
-// all-pairs kernel (allpairs.cu) shares rsqrt_mufu, and it and the boids
-// kernel (boids_window.cu) share allow_smem and occupancy.
+// (window_eval_pool.cu, window_eval.cu, window_eval_cols.cu), for Hopper
+// (sm_90a).  The all-pairs kernel (allpairs.cu) shares rsqrt_mufu, and it
+// and the boids kernel (boids_window.cu) share allow_smem and occupancy.
 //
 // What bounds those kernels on this card is instruction issue: a pair
 // costs ~15 FP32 instructions and one MUFU.RSQ, while the bytes they read
@@ -100,6 +100,51 @@ struct Targets {
       ay[j] += ty[j];
       az[j] += tz[j];
     }
+  }
+
+  // The column form's monopole sums (window_eval_cols.cu): the pairs of
+  // sum_mono, with source u of every run of 8 adding into partial u, so
+  // each target and component carries 8 independent FMA chains (24 T
+  // accumulators a thread).  The batch's 8 partials fold into the running
+  // sums in a fixed tree, ((0+1)+(2+3))+((4+5)+(6+7)).
+  __device__ __forceinline__ void sum_cols(const float4* __restrict__ s,
+                                           int cnt8, float soft_sq) {
+    float px[8][T], py[8][T], pz[8][T];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+#pragma unroll
+      for (int j = 0; j < T; ++j) px[u][j] = py[u][j] = pz[u][j] = 0.f;
+    }
+    for (int k = 0; k < cnt8; k += 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float4 src = s[k + u];
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+          const float dx = src.x - x[j];
+          const float dy = src.y - y[j];
+          const float dz = src.z - z[j];
+          const float r2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, soft_sq)));
+          const float inv = rsqrt_mufu(r2);
+          const float w = (r2 > soft_sq) ? src.w * (inv * inv * inv) : 0.f;
+          px[u][j] = fmaf(w, dx, px[u][j]);
+          py[u][j] = fmaf(w, dy, py[u][j]);
+          pz[u][j] = fmaf(w, dz, pz[u][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      ax[j] += sum8(px, j);
+      ay[j] += sum8(py, j);
+      az[j] += sum8(pz, j);
+    }
+  }
+
+  static __device__ __forceinline__ float sum8(const float (&p)[8][T],
+                                               int j) {
+    return ((p[0][j] + p[1][j]) + (p[2][j] + p[3][j]))
+           + ((p[4][j] + p[5][j]) + (p[6][j] + p[7][j]));
   }
 
   // Monopole + traceless-quadrupole pairs (_pair_accum_quad): a += m d/r^3

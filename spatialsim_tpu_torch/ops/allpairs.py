@@ -168,12 +168,12 @@ def allpairs_launch(pos, mass, G, softening, *, threads, targets, slices):
         raise ValueError(f"allpairs_accel: no instance threads={threads} "
                          f"T={targets} S={slices}")
     out = torch.empty_like(pos)
-    lib = _kernels.library()
-    err = lib.spatialsim_allpairs(
+    err = _kernels.entry.spatialsim_allpairs(
         pos.data_ptr(), mass.data_ptr(), out.data_ptr(), n, float(G),
         float(softening) ** 2, int(threads), int(targets), int(slices),
-        _kernels.stream_ptr(pos.device))
-    _kernels.check(err, "allpairs")
+        _kernels.stream(pos))
+    if err:
+        _kernels.fail(err, "allpairs")
     allpairs_accel.launches += 1
     return out
 
@@ -187,7 +187,7 @@ def allpairs_occupancy(threads, targets, slices):
     alone; a cluster also needs its S blocks on neighbouring SMs)."""
     import ctypes
     out = (ctypes.c_int * 3)()
-    err = _kernels.library().spatialsim_allpairs_occupancy(
-        int(threads), int(targets), int(slices), out)
+    err = _kernels.entry.spatialsim_allpairs_occupancy(
+        int(threads), int(targets), int(slices), ctypes.addressof(out))
     _kernels.check(err, "allpairs occupancy")
     return tuple(out)

@@ -31,11 +31,12 @@ d/r^7``.  G multiplies once at the end.  Two far layouts:
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version for CPU tensors.  The plain versions chunk over groups (a
 ``(ng, 256, 6144)`` pair tensor at 1M bodies would not fit).  The pooled
-and the dense row-form kernels hold T targets a thread
+kernel and the dense row and column kernels hold T targets a thread
 (``csrc/window_eval_tile.cuh``) and launch heavy groups first:
-:func:`tile_targets` picks T from a fixed table, :func:`heavy_first` the
-block order, and :func:`pool_launch` / :func:`dense_launch` take both
-explicitly, for the card tests and ``chip_smoke.py``'s comparisons.
+:func:`tile_targets` (row forms) and :func:`cols_plan` pick T from fixed
+tables, :func:`heavy_first` the block order, and :func:`pool_launch` /
+:func:`dense_launch` / :func:`cols_launch` take both explicitly, for the
+card tests and ``chip_smoke.py``'s comparisons.
 """
 
 from __future__ import annotations
@@ -159,12 +160,14 @@ def tile_targets(group_size: int, rows: int = 8) -> int:
     return t
 
 
-def heavy_first(far_n, near=None, group_size=0):
-    """Group ids by their sources, most first (ties by id): far_n, plus
-    ``group_size`` for each near id in range.  The launch order that puts
-    the longest blocks in the first wave, so none of them is left to run
-    alone at the end."""
-    work = far_n.to(torch.int64)
+def heavy_first(far_n, near=None, group_size=0, tiles=None):
+    """Group ids by their sources, most first (ties by id): far_n (with
+    ``tiles = (L, tile)``, rounded up to whole tiles and capped at L, as
+    the column kernel reads them), plus ``group_size`` for each near id in
+    range.  The launch order that puts the longest blocks in the first
+    wave, so none of them is left to run alone at the end."""
+    work = (far_n.to(torch.int64) if tiles is None
+            else _tile_counts(far_n, *tiles))
     if near is not None:
         ng = far_n.shape[0]
         work = work + group_size * ((near >= 0) & (near < ng)).sum(1)
@@ -179,13 +182,13 @@ class _OrderCache:
     def __init__(self):
         self.refs, self.key, self.order = (None, None), None, None
 
-    def __call__(self, far_n, near=None, group_size=0):
+    def __call__(self, far_n, near=None, group_size=0, tiles=None):
         tensors = (far_n, near)
         key = tuple(None if t is None else t._version for t in tensors) + (
-            group_size,)
+            group_size, tiles)
         if self.key != key or any((r() if r else None) is not t
                                   for r, t in zip(self.refs, tensors)):
-            self.order = heavy_first(far_n, near, group_size)
+            self.order = heavy_first(far_n, near, group_size, tiles)
             self.refs = tuple(None if t is None else weakref.ref(t)
                               for t in tensors)
             self.key = key
@@ -251,13 +254,14 @@ def pool_launch(s_pos, s_mass, pool, pstart, far_n, steps_since, dt, *, G,
         _check("order", order, (ng,), torch.int32, dev)
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     out = torch.empty_like(s_pos)
-    err = _kernels.library().spatialsim_window_eval_pool(
+    err = _kernels.entry.spatialsim_window_eval_pool(
         s_pos.data_ptr(), s_mass.data_ptr(), pool.data_ptr(),
         pstart.data_ptr(), far_n.data_ptr(),
         None if order is None else order.data_ptr(), out.data_ptr(), npad,
         ng, gsz, int(targets), int(window_groups), ct, tile,
-        float(softening) ** 2, float(G), tau, coef2, _kernels.stream_ptr(dev))
-    _kernels.check(err, "window_eval_pool")
+        float(softening) ** 2, float(G), tau, coef2, _kernels.stream(s_pos))
+    if err:
+        _kernels.fail(err, "window_eval_pool")
     window_eval_pool.launches += 1
     return out
 
@@ -616,39 +620,19 @@ def dense_launch(s_pos, s_mass, far, far_n, near, steps_since, dt, *, G,
         _check("order", order, (ng,), torch.int32, s_pos.device)
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     out = torch.empty_like(s_pos)
-    err = _kernels.library().spatialsim_window_eval(
+    err = _kernels.entry.spatialsim_window_eval(
         s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
         far_n.data_ptr(), near.data_ptr() if K else None,
         None if order is None else order.data_ptr(), out.data_ptr(), npad,
         ng, gsz, int(targets), int(window_groups), K, R, L,
-        float(softening) ** 2, float(G), tau, coef2,
-        _kernels.stream_ptr(s_pos.device))
-    _kernels.check(err, "window_eval")
+        float(softening) ** 2, float(G), tau, coef2, _kernels.stream(s_pos))
+    if err:
+        _kernels.fail(err, "window_eval")
     window_eval.launches += 1
     return out
 
 
 window_eval.launches = 0
-
-
-def _launch_form(name, fn, s_pos, s_mass, far, far_n, near, steps_since,
-                 dt, G, softening, group_size, window_groups, tau_clamp,
-                 far_tile):
-    """Launch the column or matrix kernel ``fn`` on checked inputs."""
-    npad, ng, gsz, K, R, L = _dense_args(name, s_pos, s_mass, far, far_n,
-                                         near, group_size, (8, 10))
-    tile = min(int(far_tile), L)
-    if tile < 1:
-        raise ValueError(f"{name}: far_tile {far_tile} must be >= 1")
-    tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
-    out = torch.empty_like(s_pos)
-    err = fn(s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
-             far_n.data_ptr(), near.data_ptr() if K else None,
-             out.data_ptr(), npad, ng, gsz, int(window_groups), K, R, L, tile,
-             float(softening) ** 2, float(G), tau, coef2,
-             _kernels.stream_ptr(s_pos.device))
-    _kernels.check(err, name)
-    return out
 
 
 def window_eval_cols(s_pos, s_mass, far, far_n, near=None, steps_since=0,
@@ -657,9 +641,11 @@ def window_eval_cols(s_pos, s_mass, far, far_n, near=None, steps_since=0,
     """The column form through ``csrc/window_eval_cols.cu``.
 
     Same arguments and result as :func:`window_eval_cols_reference`, which
-    CPU tensors take.  CUDA tensors launch the kernel -- one block of
-    ``group_size`` threads per group, 8 partial sums a thread -- on the
-    current stream without synchronising, and add one to
+    CPU tensors take.  CUDA tensors launch the kernel's instance that
+    :func:`cols_plan` picks -- one block of ``group_size / T`` threads per
+    group, T targets a thread, 8 partial sums a target, heavy groups first
+    where the plan says so (sorted once per lists) -- on the current
+    stream without synchronising, and add one to
     ``window_eval_cols.launches``.
     """
     if s_pos.device.type == "cpu":
@@ -668,12 +654,56 @@ def window_eval_cols(s_pos, s_mass, far, far_n, near=None, steps_since=0,
             softening=softening, group_size=group_size,
             window_groups=window_groups, tau_clamp=tau_clamp,
             far_tile=far_tile)
-    _check_cols(far.shape[2], int(group_size), far_tile)
-    out = _launch_form("window_eval_cols",
-                       _kernels.library().spatialsim_window_eval_cols, s_pos,
-                       s_mass, far, far_n, near, steps_since, dt, G,
-                       softening, group_size, window_groups, tau_clamp,
-                       far_tile)
+    T, heavy = cols_plan(group_size)
+    order = (_cols_order(far_n, near, int(group_size),
+                         (far.shape[2], int(far_tile))) if heavy else None)
+    return cols_launch(s_pos, s_mass, far, far_n, near, steps_since, dt,
+                       G=G, softening=softening, group_size=group_size,
+                       window_groups=window_groups, tau_clamp=tau_clamp,
+                       far_tile=far_tile, targets=T, order=order)
+
+
+# The column kernel's instance by group size: (T, heavy groups first).
+# Chosen by timing T 1, 2 and 4, in group order and heavy-first, on an
+# H100 at the A/B tool's 1M lists (PERF.md, kernel 3b).
+_COLS_PLAN = {256: (2, True)}
+_cols_order = _OrderCache()
+
+
+def cols_plan(group_size: int):
+    """(T, heavy-first?) of the column kernel at ``group_size`` (a
+    multiple of 8): the table's entry, else (2, True), with T halved until
+    ``group_size / T`` is a multiple of 8, so that source k of a staged
+    batch is source k of its block mod 8, the TPU kernel's partial."""
+    T, heavy = _COLS_PLAN.get(int(group_size), (2, True))
+    while T > 1 and group_size % (8 * T):
+        T //= 2
+    return T, heavy
+
+
+def cols_launch(s_pos, s_mass, far, far_n, near, steps_since, dt, *, G,
+                softening, group_size, window_groups, tau_clamp, far_tile,
+                targets, order=None):
+    """Launch ``csrc/window_eval_cols.cu`` with ``targets`` (T) targets a
+    thread and blocks in ``order`` (int32 group ids; None: group i is block
+    i) on checked CUDA inputs; adds one to ``window_eval_cols.launches``."""
+    npad, ng, gsz, K, R, L = _dense_args("window_eval_cols", s_pos, s_mass,
+                                         far, far_n, near, group_size,
+                                         (8, 10))
+    _check_cols(L, gsz, far_tile)
+    if order is not None:
+        _check("order", order, (ng,), torch.int32, s_pos.device)
+    tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
+    out = torch.empty_like(s_pos)
+    err = _kernels.entry.spatialsim_window_eval_cols(
+        s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
+        far_n.data_ptr(), near.data_ptr() if K else None,
+        None if order is None else order.data_ptr(), out.data_ptr(), npad,
+        ng, gsz, int(targets), int(window_groups), K, R, L,
+        min(int(far_tile), L), float(softening) ** 2, float(G), tau, coef2,
+        _kernels.stream(s_pos))
+    if err:
+        _kernels.fail(err, "window_eval_cols")
     window_eval_cols.launches += 1
     return out
 
@@ -701,11 +731,21 @@ def window_eval_mxu(s_pos, s_mass, far, far_n, near=None, steps_since=0,
     if int(group_size) % 32:
         raise ValueError(f"window_eval_mxu: group_size {group_size} must be "
                          f"a multiple of 32 (the centre's warp reduction)")
-    out = _launch_form("window_eval_mxu",
-                       _kernels.library().spatialsim_window_eval_mxu, s_pos,
-                       s_mass, far, far_n, near, steps_since, dt, G,
-                       softening, group_size, window_groups, tau_clamp,
-                       far_tile)
+    npad, ng, gsz, K, R, L = _dense_args("window_eval_mxu", s_pos, s_mass,
+                                         far, far_n, near, group_size,
+                                         (8, 10))
+    tile = min(int(far_tile), L)
+    if tile < 1:
+        raise ValueError(f"window_eval_mxu: far_tile {far_tile} must be >= 1")
+    tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
+    out = torch.empty_like(s_pos)
+    err = _kernels.entry.spatialsim_window_eval_mxu(
+        s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
+        far_n.data_ptr(), near.data_ptr() if K else None, out.data_ptr(),
+        npad, ng, gsz, int(window_groups), K, R, L, tile,
+        float(softening) ** 2, float(G), tau, coef2, _kernels.stream(s_pos))
+    if err:
+        _kernels.fail(err, "window_eval_mxu")
     window_eval_mxu.launches += 1
     return out
 
@@ -713,19 +753,22 @@ def window_eval_mxu(s_pos, s_mass, far, far_n, near=None, steps_since=0,
 window_eval_mxu.launches = 0
 
 
-def occupancy(group_size, targets, rows=None, window_groups=0, K=0):
+def occupancy(group_size, targets, rows=None, window_groups=0, K=0,
+              cols=False):
     """(resident blocks per SM, registers a thread, threads a block) of the
-    pooled kernel (``rows`` None) or of the dense row-form kernel at
-    ``rows``, as the card's occupancy calculator gives them."""
+    pooled kernel (``rows`` None), of the dense row-form kernel at
+    ``rows`` or, with ``cols``, of the column kernel at ``rows``, as the
+    card's occupancy calculator gives them."""
     import ctypes
     out = (ctypes.c_int * 3)()
-    lib = _kernels.library()
+    entry = _kernels.entry
     if rows is None:
-        err = lib.spatialsim_window_eval_pool_occupancy(
-            int(group_size), int(targets), out)
+        err = entry.spatialsim_window_eval_pool_occupancy(
+            int(group_size), int(targets), ctypes.addressof(out))
     else:
-        err = lib.spatialsim_window_eval_occupancy(
+        err = (entry.spatialsim_window_eval_cols_occupancy if cols
+               else entry.spatialsim_window_eval_occupancy)(
             int(rows), int(group_size), int(targets), int(window_groups),
-            int(K), out)
+            int(K), ctypes.addressof(out))
     _kernels.check(err, "occupancy")
     return tuple(out)

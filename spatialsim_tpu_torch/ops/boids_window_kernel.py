@@ -102,13 +102,14 @@ def boids_window_launch(s_pos, s_vel, s_col, s_grpf=None, *, gsz, wg,
         _check("s_grpf", s_grpf, (npad,))
     out = torch.empty((ACC_ROWS, npad), dtype=torch.float32,
                       device=s_pos.device)
-    err = _kernels.library().spatialsim_boids_window(
+    err = _kernels.entry.spatialsim_boids_window(
         s_pos.data_ptr(), s_vel.data_ptr(), s_col.data_ptr(),
         None if s_grpf is None else s_grpf.data_ptr(), out.data_ptr(),
         npad, gsz, wg, float(perception_sq), float(separation_sq),
         float(prev_wg if prev_wg is not None else wg), int(targets),
-        int(bool(cull)), _kernels.stream_ptr(s_pos.device))
-    _kernels.check(err, "boids_window")
+        int(bool(cull)), _kernels.stream(s_pos))
+    if err:
+        _kernels.fail(err, "boids_window")
     boids_window_accumulate.launches += 1
     return out
 
@@ -121,8 +122,9 @@ def boids_occupancy(gsz, targets, cull=True, dedup=False):
     instance, as the card's occupancy calculator gives them."""
     import ctypes
     out = (ctypes.c_int * 3)()
-    err = _kernels.library().spatialsim_boids_window_occupancy(
-        int(gsz), int(targets), int(bool(cull)), int(bool(dedup)), out)
+    err = _kernels.entry.spatialsim_boids_window_occupancy(
+        int(gsz), int(targets), int(bool(cull)), int(bool(dedup)),
+        ctypes.addressof(out))
     _kernels.check(err, "boids_window occupancy")
     return tuple(out)
 

@@ -112,23 +112,26 @@ def _i32(x: int) -> int:
 
 
 def _check(name, t, dtype, shape=None):
-    if t.dtype != dtype or (shape is not None
-                            and tuple(t.shape) != tuple(shape)):
-        raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    if (t.dtype != dtype or (shape is not None and t.shape != shape)
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous {dtype} "
+                         f"{shape or ''}, got {t.dtype} {tuple(t.shape)}, "
+                         f"contiguous: {t.is_contiguous()}")
 
 
-def _on_card(fn_name, *tensors) -> bool:
+def _on_card(fn_name, x, *others) -> bool:
     """True for CUDA inputs (launch the kernel), False for CPU ones (take
     the plain version); raises on anything else or on mixed devices."""
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors) or dev.type not in ("cpu",
-                                                                 "cuda"):
-        raise ValueError(f"{fn_name}: unsupported devices "
-                         f"{[str(t.device) for t in tensors]}")
-    return dev.type == "cuda"
+    if not others and x.is_cuda:
+        return True
+    dev = x.device
+    if all(t.device == dev for t in others):
+        if dev.type == "cuda":
+            return True
+        if dev.type == "cpu":
+            return False
+    raise ValueError(f"{fn_name}: unsupported devices "
+                     f"{[str(t.device) for t in (x, *others)]}")
 
 
 def _table_args(fn_name, tree, idx):
@@ -139,10 +142,6 @@ def _table_args(fn_name, tree, idx):
     _check(f"{fn_name}: idx", idx, torch.int32)
     if idx.dim() != 1:
         raise ValueError(f"{fn_name}: idx must be 1-D")
-
-
-def _lib_stream(t):
-    return _kernels.library(), _kernels.stream_ptr(t.device)
 
 
 def _host(t) -> np.ndarray:
@@ -202,11 +201,10 @@ def row_reads(tree, idx, reps, width=1, *, chained=False, where="global"):
             f"exceeds the {smem_optin_bytes(tree.device)} B of shared "
             f"memory a block can opt in to")
     out = torch.empty((1, ROW), dtype=torch.float32, device=tree.device)
-    lib, st = _lib_stream(tree)
-    _kernels.check(lib.spatialsim_probe_row_reads(
+    _kernels.check(_kernels.entry.spatialsim_probe_row_reads(
         tree.data_ptr(), idx.data_ptr(), out.data_ptr(), n_cells,
-        idx.shape[0], int(reps), int(width), int(chained), int(shared), st),
-        "probe_row_reads")
+        idx.shape[0], int(reps), int(width), int(chained), int(shared),
+        _kernels.stream(tree)), "probe_row_reads")
     row_reads.launches += 1
     return out
 
@@ -237,10 +235,10 @@ def block_read(tree, idx, reps, *, chained=False):
         return block_read_reference(tree, idx, reps)
     _table_args("block_read", tree, idx)
     out = torch.empty((1, ROW), dtype=torch.float32, device=tree.device)
-    lib, st = _lib_stream(tree)
-    _kernels.check(lib.spatialsim_probe_block_read(
+    _kernels.check(_kernels.entry.spatialsim_probe_block_read(
         tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-        int(reps), int(chained), st), "probe_block_read")
+        int(reps), int(chained), _kernels.stream(tree)),
+        "probe_block_read")
     block_read.launches += 1
     return out
 
@@ -286,10 +284,9 @@ def reduce_roundtrip(x, n_ops, reps, batch=1):
         return reduce_roundtrip_reference(x, n_ops, reps, batch)
     _check("reduce_roundtrip: x", x, torch.float32, (1, ROW))
     out = torch.empty((1, 1), dtype=torch.float32, device=x.device)
-    lib, st = _lib_stream(x)
-    _kernels.check(lib.spatialsim_probe_reduce_roundtrip(
-        x.data_ptr(), out.data_ptr(), int(n_ops), int(reps), int(batch), st),
-        "probe_reduce_roundtrip")
+    _kernels.check(_kernels.entry.spatialsim_probe_reduce_roundtrip(
+        x.data_ptr(), out.data_ptr(), int(n_ops), int(reps), int(batch),
+        _kernels.stream(x)), "probe_reduce_roundtrip")
     reduce_roundtrip.launches += 1
     return out
 
@@ -319,10 +316,9 @@ def row_write(tree, idx, reps):
     _table_args("row_write", tree, idx)
     scr = torch.zeros_like(tree)
     out = torch.empty((1, ROW), dtype=torch.float32, device=tree.device)
-    lib, st = _lib_stream(tree)
-    _kernels.check(lib.spatialsim_probe_row_write(
+    _kernels.check(_kernels.entry.spatialsim_probe_row_write(
         tree.data_ptr(), idx.data_ptr(), scr.data_ptr(), out.data_ptr(),
-        idx.shape[0], int(reps), st), "probe_row_write")
+        idx.shape[0], int(reps), _kernels.stream(tree)), "probe_row_write")
     row_write.launches += 1
     return out, scr
 
@@ -341,16 +337,25 @@ def roll_reference(x, shift):
     return torch.roll(x, int(shift), 1)
 
 
+_ROW_SHAPE = (1, ROW)
+
+
 def roll(x, shift):
     """5e: ``torch.roll(x, shift, 1)`` of a (1, 128) row, the shift a
-    run-time argument: register selects and one shuffle per component."""
-    if not _on_card("roll", x):
+    run-time argument: register selects and one shuffle per component.
+    Its kernel runs ~1 us, so its launch path is what a call costs: the
+    checks are inlined on the card's path."""
+    if not x.is_cuda:
+        _on_card("roll", x)                    # the CPU, or raises
         return roll_reference(x, shift)
-    _check("roll: x", x, torch.float32, (1, ROW))
+    if (x.dtype is not torch.float32 or x.shape != _ROW_SHAPE
+            or not x.is_contiguous()):
+        _check("roll: x", x, torch.float32, _ROW_SHAPE)
     out = torch.empty_like(x)
-    lib, st = _lib_stream(x)
-    _kernels.check(lib.spatialsim_probe_roll(
-        x.data_ptr(), int(shift), out.data_ptr(), st), "probe_roll")
+    err = _kernels.entry.spatialsim_probe_roll(
+        x.data_ptr(), int(shift), out.data_ptr(), _kernels.stream(x))
+    if err:
+        _kernels.fail(err, "probe_roll")
     roll.launches += 1
     return out
 
@@ -382,10 +387,10 @@ def scalar_load_dyn_dyn_reference(tree, idx, reps):
 def _scalar_load(name, counter, dyn_lane, tree, idx, reps, chained):
     _table_args(name, tree, idx)
     out = torch.empty((1, 1), dtype=torch.float32, device=tree.device)
-    lib, st = _lib_stream(tree)
-    _kernels.check(lib.spatialsim_probe_scalar_load(
+    _kernels.check(_kernels.entry.spatialsim_probe_scalar_load(
         tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-        int(reps), int(dyn_lane), int(chained), st), f"probe_{name}")
+        int(reps), int(dyn_lane), int(chained), _kernels.stream(tree)),
+        f"probe_{name}")
     counter.launches += 1
     return out
 
@@ -441,10 +446,10 @@ def extract8(tree, idx, reps, *, use_roll=True, chained=False):
         return extract8_reference(tree, idx, reps)
     _table_args("extract8", tree, idx)
     out = torch.empty((1, 1), dtype=torch.float32, device=tree.device)
-    lib, st = _lib_stream(tree)
-    _kernels.check(lib.spatialsim_probe_extract8(
+    _kernels.check(_kernels.entry.spatialsim_probe_extract8(
         tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-        int(reps), int(use_roll), int(chained), st), "probe_extract8")
+        int(reps), int(use_roll), int(chained), _kernels.stream(tree)),
+        "probe_extract8")
     extract8.launches += 1
     return out
 
@@ -494,10 +499,9 @@ def smem_table(idx4, n_i32, n_ops=4096, reps=20, *, where="shared"):
     gtable = torch.zeros(0 if shared else n_i32, dtype=torch.int32,
                          device=idx4.device)
     out = torch.empty((1, 1), dtype=torch.int32, device=idx4.device)
-    lib, st = _lib_stream(idx4)
-    _kernels.check(lib.spatialsim_probe_smem_table(
+    _kernels.check(_kernels.entry.spatialsim_probe_smem_table(
         idx4.data_ptr(), gtable.data_ptr(), out.data_ptr(), int(n_i32),
-        int(n_ops), int(reps), int(shared), st),
+        int(n_ops), int(reps), int(shared), _kernels.stream(idx4)),
         "probe_smem_table")
     smem_table.launches += 1
     return out
@@ -537,10 +541,9 @@ def gated_reduce(x, gate_frac_pct, n_ops=4096, reps=20):
         return gated_reduce_reference(x, gate_frac_pct, n_ops, reps)
     _check("gated_reduce: x", x, torch.float32, (1, ROW))
     out = torch.empty((1, 1), dtype=torch.int32, device=x.device)
-    lib, st = _lib_stream(x)
-    _kernels.check(lib.spatialsim_probe_gated_reduce(
+    _kernels.check(_kernels.entry.spatialsim_probe_gated_reduce(
         x.data_ptr(), out.data_ptr(), int(gate_frac_pct), int(n_ops),
-        int(reps), st), "probe_gated_reduce")
+        int(reps), _kernels.stream(x)), "probe_gated_reduce")
     gated_reduce.launches += 1
     return out
 
@@ -576,10 +579,9 @@ def row_store(idx, n_cells, reps=20):
     _check("row_store: idx", idx, torch.int32)
     scr = torch.zeros((n_cells, ROW), dtype=torch.float32, device=idx.device)
     out = torch.empty((1, ROW), dtype=torch.float32, device=idx.device)
-    lib, st = _lib_stream(idx)
-    _kernels.check(lib.spatialsim_probe_row_store(
+    _kernels.check(_kernels.entry.spatialsim_probe_row_store(
         idx.data_ptr(), scr.data_ptr(), out.data_ptr(), idx.shape[0],
-        int(reps), st), "probe_row_store")
+        int(reps), _kernels.stream(idx)), "probe_row_store")
     row_store.launches += 1
     return out, scr
 
@@ -658,10 +660,9 @@ def iteration_core(tree, idx, k_runs, n_iters=2048, reps=10):
         return iteration_core_reference(tree, idx, k_runs, n_iters, reps)
     _table_args("iteration_core", tree, idx)
     out = torch.empty((1, 1), dtype=torch.int32, device=tree.device)
-    lib, st = _lib_stream(tree)
-    _kernels.check(lib.spatialsim_probe_iteration_core(
+    _kernels.check(_kernels.entry.spatialsim_probe_iteration_core(
         tree.data_ptr(), idx.data_ptr(), out.data_ptr(), tree.shape[0],
-        int(k_runs), int(n_iters), int(reps), st),
+        int(k_runs), int(n_iters), int(reps), _kernels.stream(tree)),
         "probe_iteration_core")
     iteration_core.launches += 1
     return out

@@ -5,11 +5,12 @@ card, and the previous kernels that ``chip_smoke.py`` times beside them.
 
 builds the kernel library, prints the SASS instructions a pair of every
 instance of ``csrc/window_eval_pool.cu``, ``csrc/window_eval.cu``,
-``csrc/allpairs.cu`` and ``csrc/boids_window.cu`` (and of the previous
+``csrc/window_eval_cols.cu``, ``csrc/allpairs.cu`` and
+``csrc/boids_window.cu`` (and of the previous
 versions whose sources lie in ``_build/parent/``: ``PARENT_SIGNATURES``
 names them), and with ``--sass-out`` writes each instance's inner loops
-there.  ``chip_smoke.py`` (phases 1, 2, 3, 7, 11 and 13) calls the same
-functions at the main path's shapes.
+there.  ``chip_smoke.py`` (phases 1, 2, 3, 7, 11, 13 and 17) calls the
+same functions at the main path's shapes.
 
 Instructions a pair come from the SASS (``cuobjdump -sass`` of the built
 library; ``nvdisasm`` is not needed).  For the window evals and the
@@ -47,8 +48,9 @@ ISSUE_RATE = 132 * 4 * 32 * 1.98e9
 PARENT_DIR = _kernels.BUILD_DIR / "parent"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The previous kernels' C interfaces (one thread a target, no T, no order,
-# no split), by source file: the window evals before their redesign, the
-# all-pairs and boids kernels before theirs.
+# no split), by source file: the window evals (row forms, then the column
+# form) before their redesign, the all-pairs and boids kernels before
+# theirs.
 PARENT_SIGNATURES = {
     "window_eval_pool.cu": ("spatialsim_window_eval_pool", (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P)),
@@ -58,6 +60,9 @@ PARENT_SIGNATURES = {
     "allpairs.cu": ("spatialsim_allpairs", (_P, _P, _P, _I, _F, _F, _P)),
     "boids_window.cu": ("spatialsim_boids_window", (
         _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P)),
+    "window_eval_cols.cu": ("spatialsim_window_eval_cols", (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+        _F, _P)),
 }
 
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
@@ -275,8 +280,9 @@ def boids_sass(lib_path, previous: bool = False) -> dict:
 
 def instance(name: str, previous: bool = False) -> str | None:
     """A label for a kernel's mangled name (``pool T=4``, ``dense R=8
-    T=4``, ``allpairs T=4``, ``boids T=2 cull on pass 1``; of the previous
-    kernels ``pool (previous)``, ``dense R=8 (previous, <=1024
+    T=4``, ``cols R=10 T=2``, ``allpairs T=4``, ``boids T=2 cull on pass
+    1``; of the previous kernels ``pool (previous)``, ``dense R=8
+    (previous, <=1024 threads)``, ``cols R=10 (previous, <=256
     threads)``, ``allpairs (previous)``, ``boids (previous)``), None for
     other kernels."""
     if "allpairs_kernel" in name:
@@ -291,6 +297,12 @@ def instance(name: str, previous: bool = False) -> str | None:
         return (f"boids T={m.group(1)} cull "
                 f"{'on' if m.group(2) == '1' else 'off'} pass "
                 f"{2 if m.group(3) == '1' else 1}")
+    if "window_eval_cols_kernel" in name:
+        m = re.search(r"window_eval_cols_kernelILi(\d+)ELi(\d+)EE", name)
+        if m is None:
+            return None
+        return (f"cols R={m.group(1)} (previous, <={m.group(2)} threads)"
+                if previous else f"cols R={m.group(1)} T={m.group(2)}")
     if "window_eval_pool_kernel" in name:
         m = re.search(r"window_eval_pool_kernelILi(\d+)EE", name)
         return ("pool (previous)" if previous or not m
@@ -300,6 +312,32 @@ def instance(name: str, previous: bool = False) -> str | None:
         return None
     return (f"dense R={m.group(1)} (previous, <={m.group(2)} threads)"
             if previous else f"dense R={m.group(1)} T={m.group(2)}")
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_table(log: str, previous: bool = False) -> dict:
+    """``{label: (registers, spill store bytes, spill load bytes)}`` of
+    every kernel in an ``nvcc -Xptxas -v`` log, by its :func:`instance`
+    label, else by its mangled name."""
+    res, label, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            label = instance(m.group(1), previous) or m.group(1)
+            spill = (0, 0)
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = _PTXAS_REGS.search(line)
+        if m and label is not None:
+            res[label] = (int(m.group(1)), *spill)
+            label = None
+    return res
 
 
 def sass_table(lib_path, previous: bool = False) -> dict:
@@ -330,14 +368,9 @@ def parent_library():
         subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
                         "-o", str(so), *map(str, srcs)], check=True,
                        capture_output=True, text=True)
-        lib = ctypes.CDLL(str(so))
-        lib.entries = set()
-        for src in srcs:
-            name, argtypes = PARENT_SIGNATURES[src.name]
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-            lib.entries.add(name)
+        lib = _kernels.bind(ctypes.CDLL(str(so)), dict(
+            PARENT_SIGNATURES[src.name] for src in srcs))
+        lib.entries = {PARENT_SIGNATURES[src.name][0] for src in srcs}
         lib.path = so
         _parent = lib
     return _parent
@@ -356,7 +389,7 @@ def parent_allpairs(lib, pos, mass, G, softening):
     out = torch.empty_like(pos)
     _kernels.check(lib.spatialsim_allpairs(
         pos.data_ptr(), mass.data_ptr(), out.data_ptr(), pos.shape[1],
-        float(G), float(softening) ** 2, _kernels.stream_ptr(pos.device)),
+        float(G), float(softening) ** 2, _kernels.stream(pos)),
         "previous allpairs")
     return out
 
@@ -373,7 +406,7 @@ def parent_boids(lib, s_pos, s_vel, s_col, s_grpf=None, *, gsz, wg,
         None if s_grpf is None else s_grpf.data_ptr(), out.data_ptr(), npad,
         gsz, wg, float(perception_sq), float(separation_sq),
         float(prev_wg if prev_wg is not None else wg),
-        _kernels.stream_ptr(s_pos.device)), "previous boids_window")
+        _kernels.stream(s_pos)), "previous boids_window")
     return out
 
 
@@ -392,7 +425,7 @@ def parent_pool(lib, s_pos, s_mass, pool, pstart, far_n, steps_since, dt, *,
         pstart.data_ptr(), far_n.data_ptr(), out.data_ptr(), npad,
         npad // group_size, group_size, window_groups, ct, tile,
         float(softening) ** 2, float(G), tau, coef2,
-        _kernels.stream_ptr(s_pos.device)), "previous window_eval_pool")
+        _kernels.stream(s_pos)), "previous window_eval_pool")
     return out
 
 
@@ -411,7 +444,27 @@ def parent_dense(lib, s_pos, s_mass, far, far_n, near, steps_since, dt, *,
         far_n.data_ptr(), near.data_ptr() if K else None, out.data_ptr(),
         npad, npad // group_size, group_size, window_groups, K, far.shape[1],
         far.shape[2], float(softening) ** 2, float(G), tau, coef2,
-        _kernels.stream_ptr(s_pos.device)), "previous window_eval")
+        _kernels.stream(s_pos)), "previous window_eval")
+    return out
+
+
+def parent_cols(lib, s_pos, s_mass, far, far_n, near, steps_since, dt, *,
+                G, softening, group_size, window_groups, tau_clamp, far_tile):
+    """The previous column kernel on the same inputs as
+    ``window_eval_cols``."""
+    import torch
+    from spatialsim_tpu_torch.ops.bh_eval_kernel import advance_coefs
+    tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
+    out = torch.empty_like(s_pos)
+    npad = s_pos.shape[1]
+    K = 0 if near is None else near.shape[1]
+    _kernels.check(lib.spatialsim_window_eval_cols(
+        s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
+        far_n.data_ptr(), near.data_ptr() if K else None, out.data_ptr(),
+        npad, npad // group_size, group_size, window_groups, K, far.shape[1],
+        far.shape[2], min(int(far_tile), far.shape[2]),
+        float(softening) ** 2, float(G), tau, coef2, _kernels.stream(s_pos)),
+        "previous window_eval_cols")
     return out
 
 

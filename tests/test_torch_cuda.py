@@ -445,6 +445,82 @@ def test_dense_kernel_every_tile_matches_plain(cuda, R, K, gsz):
         assert bool(torch.isfinite(got).all())
 
 
+@pytest.mark.parametrize("gsz", [64, 256])
+@pytest.mark.parametrize("K", [0, 4])
+@pytest.mark.parametrize("R", [8, 10])
+def test_cols_kernel_every_instance_matches_plain(cuda, R, K, gsz):
+    """Every T of the column kernel, in group order and heavy-first (equal
+    bit for bit), against its plain version: far_n at the batch and cap
+    edges, a live slot past far_n inside a group's last tile (the form
+    reads whole tiles), near ids -1 and >= ng; and the wrapper's plan."""
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    ng, L, tile = 48, 256, 64
+    kw = dict(G=0.1, softening=2.0, group_size=gsz, window_groups=2,
+              tau_clamp=24.0, far_tile=tile)
+    for T in (1, 2, 4):
+        args = _dense_inputs(ng, gsz, R, K, L, R * 10 + K + T, cuda,
+                             _edge_far_n(ng, gsz // T, L, T))
+        far, far_n = args[2], args[3]
+        far[1, :7, 1] = far[1, :7, 0] * 1.5 + 1.0      # past far_n = 1
+        args = args + (7, 0.02)
+        order = ek.heavy_first(far_n, args[4], gsz, (L, tile))
+        before = ek.window_eval_cols.launches
+        got = ek.cols_launch(*args, targets=T, **kw)
+        ordered = ek.cols_launch(*args, targets=T, order=order, **kw)
+        torch.cuda.synchronize()
+        assert ek.window_eval_cols.launches == before + 2
+        want = ek.window_eval_cols_reference(*args, **kw)
+        assert _rel(got, want) < 1e-4, T
+        assert torch.equal(ordered, got), T
+        assert bool(torch.isfinite(got).all())
+    planned = ek.window_eval_cols(*args, **kw)
+    torch.cuda.synchronize()
+    assert _rel(planned, want) < 1e-4
+
+
+def test_cols_kernel_occupancy_and_refusals(cuda):
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    for T in (1, 2, 4):
+        for R in (8, 10):
+            blocks, regs, threads = ek.occupancy(256, T, R, 2, 8, cols=True)
+            assert blocks >= 1 and 0 < regs <= 255 and threads == 256 // T
+    args = _dense_inputs(8, 64, 8, 0, 64, 0, cuda) + (0, 0.02)
+    kw = dict(G=0.1, softening=2.0, group_size=64, window_groups=2,
+              tau_clamp=24.0, far_tile=64)
+    before = ek.window_eval_cols.launches
+    with pytest.raises(RuntimeError, match="window_eval_cols"):
+        ek.cols_launch(*args, targets=3, **kw)         # no such instance
+    assert ek.window_eval_cols.launches == before
+
+
+def test_launch_path_uses_the_current_stream(cuda):
+    """Under torch.cuda.stream(s) the launch path's stream is s's, every
+    wrapper launches there without synchronising, and its output is right
+    once s is synchronised."""
+    from spatialsim_tpu_torch import _kernels
+    from spatialsim_tpu_torch.ops import allpairs
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    x = tp.lane_row(cuda)
+    pos, _, mass = _galaxy(512, 3, cuda)
+    want = allpairs.allpairs_accel_reference(pos, mass, 0.1, 2.0)
+    assert _kernels.stream(x) == torch.cuda.current_stream().cuda_stream
+    s = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s):
+        assert _kernels.stream(x) == s.cuda_stream != 0
+        # A long kernel first on s, so the launches below queue behind it.
+        big = torch.randn(2048, 2048, device=cuda)
+        for _ in range(20):
+            big = big @ big / 2048.0
+        outs = [tp.roll(x, k) for k in (0, 5, -3, 127)]
+        acc = allpairs.allpairs_accel(pos, mass, 0.1, 2.0)
+    s.synchronize()
+    for k, out in zip((0, 5, -3, 127), outs):
+        assert torch.equal(out, torch.roll(x, k, 1)), k
+    assert _rel(acc, want) < 1e-5
+    assert _kernels.stream(x) == torch.cuda.current_stream().cuda_stream
+
+
 def test_window_kernels_softening_zero_coincident_bodies(cuda):
     """Softening 0: coincident bodies (and far entries on a body) add
     nothing through the gate, near-coincident ones (|d| = 2^-10) stay
