@@ -14,9 +14,10 @@ Morton window, 5a-6d the traversal probes.
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    a fresh nvcc build of every kernel in ``spatialsim_tpu_torch/csrc``
-   (registers and spills of kernels 1-4 and 3b by instance), and the SASS
-   instructions a pair of every instance of kernels 1-4 and 3b
-   (``tools/eval_tiles.py``), and of their previous versions when those
+   (registers and spills of kernels 1-4, 3b and 3c by instance), and the
+   SASS instructions a pair of every instance of kernels 1-4, 3b and 3c
+   (3c's tensor-core instances also HMMA a pair;
+   ``tools/eval_tiles.py``), and of their previous versions when those
    sources lie in ``spatialsim_tpu_torch/_build/parent/`` (git-ignored;
    without them the previous kernels' lines say "not measured");
 2. kernel 1 (all-pairs) against its plain version at N = 32,768, 30,001
@@ -121,7 +122,13 @@ Morton window, 5a-6d the traversal probes.
     heavy-first, equal bit for bit) held to its plain version, beside the
     previous kernel, with its share of the bound, the plan's instance
     beside the fastest, SASS instructions a pair, the issue-limited time,
-    registers and spills, blocks per SM and waves;
+    registers and spills, blocks per SM and waves; then every instance of
+    kernel 3c (the register tile at T 1, 2, 4 and the split-TF32
+    tensor-core contraction at M 2, 4, in both orders, equal bit for bit)
+    held to its plain version at steps_since 0 and 23, beside the previous
+    kernel (and its distance from it), the same readings as 3b's plus
+    pairs a second over the whole-tile pairs, the share of the MUFU floor
+    and HMMA a pair;
 18. the exact engine: ``NBodySimulation(num_bodies=1_000_000,
     config=NBODY.replace(engine="exact"))``, 5 steps, and its force error
     on 4,096 bodies against the all-pairs kernel's direct sum, beside the
@@ -454,47 +461,64 @@ def check_dense(kernels, label, lists, s_pos, s_mass, near, steps_since,
 
 def report_tiles(label, launch, previous, want, ts, chosen, pairs, b_ms,
                  ng, occ, sass_new, sass_old, order=None, quad_pairs=0,
-                 sass_of=None, regs_of=None, chosen_order=True):
-    """The redesigned kernel at every T in ``ts`` (``launch(T, order)``;
-    ``chosen`` is the table's T, heavy-first when ``chosen_order``), in
-    group order and, with ``order``, heavy groups first (equal bit for
-    bit), each held to the plain version's ``want`` (None: held in another
-    phase), with its share of the bound ``b_ms``; the table's instance
-    beside the fastest; the previous kernel (``previous()``, None without
-    its sources) timed before and after them; resident blocks per SM and
-    waves (``occ(T)``), SASS instructions a pair (``sass_new``/
-    ``sass_old``: the tool's entries or None) and the issue-limited time
-    of ``pairs`` at those counts (``quad_pairs`` of them at the quadrupole
-    loop's, the costliest); with ``sass_of(T)`` and ``regs_of(T)`` (the
-    tool's SASS entry, and (registers, spill store, spill load bytes) from
-    ptxas), every T's.  Returns ``{instance: ms}``."""
+                 sass_of=None, regs_of=None, chosen_order=True,
+                 key=lambda T: f"T={T}", floor_ms=None, hmma_of=None):
+    """The redesigned kernel at every instance T in ``ts`` (``launch(T,
+    order)``; ``chosen`` is the table's, heavy-first when
+    ``chosen_order``; ``key(T)`` its name), in group order and, with
+    ``order``, heavy groups first (equal bit for bit), each held to the
+    plain version's ``want`` (None: held in another phase), with its share
+    of the bound ``b_ms``; the table's instance beside the fastest; the
+    previous kernel (``previous()``, None without its sources) timed before
+    and after them; resident blocks per SM and waves (``occ(T)``), SASS
+    instructions a pair (``sass_new``/``sass_old``: the tool's entries or
+    None) and the issue-limited time of ``pairs`` at those counts
+    (``quad_pairs`` of them at the quadrupole loop's, the costliest); with
+    ``sass_of(T)`` and ``regs_of(T)`` (the tool's SASS entry, and
+    (registers, spill store, spill load bytes) from ptxas), every T's.
+    With ``floor_ms`` (the MUFU floor of ``pairs``), also every instance's
+    pairs a second, its share of that floor, HMMA a pair (``hmma_of(T)``)
+    and its distance from the previous kernel.  Returns ``{instance:
+    ms}``."""
     import torch
     from spatialsim_tpu_torch.tools.eval_tiles import ISSUE_RATE
-    res, prev = {}, []
+    res, prev, dprev = {}, [], {}
+    prev_out = None
     if previous is not None:
-        got = previous()
+        prev_out = previous()
         torch.cuda.synchronize()
-        prev_err = None if want is None else kernel_errors(got, want)[1]
+        prev_err = None if want is None else kernel_errors(prev_out, want)[1]
         prev.append(cuda_ms(previous, 5))
     for T in ts:
         got = launch(T, None)
         torch.cuda.synchronize()
         if want is not None:
             err = kernel_errors(got, want)[1]
-            require(err <= TOL_WINDOW, f"{label} T={T}: {err}")
-        res[f"T={T}"] = cuda_ms(lambda: launch(T, None), 5)
+            require(err <= TOL_WINDOW, f"{label} {key(T)}: {err}")
+        if prev_out is not None:
+            dprev[key(T)] = kernel_errors(got, prev_out)[1]
+        res[key(T)] = cuda_ms(lambda: launch(T, None), 5)
         if order is not None:
             ordered = launch(T, order)
             torch.cuda.synchronize()
             require(torch.equal(ordered, got),
-                    f"{label} T={T}: heavy-first differs")
-            res[f"T={T} heavy-first"] = cuda_ms(lambda: launch(T, order), 5)
-    table = f"T={chosen}" + (" heavy-first" if order is not None
-                             and chosen_order else "")
-    print(f"    {label}: ms by T: "
+                    f"{label} {key(T)}: heavy-first differs")
+            res[f"{key(T)} heavy-first"] = cuda_ms(lambda: launch(T, order),
+                                                   5)
+    table = key(chosen) + (" heavy-first" if order is not None
+                           and chosen_order else "")
+    print(f"    {label}: ms by instance: "
           + ", ".join(f"{k} {v:.4f} ({b_ms / v:.1%})" for k, v in res.items())
           + f" (the table: {table}); bound {b_ms:.4f} ms (share in "
             f"brackets)")
+    if floor_ms is not None:
+        print(f"    {label}: Gpairs/s over {pairs:.4e} pairs and share of "
+              f"the MUFU floor {floor_ms:.4f} ms: "
+              + ", ".join(f"{k} {pairs / v / 1e6:.1f} ({floor_ms / v:.1%})"
+                          for k, v in res.items()))
+        if dprev:
+            print(f"    {label}: max|da|/max|a| from the previous kernel: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in dprev.items()))
     best = min(res, key=res.get)
     print(f"    {label}: the table's {table} {res[table]:.4f} ms, the fastest "
           f"{best} {res[best]:.4f} ms: {res[table] / res[best] - 1:+.2%}")
@@ -525,10 +549,12 @@ def report_tiles(label, launch, previous, want, ts, chosen, pairs, b_ms,
             extra += (f"; SASS {rec[0]:.3f} instructions a pair, "
                       f"issue-limited {rec[0] * pairs / ISSUE_RATE * 1e3:.4f}"
                       f" ms")
+        if hmma_of is not None and hmma_of(T):
+            extra += f", {hmma_of(T):.3f} HMMA a pair"
         if regs_of is not None and regs_of(T) is not None:
             extra += ("; ptxas {} registers, spills {} B stored, {} B "
                       "loaded").format(*regs_of(T))
-        print(f"    {label}: T={T}: {threads} threads a block, {regs} "
+        print(f"    {label}: {key(T)}: {threads} threads a block, {regs} "
               f"registers a thread, {blocks} blocks per SM resident, "
               f"{ng / (blocks * sms):.2f} waves over {ng} groups on {sms} "
               f"SMs{extra}")
@@ -919,8 +945,9 @@ def main() -> int:
         allpairs_accel, allpairs_accel_reference, allpairs_launch,
         allpairs_occupancy, allpairs_plan)
     from spatialsim_tpu_torch.ops.bh_eval_kernel import (
-        _tile_counts, cols_launch, cols_plan, dense_launch, heavy_first,
-        occupancy, pool_launch, tile_targets, window_eval, window_eval_cols,
+        MXU_CONTRACTIONS, _tile_counts, cols_launch, cols_plan, dense_launch,
+        heavy_first, mxu_launch, mxu_occupancy, mxu_plan, occupancy,
+        pool_launch, tile_targets, window_eval, window_eval_cols,
         window_eval_mxu, window_eval_pool, window_eval_pool_reference)
     from spatialsim_tpu_torch.ops import bh_window as bw
     from spatialsim_tpu_torch.ops.barnes_hut import barnes_hut_accel
@@ -974,9 +1001,12 @@ def main() -> int:
     sass = eval_tiles.sass_table(_kernels.build_info["path"])
     sass_old = ({} if plib is None
                 else eval_tiles.sass_table(plib.path, previous=True))
+    hmma = eval_tiles.hmma_table(_kernels.build_info["path"])
     for label, (per_pair, loops, _) in sorted({**sass, **sass_old}.items()):
+        extra = (f", {hmma[label]:.3f} HMMA a pair" if hmma.get(label)
+                 else "")
         print(f"    SASS {label}: {per_pair:.3f} instructions a pair "
-              f"(innermost loops, instructions / MUFU.RSQ: {loops})")
+              f"(innermost loops, instructions / MUFU.RSQ: {loops}){extra}")
     bsass = {k: v[0] for k, v in eval_tiles.boids_sass(
         _kernels.build_info["path"]).items()}
     if eval_tiles.has_parent(plib, "boids_window"):
@@ -2156,6 +2186,8 @@ def main() -> int:
             outs[form] = got
             if form == "cols":
                 want_cols, b_cols = want, b_ms
+            if form == "mxu":
+                want_mxu, b_mxu = want, b_ms
         _, d_mxu = kernel_errors(outs["mxu"], outs["row"])
         _, d_cols = kernel_errors(outs["cols"], outs["row"])
         print(f"    K={K}: the matrix form differs from the row form by "
@@ -2192,12 +2224,59 @@ def main() -> int:
             chosen_order=heavy_plan,
             sass_of=lambda T: sass.get(f"cols R={R} T={T}"),
             regs_of=lambda T: ptxas.get(f"cols R={R} T={T}"))
+        # Kernel 3c: every instance -- the register tile at T 1, 2, 4 and
+        # the tensor-core contraction at M 2, 4, in group order and
+        # heavy-first (equal bit for bit) -- against the plain version at
+        # steps_since 0 (here) and 23 (report_tiles), beside the previous
+        # kernel, with the share of the bound and of the MUFU floor.
+        insts = [(c, n) for c, ns in MXU_CONTRACTIONS.items() for n in ns]
+        plan = mxu_plan(gsz)
+        mxu_order = heavy_first(lists.far_n, lists.near, gsz, tiles)
+
+        def mxu_name(inst):
+            return f"{inst[0]} {'T' if inst[0] == 'fma' else 'M'}={inst[1]}"
+
+        def mxu_label(inst):
+            return f"mxu R={R} {mxu_name(inst)}"
+
+        def mxu_run(inst, order, steps=23):
+            return mxu_launch(s_pos, s_mass, lists.far, lists.far_n,
+                              lists.near, steps, DT, targets=inst[1],
+                              order=order, contraction=inst[0], **ckw)
+        want0 = eval_ab.run_form("mxu", lists, s_pos, s_mass, acfg, 0,
+                                 plain=True)
+        for inst in insts:
+            for order in (None, mxu_order):
+                got = mxu_run(inst, order, steps=0)
+                torch.cuda.synchronize()
+                err = kernel_errors(got, want0)[1]
+                require(err <= TOL_WINDOW,
+                        f"K={K} mxu {mxu_name(inst)} steps_since=0: {err}")
+        print(f"    K={K} mxu: every instance within {TOL_WINDOW} of max|a| "
+              f"of the plain version at steps_since 0, in both orders; "
+              f"the plan {mxu_name(plan[:2])}"
+              f"{' heavy-first' if plan[2] else ''}")
+        report_tiles(
+            f"K={K} mxu, steps_since=23", mxu_run,
+            (None if not eval_tiles.has_parent(plib, "window_eval_mxu")
+             else lambda: eval_tiles.parent_mxu(plib, *args, **ckw)),
+            want_mxu, insts, plan[:2], tile_pairs, b_mxu, ng,
+            lambda inst: mxu_occupancy(gsz, inst[0], inst[1], R,
+                                       acfg.window_groups, K_near),
+            sass.get(mxu_label(plan[:2])),
+            sass_old.get(f"mxu R={R} (previous, <=256 threads)"),
+            order=mxu_order, chosen_order=plan[2],
+            sass_of=lambda inst: sass.get(mxu_label(inst)),
+            regs_of=lambda inst: ptxas.get(mxu_label(inst)),
+            key=mxu_name, floor_ms=tile_pairs / eval_tiles.MUFU_RATE * 1e3,
+            hmma_of=lambda inst: hmma.get(mxu_label(inst)))
         if K == 0:
             for form in ("cols", "mxu"):
                 ENQUEUE_US[f"window_eval_{form}"] = enqueue_us(
                     lambda: eval_ab.run_form(form, lists, s_pos, s_mass,
                                              acfg), 20)
-    del ab, lists, s_pos, s_mass, outs, got, want, want_cols, args
+    del ab, lists, s_pos, s_mass, outs, got, want, want_cols, want_mxu
+    del want0, args
     torch.cuda.empty_cache()
     done(t0)
 

@@ -73,8 +73,10 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                                     _P),
     "spatialsim_window_eval_cols_occupancy": (_I, _I, _I, _I, _I, _P),
-    "spatialsim_window_eval_mxu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    "spatialsim_window_eval_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                                   _F, _P),
+    "spatialsim_window_eval_mxu_occupancy": (_I, _I, _I, _I, _I, _I, _P),
     "spatialsim_boids_window": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                                 _I, _I, _P),
     "spatialsim_boids_window_occupancy": (_I, _I, _I, _I, _P),

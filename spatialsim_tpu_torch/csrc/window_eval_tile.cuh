@@ -1,7 +1,8 @@
 // Register tiles of targets for the window-eval kernels
-// (window_eval_pool.cu, window_eval.cu, window_eval_cols.cu), for Hopper
-// (sm_90a).  The all-pairs kernel (allpairs.cu) shares rsqrt_mufu, and it
-// and the boids kernel (boids_window.cu) share allow_smem and occupancy.
+// (window_eval_pool.cu, window_eval.cu, window_eval_cols.cu, and the
+// matrix form's window_eval_mxu.cu through Centred), for Hopper (sm_90a).
+// The all-pairs kernel (allpairs.cu) shares rsqrt_mufu, and it and the
+// boids kernel (boids_window.cu) share allow_smem and occupancy.
 //
 // What bounds those kernels on this card is instruction issue: a pair
 // costs ~15 FP32 instructions and one MUFU.RSQ, while the bytes they read
@@ -38,6 +39,13 @@ __device__ __forceinline__ float rsqrt_mufu(float x) {
 
 __host__ __device__ __forceinline__ int round_up8(int n) {
   return (n + 7) & ~7;
+}
+
+// u.v as an FMA chain: fma(uz, vz, fma(uy, vy, ux * vx)), as XLA rounds a
+// three-term contraction.
+__device__ __forceinline__ float dot3_fma(float ux, float uy, float uz,
+                                          float vx, float vy, float vz) {
+  return fmaf(uz, vz, fmaf(uy, vy, __fmul_rn(ux, vx)));
 }
 
 // T targets of one thread: targets tid + j * nthr of the group, j < T.
@@ -189,6 +197,115 @@ struct Targets {
       ax[j] += tx[j];
       ay[j] += ty[j];
       az[j] += tz[j];
+    }
+  }
+};
+
+// The matrix form's rounding (window_eval_mxu.cu), in one place for both
+// of its instances.  A target t is held centred as -2 t_c and |t_c|^2.
+__device__ __forceinline__ void mxu_target(float x, float y, float z,
+                                           float cx, float cy, float cz,
+                                           float& nx, float& ny, float& nz,
+                                           float& ti) {
+  const float tx = __fsub_rn(x, cx);
+  const float ty = __fsub_rn(y, cy);
+  const float tz = __fsub_rn(z, cz);
+  ti = dot3_fma(tx, ty, tz, tx, ty, tz);
+  nx = -2.f * tx;
+  ny = -2.f * ty;
+  nz = -2.f * tz;
+}
+
+// w of a target (-2 t_c, |t_c|^2) and a staged source s (x, y, z,
+// |s_c|^2) of mass m.
+__device__ __forceinline__ float mxu_weight(float nx, float ny, float nz,
+                                            float ti, float4 s, float m,
+                                            float soft_sq) {
+  const float c = dot3_fma(nx, ny, nz, s.x, s.y, s.z);
+  const float d2 = __fadd_rn(__fadd_rn(__fadd_rn(ti, s.w), c), soft_sq);
+  const float inv = rsqrt_mufu(fmaxf(d2, soft_sq));
+  return __fmul_rn(m, __fmul_rn(__fmul_rn(inv, inv), inv));
+}
+
+// One component of a = G (sum w s_c - t_c sum w), t_c = -n / 2 exactly.
+__device__ __forceinline__ float mxu_accel(float sum_ws, float n,
+                                           float sum_w, float G) {
+  return __fmul_rn(__fsub_rn(sum_ws, __fmul_rn(-0.5f * n, sum_w)), G);
+}
+
+// T targets of one thread for the matrix form (window_eval_mxu.cu):
+// targets tid + j * nthr of the group, centred on the group's mean c.
+// Its function rounds d2 = ((|t_c|^2 + |s_c|^2) - 2 t_c.s_c) + eps^2 in
+// float32, every square and the cross term an FMA chain (dot3_fma), the
+// sums _rn; w = m * rsqrt(max(d2, eps^2))^3, no gate; a = G (sum w s_c -
+// t_c sum w).  The factor -2 is folded into the target: dot3_fma(-2 t_c,
+// s_c) is -2 dot3_fma(t_c, s_c) (a power-of-two scale commutes with every
+// rounding of the chain, short of overflow and of products below 2^-126;
+// an exact 0 may differ in sign), and x + (-y) is x - y, so d2 is the same
+// float bit for bit.  The
+// target's t_c is -0.5 times what it holds, exactly.  Sources are staged
+// centred as float4 (x, y, z, |s_c|^2) and their masses as floats; a
+// batch's count is rounded up to 8 with zero slots (mass 0: w = 0 for eps >
+// 0, where d2 >= eps^2 is finite).
+template <int T>
+struct Centred {
+  float nx[T], ny[T], nz[T];          // -2 t_c
+  float ti[T];                        // |t_c|^2
+  float ax[T], ay[T], az[T], aw[T];   // sum w s_c, sum w
+
+  __device__ __forceinline__ void load(const float* __restrict__ pos,
+                                       size_t npad, size_t b0, int nthr,
+                                       float cx, float cy, float cz) {
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      const size_t b = b0 + static_cast<size_t>(j) * nthr;
+      mxu_target(pos[b], pos[npad + b], pos[2 * npad + b], cx, cy, cz, nx[j],
+                 ny[j], nz[j], ti[j]);
+      ax[j] = ay[j] = az[j] = aw[j] = 0.f;
+    }
+  }
+
+  __device__ __forceinline__ void store(float* __restrict__ out, size_t npad,
+                                        size_t b0, int nthr, float G) const {
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      const size_t b = b0 + static_cast<size_t>(j) * nthr;
+      out[b] = mxu_accel(ax[j], nx[j], aw[j], G);
+      out[npad + b] = mxu_accel(ay[j], ny[j], aw[j], G);
+      out[2 * npad + b] = mxu_accel(az[j], nz[j], aw[j], G);
+    }
+  }
+
+  // The pairs with the cnt8 staged sources s[0..cnt8), masses m: the batch
+  // sums into its own partials, then into the running sums.
+  __device__ __forceinline__ void sum(const float4* __restrict__ s,
+                                      const float* __restrict__ m, int cnt8,
+                                      float soft_sq) {
+    float px[T], py[T], pz[T], pw[T];
+#pragma unroll
+    for (int j = 0; j < T; ++j) px[j] = py[j] = pz[j] = pw[j] = 0.f;
+    for (int k = 0; k < cnt8; k += 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float4 src = s[k + u];
+        const float mu = m[k + u];
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+          const float w =
+              mxu_weight(nx[j], ny[j], nz[j], ti[j], src, mu, soft_sq);
+          px[j] = fmaf(w, src.x, px[j]);
+          py[j] = fmaf(w, src.y, py[j]);
+          pz[j] = fmaf(w, src.z, pz[j]);
+          pw[j] += w;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      ax[j] += px[j];
+      ay[j] += py[j];
+      az[j] += pz[j];
+      aw[j] += pw[j];
     }
   }
 };

@@ -26,7 +26,10 @@ d/r^7``.  G multiplies once at the end.  Two far layouts:
     |s_c|^2 - 2 t_c.s_c + eps^2`` and ``w = m rsqrt(max(d^2, eps^2))^3``
     (no gate: the self pair cancels): :func:`window_eval_mxu_reference` and
     :func:`window_eval_mxu` (``csrc/window_eval_mxu.cu``).  It is its own
-    function, not the row form's: its d^2 cancels in float32.
+    function, not the row form's: its d^2 cancels in float32.  Its kernel
+    has two instances, the register tile and a split-TF32 contraction on
+    tensor cores; :func:`mxu_plan` picks one, :func:`mxu_launch` takes it
+    explicitly.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version for CPU tensors.  The plain versions chunk over groups (a
@@ -717,10 +720,13 @@ def window_eval_mxu(s_pos, s_mass, far, far_n, near=None, steps_since=0,
     """The matrix form through ``csrc/window_eval_mxu.cu``.
 
     Same arguments and result as :func:`window_eval_mxu_reference`, which
-    CPU tensors take.  CUDA tensors launch the kernel -- one block of
-    ``group_size`` threads per group, plain float32 FMAs, no tensor cores
-    -- on the current stream without synchronising, and add one to
-    ``window_eval_mxu.launches``.
+    CPU tensors take.  CUDA tensors launch the kernel's instance that
+    :func:`mxu_plan` picks -- the register tile on CUDA cores (``"fma"``,
+    T targets a thread) or the contraction on tensor cores (``"mma"``, M
+    m16 tiles of targets a warp), heavy groups first where the plan says
+    so (sorted once per lists) -- on the current stream without
+    synchronising, and add one to ``window_eval_mxu.launches``.  An
+    instance the group size does not allow raises; nothing falls back.
     """
     if s_pos.device.type == "cpu":
         return window_eval_mxu_reference(
@@ -728,22 +734,86 @@ def window_eval_mxu(s_pos, s_mass, far, far_n, near=None, steps_since=0,
             softening=softening, group_size=group_size,
             window_groups=window_groups, tau_clamp=tau_clamp,
             far_tile=far_tile)
-    if int(group_size) % 32:
-        raise ValueError(f"window_eval_mxu: group_size {group_size} must be "
-                         f"a multiple of 32 (the centre's warp reduction)")
+    contraction, n, heavy = mxu_plan(group_size)
+    order = (_mxu_order(far_n, near, int(group_size),
+                        (far.shape[2], int(far_tile))) if heavy else None)
+    return mxu_launch(s_pos, s_mass, far, far_n, near, steps_since, dt,
+                      G=G, softening=softening, group_size=group_size,
+                      window_groups=window_groups, tau_clamp=tau_clamp,
+                      far_tile=far_tile, targets=n, order=order,
+                      contraction=contraction)
+
+
+# The matrix kernel's instance by group size: (contraction, T or M, heavy
+# groups first).  Chosen by timing the register tile at T 1, 2 and 4 and
+# the tensor-core contraction at M 2 and 4, each in group order and
+# heavy-first, on an H100 at the A/B tool's 1M lists (PERF.md, kernel 3c):
+# the tile at T=2 heavy-first was the fastest at K=8 in every run and at
+# K=0 in most; the tensor-core contraction issues fewer instructions a
+# pair but fewer of them a clock.
+_MXU_PLAN = {256: ("fma", 2, True)}
+_mxu_order = _OrderCache()
+MXU_CONTRACTIONS = {"fma": (1, 2, 4), "mma": (2, 4)}
+
+
+def mxu_plan(group_size: int):
+    """(contraction, T or M, heavy-first?) of the matrix kernel at
+    ``group_size``: the table's entry, else ("fma", 2, True); for the register
+    tile T halved until ``group_size / T`` is a multiple of 32 (whole warps
+    for the centre's reduction)."""
+    contraction, n, heavy = _MXU_PLAN.get(int(group_size), ("fma", 2, True))
+    if contraction == "fma":
+        while n > 1 and group_size % (32 * n):
+            n //= 2
+    return contraction, n, heavy
+
+
+def _check_mxu(group_size, contraction, n):
+    """Raise unless the matrix kernel has the instance (contraction, n) at
+    ``group_size``."""
+    gsz = int(group_size)
+    if contraction not in MXU_CONTRACTIONS:
+        raise ValueError(f"window_eval_mxu: contraction {contraction!r} is "
+                         f"not one of {sorted(MXU_CONTRACTIONS)}")
+    if n not in MXU_CONTRACTIONS[contraction]:
+        raise ValueError(f"window_eval_mxu: the {contraction} instance takes "
+                         f"{MXU_CONTRACTIONS[contraction]}, not {n}")
+    if contraction == "mma" and (gsz % 16 or not 16 <= gsz <= 1024):
+        raise ValueError(f"window_eval_mxu: group_size {gsz} must be a "
+                         f"multiple of 16 up to 1024 for the tensor-core "
+                         f"contraction (m16 tiles of targets)")
+    if contraction == "fma" and (gsz % (32 * n) or gsz > 1024):
+        raise ValueError(f"window_eval_mxu: group_size {gsz} must be a "
+                         f"multiple of {32 * n} up to 1024 for T={n} "
+                         f"(whole warps of group_size / T threads)")
+
+
+def mxu_launch(s_pos, s_mass, far, far_n, near, steps_since, dt, *, G,
+               softening, group_size, window_groups, tau_clamp, far_tile,
+               targets, order=None, contraction="fma"):
+    """Launch ``csrc/window_eval_mxu.cu``'s instance ``contraction``
+    (``"fma"``: ``targets`` = T targets a thread; ``"mma"``: ``targets`` =
+    M m16 tiles of targets a warp) with blocks in ``order`` (int32 group
+    ids; None: group i is block i) on checked CUDA inputs; adds one to
+    ``window_eval_mxu.launches``."""
+    _check_mxu(group_size, contraction, targets)
     npad, ng, gsz, K, R, L = _dense_args("window_eval_mxu", s_pos, s_mass,
                                          far, far_n, near, group_size,
                                          (8, 10))
     tile = min(int(far_tile), L)
     if tile < 1:
         raise ValueError(f"window_eval_mxu: far_tile {far_tile} must be >= 1")
+    if order is not None:
+        _check("order", order, (ng,), torch.int32, s_pos.device)
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     out = torch.empty_like(s_pos)
     err = _kernels.entry.spatialsim_window_eval_mxu(
         s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
-        far_n.data_ptr(), near.data_ptr() if K else None, out.data_ptr(),
-        npad, ng, gsz, int(window_groups), K, R, L, tile,
-        float(softening) ** 2, float(G), tau, coef2, _kernels.stream(s_pos))
+        far_n.data_ptr(), near.data_ptr() if K else None,
+        None if order is None else order.data_ptr(), out.data_ptr(), npad,
+        ng, gsz, int(contraction == "mma"), int(targets),
+        int(window_groups), K, R, L, tile, float(softening) ** 2, float(G),
+        tau, coef2, _kernels.stream(s_pos))
     if err:
         _kernels.fail(err, "window_eval_mxu")
     window_eval_mxu.launches += 1
@@ -751,6 +821,21 @@ def window_eval_mxu(s_pos, s_mass, far, far_n, near=None, steps_since=0,
 
 
 window_eval_mxu.launches = 0
+
+
+def mxu_occupancy(group_size, contraction, targets, rows, window_groups=0,
+                  K=0):
+    """(resident blocks per SM, registers a thread, threads a block) of the
+    matrix kernel's instance (``contraction``, ``targets``) at ``rows``, as
+    the card's occupancy calculator gives them."""
+    import ctypes
+    _check_mxu(group_size, contraction, targets)
+    out = (ctypes.c_int * 3)()
+    err = _kernels.entry.spatialsim_window_eval_mxu_occupancy(
+        int(rows), int(group_size), int(contraction == "mma"), int(targets),
+        int(window_groups), int(K), ctypes.addressof(out))
+    _kernels.check(err, "occupancy")
+    return tuple(out)
 
 
 def occupancy(group_size, targets, rows=None, window_groups=0, K=0,

@@ -5,8 +5,9 @@ card, and the previous kernels that ``chip_smoke.py`` times beside them.
 
 builds the kernel library, prints the SASS instructions a pair of every
 instance of ``csrc/window_eval_pool.cu``, ``csrc/window_eval.cu``,
-``csrc/window_eval_cols.cu``, ``csrc/allpairs.cu`` and
-``csrc/boids_window.cu`` (and of the previous
+``csrc/window_eval_cols.cu``, ``csrc/window_eval_mxu.cu`` (with its HMMA
+a pair), ``csrc/allpairs.cu`` and ``csrc/boids_window.cu`` (and of the
+previous
 versions whose sources lie in ``_build/parent/``: ``PARENT_SIGNATURES``
 names them), and with ``--sass-out`` writes each instance's inner loops
 there.  ``chip_smoke.py`` (phases 1, 2, 3, 7, 11, 13 and 17) calls the
@@ -28,13 +29,15 @@ no-neighbour path over the position loads (LDS.128, one a pair) on it.
 At one warp instruction a clock on each of an SM's four schedulers, an
 H100 SXM issues 132 x 4 x 32 x 1.98e9 = 33.5e12 thread instructions a
 second: the issue-limited time of a call is its pairs times the count
-over that rate.
+over that rate.  Each pair of a window eval also takes one MUFU.RSQ, at 16
+a clock an SM: 132 x 16 x 1.98e9 = 4.18e12 a second, the MUFU floor.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import re
 import shutil
 import subprocess
@@ -45,12 +48,14 @@ from spatialsim_tpu_torch import _kernels
 # Thread instructions a second an H100 SXM issues (132 SMs, 4 schedulers
 # of 32 lanes, 1.98 GHz boost clock: NVIDIA's data sheet).
 ISSUE_RATE = 132 * 4 * 32 * 1.98e9
+# MUFU.RSQ a second (16 a clock on each of 132 SMs at 1.98 GHz).
+MUFU_RATE = 132 * 16 * 1.98e9
 PARENT_DIR = _kernels.BUILD_DIR / "parent"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The previous kernels' C interfaces (one thread a target, no T, no order,
 # no split), by source file: the window evals (row forms, then the column
-# form) before their redesign, the all-pairs and boids kernels before
-# theirs.
+# and matrix forms) before their redesign, the all-pairs and boids kernels
+# before theirs.
 PARENT_SIGNATURES = {
     "window_eval_pool.cu": ("spatialsim_window_eval_pool", (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P)),
@@ -61,6 +66,9 @@ PARENT_SIGNATURES = {
     "boids_window.cu": ("spatialsim_boids_window", (
         _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P)),
     "window_eval_cols.cu": ("spatialsim_window_eval_cols", (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+        _F, _P)),
+    "window_eval_mxu.cu": ("spatialsim_window_eval_mxu", (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
         _F, _P)),
 }
@@ -123,9 +131,11 @@ def inner_loops(insns) -> list:
                        and (o[0], o[1]) != (lp[0], lp[1]) for o in loops)]
 
 
+@functools.lru_cache(maxsize=4)
 def _disassemble(lib_path) -> dict | None:
-    """``parse_sass`` of the library's ``cuobjdump -sass``; None when no
-    ``cuobjdump`` is found."""
+    """``parse_sass`` of the library's ``cuobjdump -sass`` (once per path,
+    for the few libraries a run reads); None when no ``cuobjdump`` is
+    found."""
     tool = _tool("cuobjdump")
     if tool is None:
         return None
@@ -136,20 +146,21 @@ def _disassemble(lib_path) -> dict | None:
 
 def sass(lib_path) -> dict:
     """``{function: {"loops": [(instructions, MUFU.RSQ), ...],
-    "per_pair": min instructions a pair, "text": the loops' SASS}}`` for
-    every function of the library with such a loop; {} when no
-    ``cuobjdump`` is found."""
+    "per_pair": min instructions a pair, "hmma": HMMA a pair in that loop,
+    "text": the loops' SASS}}`` for every function of the library with
+    such a loop; {} when no ``cuobjdump`` is found."""
     res = {}
-    for name, insns in (_disassemble(lib_path) or {}).items():
+    for name, insns in (_disassemble(str(lib_path)) or {}).items():
         loops = inner_loops(insns)
         if not loops:
             continue
         text = "\n".join(
             f"/*{a:04x}*/ {t}" for lo, hi, _, _ in loops
             for a, t in insns if lo <= a <= hi)
+        lo, hi, n, r = min(loops, key=lambda lp: lp[2] / lp[3])
+        hmma = sum(t.startswith("HMMA") for a, t in insns if lo <= a <= hi)
         res[name] = dict(loops=[(n, r) for _, _, n, r in loops],
-                         per_pair=min(n / r for _, _, n, r in loops),
-                         text=text)
+                         per_pair=n / r, hmma=hmma / r, text=text)
     return res
 
 
@@ -265,7 +276,7 @@ def boids_sass(lib_path, previous: bool = False) -> dict:
     kernels of a library (:func:`boids_counts`); {} without
     ``cuobjdump``."""
     res = {}
-    for name, insns in (_disassemble(lib_path) or {}).items():
+    for name, insns in (_disassemble(str(lib_path)) or {}).items():
         label = instance(name, previous)
         if label is None or not label.startswith("boids"):
             continue
@@ -280,11 +291,12 @@ def boids_sass(lib_path, previous: bool = False) -> dict:
 
 def instance(name: str, previous: bool = False) -> str | None:
     """A label for a kernel's mangled name (``pool T=4``, ``dense R=8
-    T=4``, ``cols R=10 T=2``, ``allpairs T=4``, ``boids T=2 cull on pass
-    1``; of the previous kernels ``pool (previous)``, ``dense R=8
-    (previous, <=1024 threads)``, ``cols R=10 (previous, <=256
-    threads)``, ``allpairs (previous)``, ``boids (previous)``), None for
-    other kernels."""
+    T=4``, ``cols R=10 T=2``, ``mxu R=10 fma T=2``, ``mxu R=10 mma M=4``,
+    ``allpairs T=4``, ``boids T=2 cull on pass 1``; of the previous
+    kernels ``pool (previous)``, ``dense R=8 (previous, <=1024
+    threads)``, ``cols R=10 (previous, <=256 threads)``, ``mxu R=10
+    (previous, <=256 threads)``, ``allpairs (previous)``, ``boids
+    (previous)``), None for other kernels."""
     if "allpairs_kernel" in name:
         m = re.search(r"allpairs_kernelILi(\d+)EE", name)
         return ("allpairs (previous)" if previous or not m
@@ -303,6 +315,18 @@ def instance(name: str, previous: bool = False) -> str | None:
             return None
         return (f"cols R={m.group(1)} (previous, <={m.group(2)} threads)"
                 if previous else f"cols R={m.group(1)} T={m.group(2)}")
+    if "window_eval_mxu" in name:
+        m = re.search(r"window_eval_mxu_(tile|mma)_kernelILi(\d+)ELi(\d+)E"
+                      r"(?:Li(\d+)E)?", name)
+        if m is not None and not previous:
+            kind = "fma T" if m.group(1) == "tile" else "mma M"
+            big = ("" if m.group(4) in (None, "256")
+                   else f" (<={m.group(4)} threads)")
+            return f"mxu R={m.group(2)} {kind}={m.group(3)}{big}"
+        m = re.search(r"window_eval_mxu_kernelILi(\d+)ELi(\d+)EE", name)
+        if m is None or not previous:
+            return None
+        return f"mxu R={m.group(1)} (previous, <={m.group(2)} threads)"
     if "window_eval_pool_kernel" in name:
         m = re.search(r"window_eval_pool_kernelILi(\d+)EE", name)
         return ("pool (previous)" if previous or not m
@@ -348,6 +372,18 @@ def sass_table(lib_path, previous: bool = False) -> dict:
         label = instance(name, previous)
         if label is not None:
             res[label] = (rec["per_pair"], rec["loops"], rec["text"])
+    return res
+
+
+def hmma_table(lib_path, previous: bool = False) -> dict:
+    """``{label: HMMA a pair}`` of the window-eval kernels of a library, in
+    the loop :func:`sass_table`'s count is taken from (0 without tensor
+    cores)."""
+    res = {}
+    for name, rec in sass(lib_path).items():
+        label = instance(name, previous)
+        if label is not None:
+            res[label] = rec["hmma"]
     return res
 
 
@@ -468,6 +504,26 @@ def parent_cols(lib, s_pos, s_mass, far, far_n, near, steps_since, dt, *,
     return out
 
 
+def parent_mxu(lib, s_pos, s_mass, far, far_n, near, steps_since, dt, *,
+               G, softening, group_size, window_groups, tau_clamp, far_tile):
+    """The previous matrix kernel (one thread a target, no tensor cores)
+    on the same inputs as ``window_eval_mxu``."""
+    import torch
+    from spatialsim_tpu_torch.ops.bh_eval_kernel import advance_coefs
+    tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
+    out = torch.empty_like(s_pos)
+    npad = s_pos.shape[1]
+    K = 0 if near is None else near.shape[1]
+    _kernels.check(lib.spatialsim_window_eval_mxu(
+        s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
+        far_n.data_ptr(), near.data_ptr() if K else None, out.data_ptr(),
+        npad, npad // group_size, group_size, window_groups, K, far.shape[1],
+        far.shape[2], min(int(far_tile), far.shape[2]),
+        float(softening) ** 2, float(G), tau, coef2, _kernels.stream(s_pos)),
+        "previous window_eval_mxu")
+    return out
+
+
 def boids_line(label, rec) -> str:
     """One line of a boids instance's SASS counts."""
     test = "" if rec["test"] is None else f"test block {rec['test']:.3f}, "
@@ -493,10 +549,13 @@ def main(argv=None) -> int:
             fn = re.sub(r"[^A-Za-z0-9=.]+", "_", label) + ".sass"
             (args.sass_out / fn).write_text(text + "\n")
     for path, previous in libs:
+        hmma = hmma_table(path, previous)
         for label, (per_pair, loops, text) in sorted(
                 sass_table(path, previous).items()):
+            extra = (f", {hmma[label]:.3f} HMMA a pair" if hmma.get(label)
+                     else "")
             print(f"{label}: {per_pair:.3f} instructions a pair (innermost "
-                  f"loops, instructions / MUFU.RSQ: {loops})")
+                  f"loops, instructions / MUFU.RSQ: {loops}){extra}")
             keep(label, text)
         for label, (rec, text) in sorted(boids_sass(path, previous).items()):
             print(boids_line(label, rec))

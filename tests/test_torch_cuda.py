@@ -493,6 +493,131 @@ def test_cols_kernel_occupancy_and_refusals(cuda):
     assert ek.window_eval_cols.launches == before
 
 
+MXU_INSTANCES = (("fma", 1), ("fma", 2), ("fma", 4), ("mma", 2), ("mma", 4))
+
+
+@pytest.mark.parametrize("gsz", [64, 128, 256, 512])
+@pytest.mark.parametrize("K", [0, 8])
+@pytest.mark.parametrize("R", [8, 10])
+def test_mxu_kernel_every_instance_matches_plain(cuda, R, K, gsz):
+    """Every instance of the matrix kernel -- the register tile at T 1, 2
+    and 4 (where gsz / T is whole warps) and the tensor-core contraction at
+    M 2 and 4 -- in group order and heavy-first (equal bit for bit),
+    against its plain version at steps_since 0 and 23 (1e-4 of max|a|):
+    far_n ragged and at the batch and cap edges, near ids -1 and >= ng; the
+    wrapper's plan; and, with the previous kernel's sources in
+    ``_build/parent/``, each instance's distance from it (printed: the sums
+    run in another order, so they are not bit-equal)."""
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    from spatialsim_tpu_torch.tools import eval_tiles
+    ng, L, tile = 48, 256, 64
+    kw = dict(G=0.1, softening=2.0, group_size=gsz, window_groups=2,
+              tau_clamp=24.0, far_tile=tile)
+    plib = eval_tiles.parent_library()
+    for steps in (0, 23):
+        seed = R * 10 + K + gsz + steps
+        args = _dense_inputs(ng, gsz, R, K, L, seed, cuda,
+                             _edge_far_n(ng, 64, L, seed))
+        far, far_n = args[2], args[3]
+        far[1, :7, 1] = far[1, :7, 0] * 1.5 + 1.0      # past far_n = 1
+        args = args + (steps, 0.02)
+        want = ek.window_eval_mxu_reference(*args, **kw)
+        prev = (eval_tiles.parent_mxu(plib, *args, **kw)
+                if eval_tiles.has_parent(plib, "window_eval_mxu") else None)
+        order = ek.heavy_first(far_n, args[4], gsz, (L, tile))
+        for contraction, n in MXU_INSTANCES:
+            if contraction == "fma" and gsz % (32 * n):
+                continue
+            before = ek.window_eval_mxu.launches
+            got = ek.mxu_launch(*args, targets=n, contraction=contraction,
+                                **kw)
+            ordered = ek.mxu_launch(*args, targets=n, order=order,
+                                    contraction=contraction, **kw)
+            torch.cuda.synchronize()
+            assert ek.window_eval_mxu.launches == before + 2
+            assert _rel(got, want) < 1e-4, (contraction, n, steps)
+            assert torch.equal(ordered, got), (contraction, n, steps)
+            assert bool(torch.isfinite(got).all())
+            if prev is not None:
+                print(f"mxu R={R} K={K} gsz={gsz} steps_since={steps} "
+                      f"{contraction} {n}: {_rel(got, prev):.3e} of max|a| "
+                      f"from the previous kernel")
+        planned = ek.window_eval_mxu(*args, **kw)
+        torch.cuda.synchronize()
+        assert _rel(planned, want) < 1e-4
+
+
+@pytest.mark.parametrize("K", [0, 2])
+def test_mxu_every_instance_rounds_as_its_plain_version(cuda, K):
+    """Every instance on tight clusters ~1,000 apart on a 1/64 grid (exact
+    centres), where d^2's cancellation puts the matrix form 2-3e-2 of
+    max|a| from the row form: each lands on the plain version's rounding
+    within the JAX package's 2e-3 bar (the plain version itself is 4.9e-4
+    from JAX's there)."""
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    ng, gsz, L = 8, 64, 16
+    rng = np.random.default_rng(K)
+    pos = (rng.integers(-1000, 1000, size=(3, ng, 8, 1))
+           + rng.integers(-128, 128, size=(3, ng, 8, 8)) / 64.0)
+    far = np.zeros((ng, 8, L))
+    far[:, 0:3] = rng.integers(-4000, 4000, size=(ng, 3, L))
+    far[:, 6] = 3.0
+    near = None
+    if K:
+        near = np.stack([(np.arange(ng) + 3 + k) % ng for k in range(K)], 1)
+        near[::2, -1] = -1
+        near = torch.as_tensor(near, dtype=torch.int32, device=cuda)
+    args = tuple(torch.as_tensor(a, dtype=d, device=cuda) for a, d in (
+        (pos.reshape(3, -1), torch.float32), (np.ones(ng * gsz),
+                                              torch.float32),
+        (far, torch.float32), (rng.integers(1, L + 1, ng), torch.int32)))
+    args = args + (near, 0, 0.02)
+    kw = dict(G=0.1, softening=2.0, group_size=gsz, window_groups=1,
+              tau_clamp=24.0, far_tile=16)
+    want = ek.window_eval_mxu_reference(*args, **kw)
+    row = ek.window_eval_reference(*args[:5], 0, 0.02, G=0.1, softening=2.0,
+                                   group_size=gsz, window_groups=1)
+    assert _rel(row, want) >= 1e-2
+    for contraction, n in MXU_INSTANCES:
+        if gsz % (32 * n) and contraction == "fma":
+            continue
+        got = ek.mxu_launch(*args, targets=n, contraction=contraction, **kw)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 2e-3, (contraction, n)
+        assert _rel(got, want) <= 0.1 * _rel(row, want)
+
+
+def test_mxu_kernel_occupancy_and_refusals(cuda):
+    """Every instance reports its occupancy; an instance the group size
+    does not allow is refused by the C entry point too, and counts no
+    launch."""
+    from spatialsim_tpu_torch import _kernels
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    for gsz in (256, 1024):
+        for contraction, n in MXU_INSTANCES:
+            for R in (8, 10):
+                blocks, regs, threads = ek.mxu_occupancy(gsz, contraction, n,
+                                                         R, 2, 8)
+                assert blocks >= 1 and 0 < regs <= 255
+                assert threads == (gsz // n if contraction == "fma"
+                                   else 32 * -(-gsz // (16 * n)))
+    args = _dense_inputs(8, 64, 8, 0, 64, 0, cuda) + (0, 0.02)
+    kw = dict(G=0.1, softening=2.0, group_size=64, window_groups=2,
+              tau_clamp=24.0, far_tile=64)
+    before = ek.window_eval_mxu.launches
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ek.mxu_launch(*args, targets=4, contraction="fma", **kw)
+    out = torch.empty_like(args[0])
+    for mma, n, gsz in ((1, 2, 40), (1, 3, 64), (0, 4, 64), (0, 8, 64)):
+        err = _kernels.entry.spatialsim_window_eval_mxu(
+            args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
+            args[3].data_ptr(), None, None, out.data_ptr(), 512, 8, gsz,
+            mma, n, 2, 0, 8, 64, 64, 4.0, 0.1, 0.0, 0.0,
+            _kernels.stream(out))
+        assert err != 0, (mma, n, gsz)
+    assert ek.window_eval_mxu.launches == before
+
+
 def test_launch_path_uses_the_current_stream(cuda):
     """Under torch.cuda.stream(s) the launch path's stream is s's, every
     wrapper launches there without synchronising, and its output is right
