@@ -153,7 +153,24 @@ Morton window, 5a-6d the traversal probes.
     profiler; the launch path's pieces,
     previous and new, over 10,000 calls each; and the host enqueue time a
     call of every kernel wrapper at its main-path shape (measured in
-    phases 2, 3, 7, 11, 17 and here).
+    phases 2, 3, 7, 11, 17 and here);
+20. ``parallel/`` at 1,048,576 bodies (the 1M galaxy rounded to a
+    multiple of 8 x 256; the default config calibrated, ``pool_tile=0``):
+    (a) kernel 3's ``haloed`` and ``local_slice`` modes through the row,
+    column and matrix kernels on every shard of D = 2, 4 and 8, each shard
+    within 1e-4 of max|a| of its plain version and the concatenation of the
+    unsharded kernel's output (bit-equality reported), CUDA-event ms a
+    shard beside the unsharded launch; (b) ``build_lists_sorted`` over each
+    quarter of the groups against the full build (far_n equal where
+    neither folds, evals within 1e-4 of max|a|); (c) the sharded window
+    step through NCCL at world size 1: 4 steps across a rebuild against the
+    unsharded dense step (2e-4), the replicated fallback forced once, then
+    48 steps timed beside the unsharded dense step (kernel 3's launches
+    counted from zero: the sharded main path), the drift max-reduction's
+    cost, and 20 steps of each under the profiler; (d) the ring at 32,768
+    against the all-pairs kernel and sharded Barnes-Hut at 1,048,576
+    against the exact engine (deterministic algorithms for both, after the
+    exact engine against itself).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -931,6 +948,318 @@ def check_frame(rec_dir, frame, n):
             (float(c.min()), float(c.max())))
     print(f"    decoded frame {frame} of {rec_dir.name}: {p.shape} finite, "
           f"colours in [{c.min():.4f}, {c.max():.4f}]")
+
+
+N_SHARD = 1_048_576    # the 1M galaxy rounded to a multiple of D * 256
+SHARD_DS = (2, 4, 8)   # shard counts of phase 20 (a)
+N_RING = 32_768
+SHARD_CMP_STEPS = 4    # sharded vs unsharded, across a rebuild at step 3
+
+
+def mode_inputs(s_pos, s_mass, lists, D, r, mode, wg, gsz):
+    """Rank r of D's eval inputs in ``mode``: the haloed source sliced as
+    the sharded step slices it (``parallel/sharded.py``), or the whole
+    sorted state with the rank's group range; the rank's far lists."""
+    import torch
+    ng = lists.far_n.shape[0]
+    ngl, halo = ng // D, wg * gsz
+    g = slice(r * ngl, (r + 1) * ngl)
+    far, far_n = lists.far[g].contiguous(), lists.far_n[g].contiguous()
+    if mode == "haloed":
+        pm = torch.nn.functional.pad(torch.cat([s_pos, s_mass[None]]),
+                                     (halo, halo))
+        src = pm[:, r * ngl * gsz:(r + 1) * ngl * gsz + 2 * halo]
+        return ((src[:3].contiguous(), src[3].contiguous(), far, far_n),
+                dict(haloed=True))
+    return (s_pos, s_mass, far, far_n), dict(local_slice=(r * ngl, ngl))
+
+
+def residual_groups(lists):
+    """Groups whose lists hold a residual (a live slot without a body
+    range): the groups that folded entries."""
+    import torch
+    L = lists.far.shape[2]
+    live = (torch.arange(L, device=lists.far.device)[None, :]
+            < lists.far_n.long()[:, None])
+    rangeless = lists.far_range[:, 1] <= lists.far_range[:, 0]
+    return (live & rangeless & (lists.far[:, 6] > 0)).any(1)
+
+
+def sharded_paths(dev):
+    """Phase 20: kernel 3's modes against the unsharded kernel and the
+    plain versions (a), the sorted build's shards (b), the sharded window
+    step through NCCL at world size 1 against the unsharded step (c), and
+    make_sharded_step's ring and Barnes-Hut (d).  Returns kernel 3's
+    launches in (c)'s timed run, the sharded main path."""
+    import numpy as np
+    import torch
+    from spatialsim_tpu_torch.config.nbody import NBODY, resolve_config
+    from spatialsim_tpu_torch.models.nbody import NBodyState, make_step_fn
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    from spatialsim_tpu_torch.ops import bh_window as bw
+    from spatialsim_tpu_torch.ops.allpairs import allpairs_accel
+    from spatialsim_tpu_torch.ops.barnes_hut import barnes_hut_accel
+    from spatialsim_tpu_torch.parallel import (
+        make_mesh, make_sharded_step, make_sharded_window_step,
+        ring_allpairs_accel, shard_state, sharded_barnes_hut_accel)
+    from spatialsim_tpu_torch.parallel.collectives import pmax
+
+    n = N_SHARD
+    pos, vel, mass = galaxy(n, 0, dev)
+    t = time.perf_counter()
+    cfg = bw.calibrate_config(resolve_config(
+        NBODY.replace(num_bodies=n, pool_tile=0, near_groups=0), n),
+        pos, vel, mass)
+    torch.cuda.synchronize()
+    print(f"    calibrate_config at {n:,} bodies, pool_tile=0: "
+          f"{time.perf_counter() - t:.3f} s; tree_caps={cfg.tree_caps} "
+          f"wl_caps={cfg.wl_caps}")
+    gsz, wg = cfg.group_size, cfg.window_groups
+    ekw = bw._eval_kw(cfg)
+    st = bw.init_window_state(pos, vel, mass, cfg)
+    lists = st.lists
+    s_pos, s_mass = st.pos.contiguous(), st.mass.contiguous()
+    ng = lists.far_n.shape[0]
+    print(f"    dense lists: far {tuple(lists.far.shape)}, far_n mean "
+          f"{float(lists.far_n.float().mean()):.1f}, {ng} groups of {gsz}, "
+          f"window_groups {wg}")
+
+    # (a) the modes against the unsharded kernel and the plain versions.
+    forms = {"row": ({}, ek.window_eval_reference),
+             "cols": (dict(use_cols=True), ek.window_eval_cols_reference),
+             "mxu": (dict(use_mxu=True), ek.window_eval_mxu_reference)}
+    for form, (fkw, plain) in forms.items():
+        kw = dict(ekw, **fkw)
+        pkw = dict(ekw)
+        if form != "row":
+            kw["far_tile"] = pkw["far_tile"] = cfg.eval_far_tile
+        args = (lists.far, lists.far_n, None, 23, DT)
+        full = ek.window_eval(s_pos, s_mass, *args, **kw)
+        full_ms = cuda_ms(lambda: ek.window_eval(s_pos, s_mass, *args,
+                                                 **kw), 5)
+        amax = float(full.abs().max())
+        for D in SHARD_DS:
+            for mode in ("haloed", "local_slice"):
+                outs, ms, worst = [], [], 0.0
+                for r in range(D):
+                    a4, mkw = mode_inputs(s_pos, s_mass, lists, D, r, mode,
+                                          wg, gsz)
+                    margs = a4 + (None, 23, DT)
+                    got = ek.window_eval(*margs, **mkw, **kw)
+                    want = plain(*margs, **mkw, **pkw)
+                    torch.cuda.synchronize()
+                    worst = max(worst, kernel_errors(got, want)[1])
+                    ms.append(cuda_ms(lambda: ek.window_eval(
+                        *margs, **mkw, **kw), 3))
+                    outs.append(got)
+                cat = torch.cat(outs, 1)
+                diff = float((cat - full).abs().max())
+                equal = bool(torch.equal(cat, full))
+                print(f"    (a) {form} D={D} {mode}: shards within "
+                      f"{worst:.3e} of max|a| of the plain version (tol "
+                      f"{TOL_WINDOW}); concatenation equal bit for bit to "
+                      f"the unsharded kernel: {equal} (max|d| {diff:.3e}, "
+                      f"{diff / amax:.3e} of max|a|); ms a shard "
+                      + ", ".join(f"{m:.4f}" for m in ms)
+                      + f", summed {sum(ms):.4f}, unsharded launch "
+                        f"{full_ms:.4f}")
+                require(worst <= TOL_WINDOW, (form, D, mode, worst))
+                require(diff <= TOL_WINDOW * amax, (form, D, mode, diff))
+        del full, outs, cat, got, want
+
+    # (b) the sorted build's shards, D = 4.
+    D = 4
+    ngl = ng // D
+    bkw = bw._build_kw(cfg)
+    s_vel = st.vel.contiguous()
+    s_acc = torch.zeros_like(s_pos)
+    order = torch.arange(n, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    whole = bw.build_lists_sorted(s_pos, s_vel, s_mass, s_acc, order=order,
+                                  **bkw)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t
+    whole_acc = ek.window_eval(s_pos, s_mass, whole.far, whole.far_n, None,
+                               0, DT, **ekw)
+    folds_whole = residual_groups(whole)
+    amax = float(whole_acc.abs().max())
+    for r in range(D):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        part = bw.build_lists_sorted(s_pos, s_vel, s_mass, s_acc,
+                                     order=order, group_offset=r * ngl,
+                                     n_groups=ngl, **bkw)
+        torch.cuda.synchronize()
+        part_s = time.perf_counter() - t
+        g = slice(r * ngl, (r + 1) * ngl)
+        fold = residual_groups(part) | folds_whole[g]
+        same = part.far_n == whole.far_n[g]
+        a4, mkw = mode_inputs(s_pos, s_mass, whole, D, r, "haloed", wg, gsz)
+        got = ek.window_eval(a4[0], a4[1], part.far, part.far_n, None, 0,
+                             DT, **mkw, **ekw)
+        torch.cuda.synchronize()
+        err = float((got - whole_acc[:, g.start * gsz:g.stop * gsz]).abs()
+                    .max()) / amax
+        print(f"    (b) shard {r} of {D}: far_n equal in "
+              f"{int(same.sum())} of {ngl} groups; folds: the shard's "
+              f"build {int(residual_groups(part).sum())}, the full build's "
+              f"slice {int(folds_whole[g].sum())}; far_n mean "
+              f"{float(part.far_n.float().mean()):.1f} against "
+              f"{float(whole.far_n[g].float().mean()):.1f}; eval of its "
+              f"lists within {err:.3e} of max|a| of the full build's; "
+              f"build {part_s * 1e3:.3f} ms (the full build "
+              f"{whole_s * 1e3:.3f} ms)")
+        require(bool(same[~fold].all()), f"shard {r}: far_n differs where "
+                                         f"neither build folds")
+        require(err <= TOL_WINDOW, f"shard {r}: eval of its lists {err}")
+    del whole, whole_acc, part, st, lists
+
+    # (c) the window step through the process group at world size 1.
+    mesh = make_mesh()
+    print(f"    (c) mesh: {torch.distributed.get_backend()} world size "
+          f"{mesh.size}, rank {mesh.rank}, {mesh.device}")
+    cmp_cfg = cfg.replace(rebuild_interval=2)
+    ucfg = cmp_cfg.replace(pool_tile=0)
+    ustep = bw.make_window_step(ucfg, n)
+    ust = bw.init_window_state(pos, vel, mass, ucfg)
+    results = {}
+    for label, cap in (("sample sort", 2.0), ("replicated fallback", 1e-9)):
+        sstep, sinit = make_sharded_window_step(cmp_cfg, n, mesh,
+                                                cap_factor=cap)
+        sst = sinit(pos, vel, mass)
+        for _ in range(SHARD_CMP_STEPS):
+            sst = sstep(sst, DT)
+        results[label] = (sst, sstep)
+    for _ in range(SHARD_CMP_STEPS):
+        ust = ustep(ust, DT)
+    torch.cuda.synchronize()
+    for label, (sst, sstep) in results.items():
+        dp = float((sst.pos - ust.pos).abs().max())
+        dv = float((sst.vel - ust.vel).abs().max())
+        print(f"    (c) {label}: {SHARD_CMP_STEPS} steps (rebuilds "
+              f"{sstep.rebuilds}, fallbacks {sstep.fallbacks}) against the "
+              f"unsharded dense step (rebuilds {ustep.rebuilds}): max|dpos| "
+              f"{dp:.3e}, max|dvel| {dv:.3e}; equal bit for bit: "
+              f"{bool(torch.equal(sst.pos, ust.pos))}")
+        require(sstep.rebuilds == ustep.rebuilds == 1, label)
+        require(sstep.fallbacks == int(label != "sample sort"), label)
+        for a, b in ((sst.pos, ust.pos), (sst.vel, ust.vel)):
+            require(bool(torch.allclose(a, b, rtol=2e-4, atol=2e-4)),
+                    f"{label}: sharded vs unsharded")
+    del results, sst, ust
+    # 48 steps at the calibrated interval: the sharded main path.
+    torch.cuda.synchronize()
+    launches0 = ek.window_eval.launches
+    ek.window_eval.launches = 0
+    sstep, sinit = make_sharded_window_step(cfg, n, mesh)
+    sst = sinit(pos, vel, mass)
+    step_s = []
+    for _ in range(STEPS):
+        t = time.perf_counter()
+        sst = sstep(sst, DT)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    sharded_launches = ek.window_eval.launches
+    ek.window_eval.launches = launches0
+    print(f"    (c) sharded window step: launches of kernel 3 "
+          f"{sharded_launches} in {STEPS} steps, rebuilds {sstep.rebuilds}, "
+          f"fallbacks {sstep.fallbacks}")
+    require(sharded_launches == STEPS and sstep.rebuilds == 1,
+            (sharded_launches, sstep.rebuilds))
+    require(bool(torch.isfinite(sst.pos).all())
+            and sst.pos.shape == (3, n), "sharded state")
+    sharded_ms = report_steps("sharded window step, world size 1", step_s)
+    ust = bw.init_window_state(pos, vel, mass, cfg)
+    ustep = bw.make_window_step(cfg, n)
+    ust_s = []
+    for _ in range(STEPS):
+        t = time.perf_counter()
+        ust = ustep(ust, DT)
+        torch.cuda.synchronize()
+        ust_s.append(time.perf_counter() - t)
+    dense_ms = report_steps("unsharded dense window step", ust_s)
+    print(f"    (c) median step sharded / unsharded dense: "
+          f"{sharded_ms / dense_ms:.4f}")
+    # Where a plain step's time goes: 20 steps from a fresh state (the
+    # first rebuild comes at step 25), each engine under the profiler.
+    engines = {
+        "sharded window step": make_sharded_window_step(cfg, n, mesh),
+        "unsharded dense window step": (
+            bw.make_window_step(cfg, n),
+            functools.partial(bw.init_window_state, config=cfg)),
+    }
+    for label, (stepper, init) in engines.items():
+        box = [init(pos, vel, mass)]
+
+        def one():
+            box[0] = stepper(box[0], DT)
+        profile_steps(f"{label}, 20 steps between rebuilds", one, 20)
+    del engines, box
+    drift = (sst.pos - sst.lists.ref_pos).abs().amax()
+    for label, fn in (("host drift read", lambda: float(drift)),
+                      ("drift pmax + host read", lambda: float(
+                          pmax(drift, mesh)))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(100):
+            fn()
+        print(f"    (c) {label}: {(time.perf_counter() - t) * 1e4:.2f} us "
+              f"a step (100 calls)")
+    del sst, ust
+
+    # (d) make_sharded_step: the ring and sharded Barnes-Hut.
+    rpos, rvel, rmass = galaxy(N_RING, 0, dev)
+    ring = ring_allpairs_accel(rpos, rmass, mesh, NBODY.G, NBODY.softening)
+    ap = allpairs_accel(rpos, rmass, NBODY.G, NBODY.softening)
+    torch.cuda.synchronize()
+    d = float((ring - ap).abs().max())
+    print(f"    (d) ring at {N_RING:,} against the all-pairs kernel: "
+          f"max|da| {d:.3e}, {d / float(ap.abs().max()):.3e} of max|a|")
+    require(bool(torch.allclose(ring, ap, rtol=2e-4, atol=2e-5)), "ring")
+    rcfg = resolve_config(NBODY.replace(num_bodies=N_RING), N_RING)
+    a = make_sharded_step(rcfg, N_RING, mesh, engine="allpairs")(
+        shard_state(NBodyState(rpos, rvel, rmass), mesh), DT)
+    b = make_step_fn(rcfg, N_RING, engine="allpairs")(
+        NBodyState(rpos, rvel, rmass), DT)
+    require(bool(torch.allclose(a.pos, b.pos, rtol=2e-4, atol=2e-4)),
+            "ring step")
+    # The octree's moments are index_add_ segment sums, whose float atomics
+    # on the card make two builds of one state differ in the last bits:
+    # the exact engine against itself first, then both engines under
+    # deterministic algorithms, where only the sharding can differ.
+    bcfg = NBODY.replace(num_bodies=n)
+    e1, e2 = (barnes_hut_accel(pos, mass, bcfg) for _ in range(2))
+    d = float((e1 - e2).abs().max())
+    print(f"    (d) the exact engine at {n:,} against itself: max|da| "
+          f"{d:.3e}, {d / float(e1.abs().max()):.3e} of max|a|; within "
+          f"rtol 2e-4, atol 1e-5: "
+          f"{bool(torch.allclose(e1, e2, rtol=2e-4, atol=1e-5))}")
+    del e1, e2
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t = time.perf_counter()
+        sbh = sharded_barnes_hut_accel(pos, mass, mesh, bcfg)
+        torch.cuda.synchronize()
+        sbh_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ebh = barnes_hut_accel(pos, mass, bcfg)
+        torch.cuda.synchronize()
+        ebh_s = time.perf_counter() - t
+    finally:
+        torch.use_deterministic_algorithms(False)
+    d = float((sbh - ebh).abs().max())
+    print(f"    (d) sharded Barnes-Hut at {n:,}, deterministic algorithms: "
+          f"{sbh_s:.3f} s against the exact engine's {ebh_s:.3f} s; "
+          f"max|da| {d:.3e}, {d / float(ebh.abs().max()):.3e} of max|a|; "
+          f"equal bit for bit: {bool(torch.equal(sbh, ebh))}")
+    require(bool(torch.allclose(sbh, ebh, rtol=2e-4, atol=1e-5)),
+            "sharded Barnes-Hut")
+    torch.distributed.destroy_process_group()
+    del sbh, ebh, ring, ap, a, b
+    torch.cuda.empty_cache()
+    return sharded_launches
 
 
 def main() -> int:
@@ -2410,6 +2739,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     done(t0)
 
+    # ---- 20. the sharded paths ----------------------------------------------
+    t0 = phase("20. parallel/: kernel 3's haloed and local_slice modes, the "
+               "sorted build's shards, the sharded window step (NCCL, world "
+               "size 1), the ring and sharded Barnes-Hut")
+    sharded_launches = sharded_paths(dev)
+    done(t0)
+
     print(f"\ntotal seconds: {time.perf_counter() - wall0:.3f}")
     src = "spatialsim_tpu_torch/csrc"
     summary = {"kernels": [
@@ -2430,7 +2766,8 @@ def main() -> int:
              source=f"{src}/window_eval.cu",
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:432",
              launches=(quad_launches + launches_50m + near_launches
-                       + ab_launches.get("window_eval", 0)),
+                       + ab_launches.get("window_eval", 0)
+                       + sharded_launches),
              **kernels["window_eval"]),
         dict(name="window_eval_cols", route="cuda",
              source=f"{src}/window_eval_cols.cu",

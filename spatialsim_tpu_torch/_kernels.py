@@ -67,15 +67,15 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "spatialsim_window_eval_pool_occupancy": (_I, _I, _P),
     "spatialsim_window_eval": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _F, _F, _F, _P),
+                               _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "spatialsim_window_eval_occupancy": (_I, _I, _I, _I, _I, _P),
     "spatialsim_window_eval_cols": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
-                                    _P),
+                                    _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                                    _F, _P),
     "spatialsim_window_eval_cols_occupancy": (_I, _I, _I, _I, _I, _P),
     "spatialsim_window_eval_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                                   _F, _P),
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                   _F, _F, _P),
     "spatialsim_window_eval_mxu_occupancy": (_I, _I, _I, _I, _I, _I, _P),
     "spatialsim_boids_window": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                                 _I, _I, _P),

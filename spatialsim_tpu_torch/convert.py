@@ -12,6 +12,9 @@ into the port's eval, which holds eval parity apart from build parity.
                                    jl.far_n, jl.far_range, jl.near,
                                    jl.ref_pos, int(jl.steps_since))
     state = boids_window_state_from_numpy(*jax_boids_window_state)
+    rank_state = sharded_window_state_from_numpy(
+        st.pos, st.vel, st.mass, jl.order, jl.inv_order, jl.far, jl.far_n,
+        jl.far_range, jl.ref_pos, acc=st.acc, rank=r, world_size=D)
 """
 
 from __future__ import annotations
@@ -86,3 +89,34 @@ def boids_window_state_from_numpy(pos, vel, col, order1, inv1, p21, s21,
     f32 = (_t(a, torch.float32, device) for a in (pos, vel, col))
     i64 = (_t(a, torch.int64, device) for a in (order1, inv1, p21, s21))
     return BoidsWindowState(*f32, *i64, int(steps_since))
+
+
+def sharded_window_state_from_numpy(pos, vel, mass, order, inv_order, far,
+                                    far_n, far_range, ref_pos, acc=None,
+                                    steps_since: int = 0,
+                                    steps_build: Optional[int] = None, *,
+                                    rank: int, world_size: int,
+                                    device="cpu") -> WindowBHState:
+    """One rank's state of the sharded window step
+    (``spatialsim_tpu_torch.parallel.sharded.make_sharded_window_step``)
+    from the JAX package's sharded window state, its arrays whole: the
+    sorted-layout ``pos``/``vel``/``mass``/``ref_pos``/``acc`` and the dense
+    ``far``/``far_n``/``far_range`` lose all but the rank's contiguous block
+    (bodies, groups); ``order`` and ``inv_order`` stay whole, as JAX
+    replicates them."""
+    def bodies(a):
+        a = np.asarray(a)
+        k = a.shape[-1] // world_size
+        return a[..., rank * k:(rank + 1) * k]
+
+    def groups(a):
+        a = np.asarray(a)
+        k = a.shape[0] // world_size
+        return a[rank * k:(rank + 1) * k]
+
+    lists = dense_lists_from_numpy(
+        order, inv_order, groups(far), groups(far_n), groups(far_range),
+        None, bodies(ref_pos), steps_since, steps_build, device=device)
+    return window_state_from_numpy(
+        bodies(pos), bodies(vel), bodies(mass), lists,
+        None if acc is None else bodies(acc), device=device)

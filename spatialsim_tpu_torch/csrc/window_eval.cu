@@ -39,6 +39,14 @@
 // pays nothing for Q, and on T.  Offsets into the far tensor are size_t
 // (800M floats at 50M).  `order` (optional) maps block i to group
 // order[i], so the wrapper can launch heavy groups first.
+//
+// Call modes (pallas_window_eval's haloed and local_slice): the kernel
+// evaluates ng groups of a source of ngs groups, and group g reads source
+// group g + g0 as its targets and g + g0 - wg .. g + g0 + wg as its window
+// (clipped to the source, as above).  far, far_n, near and order are
+// indexed by g, and the output is (3, ng * gsz).  The whole state is g0 = 0,
+// ngs = ng; a haloed shard g0 = wg, ngs = ng + 2 wg; a local slice g0 =
+// its first group of the global state.  The modes take no near groups.
 
 #include <cuda_runtime.h>
 
@@ -66,7 +74,7 @@ __global__ void __launch_bounds__(1024 / T) window_eval_kernel(
     const float* __restrict__ pos, const float* __restrict__ mass,
     const float* __restrict__ far, const int* __restrict__ far_n,
     const int* __restrict__ near, const int* __restrict__ order,
-    float* __restrict__ out, int npad, int ng, int wg, int K, int L,
+    float* __restrict__ out, int ng, int g0, int ngs, int wg, int K, int L,
     float soft_sq, float G, float tau, float coef2) {
   constexpr bool kQuad = quad_rows(R);
   constexpr int kAcc = (R == 10) ? 7 : (R == 16) ? 13 : -1;
@@ -77,6 +85,8 @@ __global__ void __launch_bounds__(1024 / T) window_eval_kernel(
   const int tid = threadIdx.x;
   const int gsz = nthr * T;
   const int g = order ? order[blockIdx.x] : blockIdx.x;
+  const int gs = g + g0;                               // its source group
+  const size_t npad = static_cast<size_t>(ngs) * gsz;  // source slots
   float4* q4 = sh4 + 2 * stride;                       // quadrupole only
   float2* q2 = reinterpret_cast<float2*>(q4 + (kQuad ? 2 * stride : 0));
   int* groups = reinterpret_cast<int*>(q2 + (kQuad ? 2 * stride : 0));
@@ -92,19 +102,18 @@ __global__ void __launch_bounds__(1024 / T) window_eval_kernel(
   // The window groups in range, then the valid near ids.
   if (tid == 0) {
     int c = 0;
-    for (int h = max(g - wg, 0); h <= min(g + wg, ng - 1); ++h) {
+    for (int h = max(gs - wg, 0); h <= min(gs + wg, ngs - 1); ++h) {
       groups[1 + c++] = h;
     }
     for (int k = 0; k < K; ++k) {
       const int h = near[static_cast<size_t>(g) * K + k];
-      if (h >= 0 && h < ng) groups[1 + c++] = h;
+      if (h >= 0 && h < ngs) groups[1 + c++] = h;
     }
     groups[0] = c;
   }
 
   Targets<T> t;
-  const size_t b0 = static_cast<size_t>(g) * gsz + tid;
-  t.load(pos, npad, b0, nthr);
+  t.load(pos, npad, static_cast<size_t>(gs) * gsz + tid, nthr);
   const int n = min(max(far_n[g], 0), L);
   const float* fg = far + static_cast<size_t>(g) * R * L;
   __syncthreads();
@@ -120,7 +129,7 @@ __global__ void __launch_bounds__(1024 / T) window_eval_kernel(
                        + (b % T) * nthr + tid;
       r[0] = pos[s];
       r[1] = pos[npad + s];
-      r[2] = pos[2 * static_cast<size_t>(npad) + s];
+      r[2] = pos[2 * npad + s];
       r[3] = mass[s];
     } else {
       const int e = (b - n_win) * nthr + tid;
@@ -171,7 +180,8 @@ __global__ void __launch_bounds__(1024 / T) window_eval_kernel(
     if (more) stage(b + 1, (b + 1) & 1);
     __syncthreads();
   }
-  t.store(out, npad, b0, nthr, G);
+  t.store(out, static_cast<size_t>(ng) * gsz,
+          static_cast<size_t>(g) * gsz + tid, nthr, G);
 }
 
 // Dispatch on T at a fixed R; `op` is called with the kernel instance.
@@ -205,10 +215,11 @@ bool valid(int gsz, int T, int wg, int K) {
 
 extern "C" int spatialsim_window_eval(
     const float* pos, const float* mass, const float* far, const int* far_n,
-    const int* near, const int* order, float* out, int npad, int ng, int gsz,
-    int T, int wg, int K, int R, int L, float soft_sq, float G, float tau,
-    float coef2, void* stream) {
-  if (!valid(gsz, T, wg, K) || (K > 0 && near == nullptr)) {
+    const int* near, const int* order, float* out, int ng, int g0, int ngs,
+    int gsz, int T, int wg, int K, int R, int L, float soft_sq, float G,
+    float tau, float coef2, void* stream) {
+  if (!valid(gsz, T, wg, K) || (K > 0 && near == nullptr)
+      || !window_tile::valid_range(ng, g0, ngs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nthr = gsz / T;
@@ -218,7 +229,7 @@ extern "C" int spatialsim_window_eval(
     const cudaError_t err = window_tile::allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<ng, nthr, smem, s>>>(pos, mass, far, far_n, near, order, out,
-                                  npad, ng, wg, K, L, soft_sq, G, tau,
+                                  ng, g0, ngs, wg, K, L, soft_sq, G, tau,
                                   coef2);
     return cudaGetLastError();
   }));

@@ -38,7 +38,8 @@
 // advanced on their way to shared memory; `order` (optional) launches
 // heavy groups first.  The 8 partials are the form's own instruction-level
 // parallelism (8 independent FMA chains a component and target) and its
-// cost in registers: 24 T accumulators a thread (Targets::sum_cols).
+// cost in registers: 24 T accumulators a thread (Targets::sum_cols).  The
+// call modes (ng groups from source group g0 of ngs) are window_eval.cu's.
 
 #include <cuda_runtime.h>
 
@@ -61,7 +62,7 @@ __global__ void __launch_bounds__(1024 / T) window_eval_cols_kernel(
     const float* __restrict__ pos, const float* __restrict__ mass,
     const float* __restrict__ far, const int* __restrict__ far_n,
     const int* __restrict__ near, const int* __restrict__ order,
-    float* __restrict__ out, int npad, int ng, int wg, int K, int L,
+    float* __restrict__ out, int ng, int g0, int ngs, int wg, int K, int L,
     int tile, float soft_sq, float G, float tau, float coef2) {
   constexpr int kAcc = (R == 10) ? 7 : -1;
   constexpr int kRaw = 7 + (kAcc >= 0 ? 3 : 0);
@@ -71,6 +72,8 @@ __global__ void __launch_bounds__(1024 / T) window_eval_cols_kernel(
   const int tid = threadIdx.x;
   const int gsz = nthr * T;
   const int g = order ? order[blockIdx.x] : blockIdx.x;
+  const int gs = g + g0;                               // its source group
+  const size_t npad = static_cast<size_t>(ngs) * gsz;  // source slots
   int* groups = reinterpret_cast<int*>(sh4 + 2 * stride);
 
   // Slots past nthr (when nthr is not a multiple of 8) stay zero.
@@ -80,19 +83,18 @@ __global__ void __launch_bounds__(1024 / T) window_eval_cols_kernel(
   // The window groups in range, then the valid near ids.
   if (tid == 0) {
     int c = 0;
-    for (int h = max(g - wg, 0); h <= min(g + wg, ng - 1); ++h) {
+    for (int h = max(gs - wg, 0); h <= min(gs + wg, ngs - 1); ++h) {
       groups[1 + c++] = h;
     }
     for (int k = 0; k < K; ++k) {
       const int h = near[static_cast<size_t>(g) * K + k];
-      if (h >= 0 && h < ng) groups[1 + c++] = h;
+      if (h >= 0 && h < ngs) groups[1 + c++] = h;
     }
     groups[0] = c;
   }
 
   Targets<T> t;
-  const size_t b0 = static_cast<size_t>(g) * gsz + tid;
-  t.load(pos, npad, b0, nthr);
+  t.load(pos, npad, static_cast<size_t>(gs) * gsz + tid, nthr);
   const int n0 = min(max(far_n[g], 0), L);
   const int n = min((n0 + tile - 1) / tile * tile, L);   // whole tiles
   const float* fg = far + static_cast<size_t>(g) * R * L;
@@ -109,7 +111,7 @@ __global__ void __launch_bounds__(1024 / T) window_eval_cols_kernel(
                        + (b % T) * nthr + tid;
       r[0] = pos[s];
       r[1] = pos[npad + s];
-      r[2] = pos[2 * static_cast<size_t>(npad) + s];
+      r[2] = pos[2 * npad + s];
       r[3] = mass[s];
     } else {
       const int e = (b - n_win) * nthr + tid;
@@ -149,7 +151,8 @@ __global__ void __launch_bounds__(1024 / T) window_eval_cols_kernel(
     if (more) stage(b + 1, (b + 1) & 1);
     __syncthreads();
   }
-  t.store(out, npad, b0, nthr, G);
+  t.store(out, static_cast<size_t>(ng) * gsz,
+          static_cast<size_t>(g) * gsz + tid, nthr, G);
 }
 
 // Dispatch on (R, T); `op` is called with the kernel instance.
@@ -181,11 +184,12 @@ bool valid(int gsz, int T, int wg, int K) {
 
 extern "C" int spatialsim_window_eval_cols(
     const float* pos, const float* mass, const float* far, const int* far_n,
-    const int* near, const int* order, float* out, int npad, int ng, int gsz,
-    int T, int wg, int K, int R, int L, int tile, float soft_sq, float G,
-    float tau, float coef2, void* stream) {
+    const int* near, const int* order, float* out, int ng, int g0, int ngs,
+    int gsz, int T, int wg, int K, int R, int L, int tile, float soft_sq,
+    float G, float tau, float coef2, void* stream) {
   if (!valid(gsz, T, wg, K) || L % 8 || tile < 8 || tile % 8
-      || (K > 0 && near == nullptr)) {
+      || (K > 0 && near == nullptr)
+      || !window_tile::valid_range(ng, g0, ngs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nthr = gsz / T;
@@ -195,8 +199,8 @@ extern "C" int spatialsim_window_eval_cols(
     const cudaError_t err = window_tile::allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<ng, nthr, smem, s>>>(pos, mass, far, far_n, near, order, out,
-                                  npad, ng, wg, K, L, tile, soft_sq, G, tau,
-                                  coef2);
+                                  ng, g0, ngs, wg, K, L, tile, soft_sq, G,
+                                  tau, coef2);
     return cudaGetLastError();
   }));
 }

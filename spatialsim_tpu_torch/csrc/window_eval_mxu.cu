@@ -60,6 +60,10 @@
 // card: the "mma" instance issues fewer instructions a pair, but at its
 // registers fewer warps stay resident and it issues fewer a clock, so
 // the tile was the faster (PERF.md, kernel 3c).
+//
+// Both instances take window_eval.cu's call modes: ng groups from source
+// group g0 of ngs, targets, centre and window read at g + g0, the output
+// (3, ng * gsz) written at g.
 
 #include <cstdint>
 
@@ -103,16 +107,18 @@ size_t smem_bytes(int stride, bool mma, int wg, int K) {
 
 // The window groups in range, then the valid near ids, into groups[1..];
 // their count into groups[0].  One thread.
-__device__ __forceinline__ void group_list(int* groups, int g, int ng,
-                                           int wg, int K,
+// Group g's window is source groups gs - wg .. gs + wg (gs = g + g0) in
+// [0, ngs); its near ids are near[g, :].
+__device__ __forceinline__ void group_list(int* groups, int g, int gs,
+                                           int ngs, int wg, int K,
                                            const int* __restrict__ near) {
   int c = 0;
-  for (int h = max(g - wg, 0); h <= min(g + wg, ng - 1); ++h) {
+  for (int h = max(gs - wg, 0); h <= min(gs + wg, ngs - 1); ++h) {
     groups[1 + c++] = h;
   }
   for (int k = 0; k < K; ++k) {
     const int h = near[static_cast<size_t>(g) * K + k];
-    if (h >= 0 && h < ng) groups[1 + c++] = h;
+    if (h >= 0 && h < ngs) groups[1 + c++] = h;
   }
   groups[0] = c;
 }
@@ -241,10 +247,10 @@ __device__ __forceinline__ Sources<R> prologue(
     const float* __restrict__ pos, const float* __restrict__ mass,
     const float* __restrict__ far, const int* __restrict__ far_n,
     const int* __restrict__ near, int* groups, double (*red)[32], int g,
-    int npad, int ng, int gsz, int wg, int K, int L, int tile, float tau,
-    float coef2, float3& c) {
-  if (threadIdx.x == 0) group_list(groups, g, ng, wg, K, near);
-  c = group_centre(pos, npad, static_cast<size_t>(g) * gsz, gsz, red);
+    int gs, size_t npad, int ngs, int gsz, int wg, int K, int L, int tile,
+    float tau, float coef2, float3& c) {
+  if (threadIdx.x == 0) group_list(groups, g, gs, ngs, wg, K, near);
+  c = group_centre(pos, npad, static_cast<size_t>(gs) * gsz, gsz, red);
   Sources<R> src;
   src.pos = pos;
   src.mass = mass;
@@ -269,23 +275,26 @@ __global__ void __launch_bounds__(1024 / T) window_eval_mxu_tile_kernel(
     const float* __restrict__ pos, const float* __restrict__ mass,
     const float* __restrict__ far, const int* __restrict__ far_n,
     const int* __restrict__ near, const int* __restrict__ order,
-    float* __restrict__ out, int npad, int ng, int gsz, int wg, int K, int L,
-    int tile, float soft_sq, float G, float tau, float coef2) {
+    float* __restrict__ out, int ng, int g0, int ngs, int gsz, int wg, int K,
+    int L, int tile, float soft_sq, float G, float tau, float coef2) {
   extern __shared__ float4 sh4[];
   __shared__ double red[3][32];
   const int nthr = blockDim.x;              // gsz / T
   const int stride = nthr;                  // a multiple of 32
   const int tid = threadIdx.x;
   const int g = order ? order[blockIdx.x] : blockIdx.x;
+  const int gs = g + g0;                    // its source group
+  const size_t npad = static_cast<size_t>(ngs) * gsz;   // source slots
   float* shm = reinterpret_cast<float*>(sh4 + 2 * stride);
   int* groups = reinterpret_cast<int*>(shm + 2 * stride);
 
   float3 c;
   Sources<R> src = prologue<R>(pos, mass, far, far_n, near, groups, red, g,
-                               npad, ng, gsz, wg, K, L, tile, tau, coef2, c);
+                               gs, npad, ngs, gsz, wg, K, L, tile, tau,
+                               coef2, c);
   Centred<T> t;
-  const size_t b0 = static_cast<size_t>(g) * gsz + tid;
-  t.load(pos, npad, b0, nthr, c.x, c.y, c.z);
+  t.load(pos, npad, static_cast<size_t>(gs) * gsz + tid, nthr, c.x, c.y,
+         c.z);
 
   auto stage = [&](int b, int p) {
     float m;
@@ -304,7 +313,8 @@ __global__ void __launch_bounds__(1024 / T) window_eval_mxu_tile_kernel(
     if (more) stage(b + 1, (b + 1) & 1);
     __syncthreads();
   }
-  t.store(out, npad, b0, nthr, G);
+  t.store(out, static_cast<size_t>(ng) * gsz,
+          static_cast<size_t>(g) * gsz + tid, nthr, G);
 }
 
 // cvt.rna.tf32.f32 of a finite x: the nearest TF32, ties away from zero,
@@ -334,8 +344,8 @@ __global__ void __launch_bounds__(kThreads) window_eval_mxu_mma_kernel(
     const float* __restrict__ pos, const float* __restrict__ mass,
     const float* __restrict__ far, const int* __restrict__ far_n,
     const int* __restrict__ near, const int* __restrict__ order,
-    float* __restrict__ out, int npad, int ng, int gsz, int wg, int K, int L,
-    int tile, float soft_sq, float G, float tau, float coef2) {
+    float* __restrict__ out, int ng, int g0, int ngs, int gsz, int wg, int K,
+    int L, int tile, float soft_sq, float G, float tau, float coef2) {
   extern __shared__ float4 sh4[];
   __shared__ double red[3][32];
   const int nthr = blockDim.x;
@@ -344,25 +354,28 @@ __global__ void __launch_bounds__(kThreads) window_eval_mxu_mma_kernel(
   const int lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, q = lane & 3;
   const int g = order ? order[blockIdx.x] : blockIdx.x;
+  const int gs = g + g0;                    // its source group
+  const size_t npad = static_cast<size_t>(ngs) * gsz;   // source slots
+  const size_t npad_out = static_cast<size_t>(ng) * gsz;
   float4* shb = sh4 + 2 * stride;           // B columns, two float4 a source
   float* shm = reinterpret_cast<float*>(shb + 4 * stride);
   int* groups = reinterpret_cast<int*>(shm + 2 * stride);
 
   float3 c;
   Sources<R> src = prologue<R>(pos, mass, far, far_n, near, groups, red, g,
-                               npad, ng, gsz, wg, K, L, tile, tau, coef2, c);
+                               gs, npad, ngs, gsz, wg, K, L, tile, tau,
+                               coef2, c);
 
   // Targets of rows gq + 8 h of tile i: -2 t_c and |t_c|^2.
   float nx[M][2], ny[M][2], nz[M][2], ti[M][2];
-  const size_t base = static_cast<size_t>(g) * gsz;
+  const size_t base = static_cast<size_t>(gs) * gsz;
 #pragma unroll
   for (int i = 0; i < M; ++i) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const size_t b =
           base + min((warp * M + i) * 16 + gq + 8 * h, gsz - 1);
-      mxu_target(pos[b], pos[npad + b],
-                 pos[2 * static_cast<size_t>(npad) + b], c.x, c.y, c.z,
+      mxu_target(pos[b], pos[npad + b], pos[2 * npad + b], c.x, c.y, c.z,
                  nx[i][h], ny[i][h], nz[i][h], ti[i][h]);
     }
   }
@@ -463,11 +476,12 @@ __global__ void __launch_bounds__(kThreads) window_eval_mxu_mma_kernel(
       const float wy = q == 0 ? s[1] : r1;
       const float wz = q == 0 ? r0 : s[2];
       const float ws = q == 0 ? r1 : s[3];
-      const size_t b = base + row;
+      const size_t b = static_cast<size_t>(g) * gsz + row;
       // Selects, not an index by q: the targets stay in registers.
       out[b] = mxu_accel(wx, q == 0 ? nx[i][0] : nx[i][1], ws, G);
-      out[npad + b] = mxu_accel(wy, q == 0 ? ny[i][0] : ny[i][1], ws, G);
-      out[2 * static_cast<size_t>(npad) + b] =
+      out[npad_out + b] =
+          mxu_accel(wy, q == 0 ? ny[i][0] : ny[i][1], ws, G);
+      out[2 * npad_out + b] =
           mxu_accel(wz, q == 0 ? nz[i][0] : nz[i][1], ws, G);
     }
   }
@@ -517,11 +531,12 @@ cudaError_t with_r(int R, bool mma, int n, int nthr, Op op) {
 
 extern "C" int spatialsim_window_eval_mxu(
     const float* pos, const float* mass, const float* far, const int* far_n,
-    const int* near, const int* order, float* out, int npad, int ng, int gsz,
-    int mma, int n, int wg, int K, int R, int L, int tile, float soft_sq,
-    float G, float tau, float coef2, void* stream) {
+    const int* near, const int* order, float* out, int ng, int g0, int ngs,
+    int gsz, int mma, int n, int wg, int K, int R, int L, int tile,
+    float soft_sq, float G, float tau, float coef2, void* stream) {
   if (!valid(gsz, mma != 0, n, wg, K) || tile < 1 || L < 1
-      || (K > 0 && near == nullptr)) {
+      || (K > 0 && near == nullptr)
+      || !window_tile::valid_range(ng, g0, ngs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nthr = threads(gsz, mma != 0, n);
@@ -531,8 +546,8 @@ extern "C" int spatialsim_window_eval_mxu(
     const cudaError_t err = window_tile::allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<ng, nthr, smem, s>>>(pos, mass, far, far_n, near, order, out,
-                                  npad, ng, gsz, wg, K, L, tile, soft_sq, G,
-                                  tau, coef2);
+                                  ng, g0, ngs, gsz, wg, K, L, tile, soft_sq,
+                                  G, tau, coef2);
     return cudaGetLastError();
   }));
 }

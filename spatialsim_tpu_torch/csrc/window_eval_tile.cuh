@@ -41,6 +41,12 @@ __host__ __device__ __forceinline__ int round_up8(int n) {
   return (n + 7) & ~7;
 }
 
+// The dense kernels' call modes: ng >= 1 groups from source group g0 on
+// lie in the source's ngs groups (window_eval.cu).
+inline bool valid_range(int ng, int g0, int ngs) {
+  return ng >= 1 && g0 >= 0 && ngs >= ng && g0 <= ngs - ng;
+}
+
 // u.v as an FMA chain: fma(uz, vz, fma(uy, vy, ux * vx)), as XLA rounds a
 // three-term contraction.
 __device__ __forceinline__ float dot3_fma(float ux, float uy, float uz,

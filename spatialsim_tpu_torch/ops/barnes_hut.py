@@ -144,49 +144,71 @@ def _traverse_groups(gpos, bbox_min, bbox_max, tree, sorted_pos,
                              soft_sq)
 
 
+def sorted_tree(pos, mass, *, max_depth, group_size, start_level=2,
+                frontier_cap=512, npad=None):
+    """Morton sort + octree of the exact engine: ``(order, sorted_pos,
+    sorted_mass, tree)``.  The sorted stream is padded to ``npad`` slots
+    (whole groups by default) with zero-mass clones of the last body,
+    which join its cell and exert no force."""
+    n = pos.shape[1]
+    half = compute_bounds(pos)
+    codes = morton_encode(pos, half, max_depth)
+    order = torch.argsort(codes, stable=True)
+    gsz = group_size
+    npad = npad or ((n + gsz - 1) // gsz) * gsz
+    pad = npad - n
+    sorted_codes = torch.cat([codes[order], codes[order[-1:]].expand(pad)])
+    sorted_pos = torch.cat([pos[:, order],
+                            pos[:, order[-1:]].expand(3, pad)], dim=1)
+    sorted_mass = torch.cat([mass[order], mass.new_zeros(pad)])
+    if 8 ** start_level > frontier_cap:
+        raise ValueError("start_level cells exceed frontier capacity")
+    tree = build_octree(sorted_codes, sorted_pos, sorted_mass, half,
+                        max_depth=max_depth, start_level=start_level, n=npad)
+    return order, sorted_pos, sorted_mass, tree
+
+
+def traverse_range(sorted_pos, sorted_mass, tree, g0, g1, *, theta, G,
+                   softening, leaf_size, group_size, frontier_cap,
+                   near_ranges, group_chunk=64):
+    """Sorted-order accelerations ``(3, (g1 - g0) * group_size)`` of the
+    groups ``g0 .. g1`` of the sorted stream, walked ``group_chunk``
+    groups at a time."""
+    gsz = group_size
+    npad = sorted_pos.shape[1]
+    gpos = sorted_pos[:, g0 * gsz:g1 * gsz].reshape(3, g1 - g0, gsz)
+    gpos = gpos.permute(1, 0, 2)                              # (ng, 3, gsz)
+    bbox_min = gpos.amin(dim=2)                                  # (ng, 3)
+    bbox_max = gpos.amax(dim=2)
+    acc = torch.empty_like(gpos)
+    for c0 in range(0, g1 - g0, group_chunk):
+        c1 = min(g1 - g0, c0 + group_chunk)
+        acc[c0:c1] = _traverse_groups(
+            gpos[c0:c1], bbox_min[c0:c1], bbox_max[c0:c1], tree, sorted_pos,
+            sorted_mass, theta=float(theta), G=float(G),
+            soft_sq=float(softening) * float(softening),
+            leaf_size=leaf_size, frontier_cap=frontier_cap,
+            near_ranges=near_ranges, n=npad)
+    return acc.permute(1, 0, 2).reshape(3, (g1 - g0) * gsz)
+
+
 def barnes_hut_accel_impl(pos, mass, *, theta, G, softening, max_depth=10,
                           leaf_size=8, group_size=256, frontier_cap=512,
                           near_ranges=256, start_level=2, group_chunk=64):
     """Barnes-Hut accelerations at ``(3, N)`` f32 positions and ``(N,)``
     masses; returns ``(3, N)`` f32 in the caller's body order."""
     n = pos.shape[1]
-    dev = pos.device
-    half = compute_bounds(pos)
-    codes = morton_encode(pos, half, max_depth)
-    order = torch.argsort(codes, stable=True)
-
-    # Pad the sorted stream to whole groups with zero-mass clones of the
-    # last body (they join its cell; zero mass, no force).
-    gsz = group_size
-    npad = ((n + gsz - 1) // gsz) * gsz
-    pad = npad - n
-    sorted_codes = torch.cat([codes[order], codes[order[-1:]].expand(pad)])
-    sorted_pos = torch.cat([pos[:, order],
-                            pos[:, order[-1:]].expand(3, pad)], dim=1)
-    sorted_mass = torch.cat([mass[order], mass.new_zeros(pad)])
-
-    if 8 ** start_level > frontier_cap:
-        raise ValueError("start_level cells exceed frontier capacity")
-    tree = build_octree(sorted_codes, sorted_pos, sorted_mass, half,
-                        max_depth=max_depth, start_level=start_level, n=npad)
-
-    ng = npad // gsz
-    gpos = sorted_pos.reshape(3, ng, gsz).permute(1, 0, 2)      # (ng, 3, gsz)
-    bbox_min = gpos.amin(dim=2)                                  # (ng, 3)
-    bbox_max = gpos.amax(dim=2)
-    acc_sorted = torch.empty((ng, 3, gsz), dtype=pos.dtype, device=dev)
-    for g0 in range(0, ng, group_chunk):
-        g1 = min(ng, g0 + group_chunk)
-        acc_sorted[g0:g1] = _traverse_groups(
-            gpos[g0:g1], bbox_min[g0:g1], bbox_max[g0:g1], tree, sorted_pos,
-            sorted_mass, theta=float(theta), G=float(G),
-            soft_sq=float(softening) * float(softening),
-            leaf_size=leaf_size, frontier_cap=frontier_cap,
-            near_ranges=near_ranges, n=npad)
-    acc_sorted = acc_sorted.permute(1, 0, 2).reshape(3, npad)
+    order, sorted_pos, sorted_mass, tree = sorted_tree(
+        pos, mass, max_depth=max_depth, group_size=group_size,
+        start_level=start_level, frontier_cap=frontier_cap)
+    acc_sorted = traverse_range(
+        sorted_pos, sorted_mass, tree, 0, sorted_pos.shape[1] // group_size,
+        theta=theta, G=G, softening=softening, leaf_size=leaf_size,
+        group_size=group_size, frontier_cap=frontier_cap,
+        near_ranges=near_ranges, group_chunk=group_chunk)
 
     # Back to the caller's body order.
-    out = torch.empty((3, n), dtype=pos.dtype, device=dev)
+    out = torch.empty((3, n), dtype=pos.dtype, device=pos.device)
     out[:, order] = acc_sorted[:, :n]
     return out
 

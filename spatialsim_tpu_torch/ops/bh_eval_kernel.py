@@ -31,6 +31,12 @@ d/r^7``.  G multiplies once at the end.  Two far layouts:
     tensor cores; :func:`mxu_plan` picks one, :func:`mxu_launch` takes it
     explicitly.
 
+The dense forms take the JAX package's call modes (:func:`eval_mode`):
+``haloed`` (the source carries ``window_groups`` halo groups on each side
+of the evaluated shard) and ``local_slice=(group_offset, n_groups)`` (one
+group range of the whole sorted state); the sharded window step
+(``spatialsim_tpu_torch/parallel/sharded.py``) evaluates its shard so.
+
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version for CPU tensors.  The plain versions chunk over groups (a
 ``(ng, 256, 6144)`` pair tensor at 1M bodies would not fit).  The pooled
@@ -325,40 +331,80 @@ def _quad_sum(tx, ty, tz, sx, sy, sz, sm, q6, soft_sq):
 
 
 
-def _dense_chunks(s_pos, s_mass, near, n_far, gsz, wg, groups):
+def _dense_chunks(s_pos, s_mass, near, n_far, gsz, wg, groups, g0=0,
+                  ng=None):
     """Chunks of the dense eval's groups, for the plain versions.
 
     Yields ``(c0, g, t, src)``: the chunk's offset in the output, its group
     ids ``g`` (C,), targets ``t`` ``(3, C, gsz)`` and window + near sources
-    ``src`` ``(4, C, (2*wg+1+K)*gsz)`` rows [x, y, z, m].  Window groups past
-    either end and "none" near ids (< 0 or >= ng) read a zero block, as
-    the TPU kernel does.  ``n_far`` far slots a group bound the chunk so
-    that pairwise temporaries stay near ``_PAIRS_PER_CHUNK`` elements.
+    ``src`` ``(4, C, (2*wg+1+K)*gsz)`` rows [x, y, z, m].  Group g of the
+    output (``ng`` groups, all of the source's by default) reads source
+    group ``g + g0`` as its targets and source groups ``g + g0 - wg .. g +
+    g0 + wg`` as its window (:func:`eval_mode`).  Window groups past either
+    end of the source and "none" near ids (< 0 or past the source) read a
+    zero block, as the TPU kernel does.  ``n_far`` far slots a group bound
+    the chunk so that pairwise temporaries stay near ``_PAIRS_PER_CHUNK``
+    elements.
     """
     dev = s_pos.device
-    npad = s_pos.shape[1]
-    ng = npad // gsz
+    ngs = s_pos.shape[1] // gsz
+    ng = ngs if ng is None else ng
     K = 0 if near is None else near.shape[1]
     gids = (torch.arange(ng, device=dev) if groups is None
             else torch.as_tensor(groups, device=dev).long().reshape(-1))
-    # Block h of P4 holds group h - wg; block ng + 2*wg is all zero.
+    # Block h of P4 holds source group h - wg; block ngs + 2*wg is all zero.
     P4 = torch.nn.functional.pad(torch.cat([s_pos, s_mass[None, :]], 0),
                                  (wg * gsz, (wg + 1) * gsz))
-    zero_block = ng + 2 * wg
+    zero_block = ngs + 2 * wg
     S = (2 * wg + 1 + K) * gsz + n_far
     chunk = max(1, _PAIRS_PER_CHUNK // (gsz * S))
     lane = torch.arange(gsz, device=dev)
     for c0 in range(0, gids.numel(), chunk):
         g = gids[c0:c0 + chunk]
         C = g.numel()
-        t = s_pos[:, (g[:, None] * gsz + lane).reshape(-1)].reshape(3, C, gsz)
-        blocks = [g + k for k in range(2 * wg + 1)]
+        t = s_pos[:, ((g + g0)[:, None] * gsz + lane).reshape(-1)].reshape(
+            3, C, gsz)
+        blocks = [g + g0 + k for k in range(2 * wg + 1)]
         if K:
             nb = near[g].long()
-            blocks += list(torch.where((nb >= 0) & (nb < ng), nb + wg,
+            blocks += list(torch.where((nb >= 0) & (nb < ngs), nb + wg,
                                        torch.full_like(nb, zero_block)).T)
         cols = (torch.stack(blocks, 1)[:, :, None] * gsz + lane).reshape(C, -1)
         yield c0, g, t, P4[:, cols]
+
+
+def eval_mode(npad, group_size, window_groups, near=None, haloed=False,
+              local_slice=None):
+    """``(g0, ng, ngs)`` of a dense eval over a source of ``npad`` slots:
+    output group g reads source group ``g + g0``, for ``ng`` groups out of
+    the source's ``ngs``.  The JAX package's call modes:
+
+    * neither: the whole source, ``g0 = 0``, ``ng = ngs``;
+    * ``haloed``: the source carries ``window_groups`` halo groups on each
+      side of the evaluated shard, ``g0 = wg``, ``ng = ngs - 2*wg``;
+    * ``local_slice = (group_offset, n_groups)``: that group range of the
+      global sorted source.
+
+    Window groups outside the source read zero blocks.  Both modes refuse
+    near groups, as the JAX package does: near ids index the full state.
+    """
+    gsz, wg = int(group_size), int(window_groups)
+    ngs = npad // gsz
+    if haloed and local_slice is not None:
+        raise ValueError("haloed and local_slice are mutually exclusive")
+    if haloed:
+        g0, ng = wg, ngs - 2 * wg
+    elif local_slice is not None:
+        g0, ng = (int(v) for v in local_slice)
+    else:
+        return 0, ngs, ngs
+    if ng < 1 or g0 < 0 or g0 + ng > ngs:
+        raise ValueError(f"groups [{g0}, {g0 + ng}) do not lie in the "
+                         f"source's {ngs} groups")
+    if near is not None and near.shape[1] > 0:
+        raise ValueError("near groups require the full-state eval path "
+                         "(neither haloed nor local_slice)")
+    return g0, ng, ngs
 
 
 def _far_sources(far, g, n_use, n_slots, tau, coef2):
@@ -383,7 +429,7 @@ def _far_sources(far, g, n_use, n_slots, tau, coef2):
 def window_eval_reference(s_pos, s_mass, far, far_n, near=None,
                           steps_since=0, dt=0.0, *, G, softening,
                           group_size=256, window_groups=2, tau_clamp=24.0,
-                          groups=None):
+                          groups=None, haloed=False, local_slice=None):
     """Plain-tensor window + near groups + dense far-list accelerations:
     the row form, ``_eval_kernel``.
 
@@ -394,12 +440,18 @@ def window_eval_reference(s_pos, s_mass, far, far_n, near=None,
       far_n: ``(ng,)`` int entries per group (those past it are not read).
       near: ``(ng, K)`` int group ids, or None; an id < 0 or >= ng is none.
       groups: optional 1-D group ids; then only their bodies are computed.
+      haloed, local_slice: the JAX package's call modes (:func:`eval_mode`);
+        then ``far``, ``far_n`` and ``groups`` cover the ``ng`` evaluated
+        groups.
     Returns:
-      ``(3, npad)`` f32 accelerations in sorted order, or ``(3,
+      ``(3, ng * group_size)`` f32 accelerations in sorted order (``ng``
+      the evaluated groups: all of them without a mode), or ``(3,
       len(groups) * group_size)`` for ``groups``, group by group.
     """
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     gsz = group_size
+    g0, ng, _ = eval_mode(s_pos.shape[1], gsz, window_groups, near, haloed,
+                          local_slice)
     L = far.shape[2]
     soft_sq = float(softening) ** 2
     n_use = far_n.long().clamp(0, L)
@@ -408,7 +460,7 @@ def window_eval_reference(s_pos, s_mass, far, far_n, near=None,
     Lm = max(1, int(gsel.max()))
     out = []
     for _, g, t, src in _dense_chunks(s_pos, s_mass, near, Lm, gsz,
-                                      window_groups, groups):
+                                      window_groups, groups, g0, ng):
         acc = _mono_sum(t[0], t[1], t[2], src[0], src[1], src[2], src[3],
                         soft_sq)
         fp, fm, q6 = _far_sources(far, g, n_use, Lm, tau, coef2)
@@ -438,7 +490,8 @@ def _check_cols(L, gsz, far_tile):
 def window_eval_cols_reference(s_pos, s_mass, far, far_n, near=None,
                                steps_since=0, dt=0.0, *, G, softening,
                                group_size=256, window_groups=2,
-                               tau_clamp=24.0, far_tile=512):
+                               tau_clamp=24.0, far_tile=512, haloed=False,
+                               local_slice=None):
     """Plain-tensor column form (``_eval_kernel_cols``), monopole rows
     (R 8/10).
 
@@ -447,11 +500,13 @@ def window_eval_cols_reference(s_pos, s_mass, far, far_n, near=None,
     past ``far_n`` inside the last tile are read as stored; the build
     leaves them zero).  Every target sums its sources into 8 partial sums
     by source index mod 8 (within the window and near blocks, and within
-    the far list) and adds the 8 once at the end.  Arguments and result as
-    :func:`window_eval_reference` (no ``groups``).
+    the far list) and adds the 8 once at the end.  Arguments, modes and
+    result as :func:`window_eval_reference` (no ``groups``).
     """
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     gsz = group_size
+    g0, ng, _ = eval_mode(s_pos.shape[1], gsz, window_groups, near, haloed,
+                          local_slice)
     L = far.shape[2]
     _check_cols(L, gsz, far_tile)
     soft_sq = float(softening) ** 2
@@ -459,7 +514,7 @@ def window_eval_cols_reference(s_pos, s_mass, far, far_n, near=None,
     Lm = max(8, int(n_use.max()))
     out = []
     for _, g, t, src in _dense_chunks(s_pos, s_mass, near, Lm, gsz,
-                                      window_groups, None):
+                                      window_groups, None, g0, ng):
         fp, fm, _ = _far_sources(far, g, n_use, Lm, tau, coef2)
         sx, sy, sz, sm = (torch.cat([src[r], f], dim=1)
                           for r, f in enumerate(fp + [fm]))
@@ -504,7 +559,8 @@ def _dot3_fma(u, v):
 def window_eval_mxu_reference(s_pos, s_mass, far, far_n, near=None,
                               steps_since=0, dt=0.0, *, G, softening,
                               group_size=256, window_groups=2,
-                              tau_clamp=24.0, far_tile=512):
+                              tau_clamp=24.0, far_tile=512, haloed=False,
+                              local_slice=None):
     """Plain-tensor matrix form (``_eval_kernel_mxu``), monopole rows
     (R 8/10).
 
@@ -518,17 +574,20 @@ def window_eval_mxu_reference(s_pos, s_mass, far, far_n, near=None,
     the JAX form's sum and contraction, and the centre and the chains round
     exactly as the kernel rounds them.  The JAX package takes a float32
     mean, which moves the result by ~5e-5 of max|a| at 2K bodies.  Sources
-    as :func:`window_eval_cols_reference`.
+    and modes as :func:`window_eval_cols_reference`; in a mode the centre
+    is still the mean of the group's own target slots.
     """
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     gsz = group_size
+    g0, ng, _ = eval_mode(s_pos.shape[1], gsz, window_groups, near, haloed,
+                          local_slice)
     L = far.shape[2]
     soft_sq = float(softening) ** 2
     n_use = _tile_counts(far_n, L, far_tile)
     Lm = max(1, int(n_use.max()))
     out = []
     for _, g, t, src in _dense_chunks(s_pos, s_mass, near, Lm, gsz,
-                                      window_groups, None):
+                                      window_groups, None, g0, ng):
         fp, fm, _ = _far_sources(far, g, n_use, Lm, tau, coef2)
         center = (t.double().sum(dim=2, keepdim=True) / gsz).to(t.dtype)
         tc = t - center
@@ -548,13 +607,18 @@ def window_eval_mxu_reference(s_pos, s_mass, far, far_n, near=None,
     return torch.cat(out, dim=1)
 
 
-def _dense_args(name, s_pos, s_mass, far, far_n, near, group_size, rows):
+def _dense_args(name, s_pos, s_mass, far, far_n, near, group_size, rows,
+                window_groups, haloed, local_slice):
     """Check a dense kernel's inputs on the card; returns (npad, ng, gsz,
-    K, R, L)."""
+    K, R, L, g0, ngs): the source's ``npad`` slots and ``ngs`` groups, and
+    the ``ng`` evaluated groups from source group ``g0`` on
+    (:func:`eval_mode`)."""
     dev = s_pos.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    npad, ng, gsz = _group_args(s_pos, group_size)
+    npad, ngs, gsz = _group_args(s_pos, group_size)
+    g0, ng, _ = eval_mode(npad, gsz, window_groups, near, haloed,
+                          local_slice)
     if far.dim() != 3 or far.shape[0] != ng or far.shape[1] not in rows:
         raise ValueError(f"{name}: far must be (ng={ng}, R in {rows}, L), "
                          f"got {tuple(far.shape)}")
@@ -567,16 +631,17 @@ def _dense_args(name, s_pos, s_mass, far, far_n, near, group_size, rows):
     if near is not None:
         K = near.shape[1] if near.dim() == 2 else -1
         _check("near", near, (ng, K), torch.int32, dev)
-    return npad, ng, gsz, K, R, L
+    return npad, ng, gsz, K, R, L, g0, ngs
 
 
 def window_eval(s_pos, s_mass, far, far_n, near=None, steps_since=0, dt=0.0,
                 *, G, softening, group_size=256, window_groups=2,
-                tau_clamp=24.0, use_cols=False, use_mxu=False, far_tile=512):
+                tau_clamp=24.0, use_cols=False, use_mxu=False, far_tile=512,
+                haloed=False, local_slice=None):
     """Window + near groups + dense far-list accelerations through a CUDA
     kernel.
 
-    Same arguments and result as :func:`window_eval_reference` (no
+    Same arguments, modes and result as :func:`window_eval_reference` (no
     ``groups``; ``far_n`` and ``near`` must be int32).  The form is the JAX
     package's selection, part of this function's definition (not a
     fallback): the matrix form (:func:`window_eval_mxu`) when ``use_mxu``
@@ -590,7 +655,8 @@ def window_eval(s_pos, s_mass, far, far_n, near=None, steps_since=0, dt=0.0,
     kernel that does not build or launch raises.
     """
     kw = dict(G=G, softening=softening, group_size=group_size,
-              window_groups=window_groups, tau_clamp=tau_clamp)
+              window_groups=window_groups, tau_clamp=tau_clamp,
+              haloed=haloed, local_slice=local_slice)
     R = far.shape[1]
     if use_mxu and R in (8, 10):
         return window_eval_mxu(s_pos, s_mass, far, far_n, near, steps_since,
@@ -612,22 +678,24 @@ _dense_order = _OrderCache()
 
 def dense_launch(s_pos, s_mass, far, far_n, near, steps_since, dt, *, G,
                  softening, group_size, window_groups, tau_clamp, targets,
-                 order=None):
+                 order=None, haloed=False, local_slice=None):
     """Launch ``csrc/window_eval.cu`` (the row form) with ``targets`` (T)
     targets a thread and blocks in ``order`` (int32 group ids; None: group
-    i is block i) on checked CUDA inputs; adds one to
+    i is block i) on checked CUDA inputs, in the call mode ``haloed`` /
+    ``local_slice`` (:func:`eval_mode`); adds one to
     ``window_eval.launches``."""
-    npad, ng, gsz, K, R, L = _dense_args("window_eval", s_pos, s_mass, far,
-                                         far_n, near, group_size, DENSE_ROWS)
+    npad, ng, gsz, K, R, L, g0, ngs = _dense_args(
+        "window_eval", s_pos, s_mass, far, far_n, near, group_size,
+        DENSE_ROWS, window_groups, haloed, local_slice)
     if order is not None:
         _check("order", order, (ng,), torch.int32, s_pos.device)
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
-    out = torch.empty_like(s_pos)
+    out = s_pos.new_empty((3, ng * gsz))
     err = _kernels.entry.spatialsim_window_eval(
         s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
         far_n.data_ptr(), near.data_ptr() if K else None,
-        None if order is None else order.data_ptr(), out.data_ptr(), npad,
-        ng, gsz, int(targets), int(window_groups), K, R, L,
+        None if order is None else order.data_ptr(), out.data_ptr(), ng,
+        g0, ngs, gsz, int(targets), int(window_groups), K, R, L,
         float(softening) ** 2, float(G), tau, coef2, _kernels.stream(s_pos))
     if err:
         _kernels.fail(err, "window_eval")
@@ -640,11 +708,12 @@ window_eval.launches = 0
 
 def window_eval_cols(s_pos, s_mass, far, far_n, near=None, steps_since=0,
                      dt=0.0, *, G, softening, group_size=256,
-                     window_groups=2, tau_clamp=24.0, far_tile=512):
+                     window_groups=2, tau_clamp=24.0, far_tile=512,
+                     haloed=False, local_slice=None):
     """The column form through ``csrc/window_eval_cols.cu``.
 
-    Same arguments and result as :func:`window_eval_cols_reference`, which
-    CPU tensors take.  CUDA tensors launch the kernel's instance that
+    Same arguments, modes and result as :func:`window_eval_cols_reference`,
+    which CPU tensors take.  CUDA tensors launch the kernel's instance that
     :func:`cols_plan` picks -- one block of ``group_size / T`` threads per
     group, T targets a thread, 8 partial sums a target, heavy groups first
     where the plan says so (sorted once per lists) -- on the current
@@ -656,14 +725,15 @@ def window_eval_cols(s_pos, s_mass, far, far_n, near=None, steps_since=0,
             s_pos, s_mass, far, far_n, near, steps_since, dt, G=G,
             softening=softening, group_size=group_size,
             window_groups=window_groups, tau_clamp=tau_clamp,
-            far_tile=far_tile)
+            far_tile=far_tile, haloed=haloed, local_slice=local_slice)
     T, heavy = cols_plan(group_size)
     order = (_cols_order(far_n, near, int(group_size),
                          (far.shape[2], int(far_tile))) if heavy else None)
     return cols_launch(s_pos, s_mass, far, far_n, near, steps_since, dt,
                        G=G, softening=softening, group_size=group_size,
                        window_groups=window_groups, tau_clamp=tau_clamp,
-                       far_tile=far_tile, targets=T, order=order)
+                       far_tile=far_tile, targets=T, order=order,
+                       haloed=haloed, local_slice=local_slice)
 
 
 # The column kernel's instance by group size: (T, heavy groups first).
@@ -686,23 +756,24 @@ def cols_plan(group_size: int):
 
 def cols_launch(s_pos, s_mass, far, far_n, near, steps_since, dt, *, G,
                 softening, group_size, window_groups, tau_clamp, far_tile,
-                targets, order=None):
+                targets, order=None, haloed=False, local_slice=None):
     """Launch ``csrc/window_eval_cols.cu`` with ``targets`` (T) targets a
     thread and blocks in ``order`` (int32 group ids; None: group i is block
-    i) on checked CUDA inputs; adds one to ``window_eval_cols.launches``."""
-    npad, ng, gsz, K, R, L = _dense_args("window_eval_cols", s_pos, s_mass,
-                                         far, far_n, near, group_size,
-                                         (8, 10))
+    i) on checked CUDA inputs, in the call mode ``haloed`` /
+    ``local_slice``; adds one to ``window_eval_cols.launches``."""
+    npad, ng, gsz, K, R, L, g0, ngs = _dense_args(
+        "window_eval_cols", s_pos, s_mass, far, far_n, near, group_size,
+        (8, 10), window_groups, haloed, local_slice)
     _check_cols(L, gsz, far_tile)
     if order is not None:
         _check("order", order, (ng,), torch.int32, s_pos.device)
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
-    out = torch.empty_like(s_pos)
+    out = s_pos.new_empty((3, ng * gsz))
     err = _kernels.entry.spatialsim_window_eval_cols(
         s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
         far_n.data_ptr(), near.data_ptr() if K else None,
-        None if order is None else order.data_ptr(), out.data_ptr(), npad,
-        ng, gsz, int(targets), int(window_groups), K, R, L,
+        None if order is None else order.data_ptr(), out.data_ptr(), ng,
+        g0, ngs, gsz, int(targets), int(window_groups), K, R, L,
         min(int(far_tile), L), float(softening) ** 2, float(G), tau, coef2,
         _kernels.stream(s_pos))
     if err:
@@ -716,11 +787,12 @@ window_eval_cols.launches = 0
 
 def window_eval_mxu(s_pos, s_mass, far, far_n, near=None, steps_since=0,
                     dt=0.0, *, G, softening, group_size=256, window_groups=2,
-                    tau_clamp=24.0, far_tile=512):
+                    tau_clamp=24.0, far_tile=512, haloed=False,
+                    local_slice=None):
     """The matrix form through ``csrc/window_eval_mxu.cu``.
 
-    Same arguments and result as :func:`window_eval_mxu_reference`, which
-    CPU tensors take.  CUDA tensors launch the kernel's instance that
+    Same arguments, modes and result as :func:`window_eval_mxu_reference`,
+    which CPU tensors take.  CUDA tensors launch the kernel's instance that
     :func:`mxu_plan` picks -- the register tile on CUDA cores (``"fma"``,
     T targets a thread) or the contraction on tensor cores (``"mma"``, M
     m16 tiles of targets a warp), heavy groups first where the plan says
@@ -733,7 +805,7 @@ def window_eval_mxu(s_pos, s_mass, far, far_n, near=None, steps_since=0,
             s_pos, s_mass, far, far_n, near, steps_since, dt, G=G,
             softening=softening, group_size=group_size,
             window_groups=window_groups, tau_clamp=tau_clamp,
-            far_tile=far_tile)
+            far_tile=far_tile, haloed=haloed, local_slice=local_slice)
     contraction, n, heavy = mxu_plan(group_size)
     order = (_mxu_order(far_n, near, int(group_size),
                         (far.shape[2], int(far_tile))) if heavy else None)
@@ -741,7 +813,8 @@ def window_eval_mxu(s_pos, s_mass, far, far_n, near=None, steps_since=0,
                       G=G, softening=softening, group_size=group_size,
                       window_groups=window_groups, tau_clamp=tau_clamp,
                       far_tile=far_tile, targets=n, order=order,
-                      contraction=contraction)
+                      contraction=contraction, haloed=haloed,
+                      local_slice=local_slice)
 
 
 # The matrix kernel's instance by group size: (contraction, T or M, heavy
@@ -790,28 +863,30 @@ def _check_mxu(group_size, contraction, n):
 
 def mxu_launch(s_pos, s_mass, far, far_n, near, steps_since, dt, *, G,
                softening, group_size, window_groups, tau_clamp, far_tile,
-               targets, order=None, contraction="fma"):
+               targets, order=None, contraction="fma", haloed=False,
+               local_slice=None):
     """Launch ``csrc/window_eval_mxu.cu``'s instance ``contraction``
     (``"fma"``: ``targets`` = T targets a thread; ``"mma"``: ``targets`` =
     M m16 tiles of targets a warp) with blocks in ``order`` (int32 group
-    ids; None: group i is block i) on checked CUDA inputs; adds one to
+    ids; None: group i is block i) on checked CUDA inputs, in the call mode
+    ``haloed`` / ``local_slice``; adds one to
     ``window_eval_mxu.launches``."""
     _check_mxu(group_size, contraction, targets)
-    npad, ng, gsz, K, R, L = _dense_args("window_eval_mxu", s_pos, s_mass,
-                                         far, far_n, near, group_size,
-                                         (8, 10))
+    npad, ng, gsz, K, R, L, g0, ngs = _dense_args(
+        "window_eval_mxu", s_pos, s_mass, far, far_n, near, group_size,
+        (8, 10), window_groups, haloed, local_slice)
     tile = min(int(far_tile), L)
     if tile < 1:
         raise ValueError(f"window_eval_mxu: far_tile {far_tile} must be >= 1")
     if order is not None:
         _check("order", order, (ng,), torch.int32, s_pos.device)
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
-    out = torch.empty_like(s_pos)
+    out = s_pos.new_empty((3, ng * gsz))
     err = _kernels.entry.spatialsim_window_eval_mxu(
         s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
         far_n.data_ptr(), near.data_ptr() if K else None,
-        None if order is None else order.data_ptr(), out.data_ptr(), npad,
-        ng, gsz, int(contraction == "mma"), int(targets),
+        None if order is None else order.data_ptr(), out.data_ptr(), ng,
+        g0, ngs, gsz, int(contraction == "mma"), int(targets),
         int(window_groups), K, R, L, tile, float(softening) ** 2, float(G),
         tau, coef2, _kernels.stream(s_pos))
     if err:

@@ -37,10 +37,12 @@ has the full design notes).  In short:
   entry's moments from prefix sums over the current state
   (:func:`refresh_lists`).
 
-Compact emission is not ported (ROADMAP Queue 1 item 10: it measured
-slower than cell-id emission and was never the default) and raises
-``NotImplementedError``; the sharded build (``group_offset``,
-``n_groups``) comes with the port of ``parallel/`` (item 13).
+Compact emission is not ported (ROADMAP Queue 1, "Left from that work":
+it measured slower than cell-id emission and was never the default) and
+raises ``NotImplementedError``.  :func:`build_lists_sorted` builds from an
+already sorted state, and with ``group_offset``/``n_groups`` traverses one
+contiguous group range of it: the sharded window step
+(``spatialsim_tpu_torch/parallel/sharded.py``) builds each rank's lists so.
 
 Conventions kept from the JAX package, for parity: ``(3, N)``
 component-major state; every static capacity (worklist caps, tree caps,
@@ -71,8 +73,9 @@ _I64 = torch.int64
 _I32 = torch.int32
 _F32 = torch.float32
 
-_ROADMAP = ("not ported: see ROADMAP.md, Queue 1 item 10 (compact "
-            "emission measured slower than cell-id and is left out)")
+_ROADMAP = ("not ported: see ROADMAP.md, Queue 1, \"Left from that "
+            "work\" (compact emission measured slower than cell-id and is "
+            "left out)")
 # Far-right sentinel of an empty covered-interval slot, in group units
 # (times group_size it stays below 2^31, as in the JAX package).
 _BIG_GROUP = 1_000_000
@@ -128,26 +131,29 @@ def _spare(size, fill, dtype, device):
     return torch.full((size + 1,), fill, dtype=dtype, device=device)
 
 
-def _select_near_groups(bmin, bmax, K, wg, chunk=512):
-    """The K spatially nearest groups of every group, as ``(ng, K)`` int32
+def _select_near_groups(bmin, bmax, K, wg, group_offset=0, n_groups=None,
+                        chunk=512):
+    """The K spatially nearest groups of groups ``group_offset ..
+    group_offset + n_groups`` (all by default), as ``(n_groups, K)`` int32
     ids, -1 where no group qualifies (JAX ``_select_near_groups``).
 
-    ``bmin``/``bmax``: ``(ng, 3)`` group bounding boxes.  Candidates rank
-    by the CONTACT VOLUME of the boxes dilated by a quarter of the row
-    group's half-diagonal (spatial tiles all sit at gap ~ 0, so the gap
-    cannot rank them; shared-face volume can).  The Morton window
+    ``bmin``/``bmax``: ``(ng, 3)`` bounding boxes of all groups.
+    Candidates rank by the CONTACT VOLUME of the boxes dilated by a quarter
+    of the row group's half-diagonal (spatial tiles all sit at gap ~ 0, so
+    the gap cannot rank them; shared-face volume can).  The Morton window
     (``|dg| <= wg``, self included) scores 0, and a score of 0 is no
     neighbour.  ``jax.lax.top_k`` puts the lower id first among equal
     scores; a stable descending sort does the same here.
     """
     ng = bmin.shape[0]
+    n_groups = ng if n_groups is None else n_groups
     d = bmax - bmin
     r_all = 0.5 * torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
                              + d[:, 2] * d[:, 2])
     gid = torch.arange(ng, dtype=_I64, device=bmin.device)
     out = []
-    for c0 in range(0, ng, chunk):
-        rows = gid[c0:c0 + chunk]
+    for c0 in range(group_offset, group_offset + n_groups, chunk):
+        rows = gid[c0:min(c0 + chunk, group_offset + n_groups)]
         m = (0.25 * r_all[rows])[:, None]
         ov = [(torch.minimum(bmax[rows, k][:, None], bmax[None, :, k])
                - torch.maximum(bmin[rows, k][:, None], bmin[None, :, k]))
@@ -162,19 +168,21 @@ def _select_near_groups(bmin, bmax, K, wg, chunk=512):
     return torch.cat(out).to(_I32)
 
 
-def _covered_intervals(near, wg, gsz):
+def _covered_intervals(near, wg, gsz, group_offset=0):
     """Merged, sorted, half-open covered body ranges per group (JAX
     ``_covered_intervals``): the Morton window ``[g - wg, g + wg]`` plus
     each near-group id, merged where they touch or overlap.
 
-    ``near``: ``(ng, K)`` ids (-1 = none; K may be 0).  Returns ``(ng, K +
-    1, 2)`` int64 in body units, sorted by start; empty slots carry the
-    far-right sentinel, so containment and overlap tests fail on them.
+    ``near``: ``(ng, K)`` ids (-1 = none; K may be 0) of groups
+    ``group_offset .. group_offset + ng``.  Returns ``(ng, K + 1, 2)``
+    int64 in body units of the whole sorted state, sorted by start; empty
+    slots carry the far-right sentinel, so containment and overlap tests
+    fail on them.
     """
     ng, K = near.shape
     dev = near.device
     big = torch.tensor(_BIG_GROUP, dtype=_I64, device=dev)
-    gid = torch.arange(ng, dtype=_I64, device=dev)
+    gid = torch.arange(ng, dtype=_I64, device=dev) + group_offset
     nr = near.to(_I64)
     starts = torch.cat([(gid - wg)[:, None],
                         torch.where(nr >= 0, nr, big)], dim=1)
@@ -672,6 +680,67 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
     raises ``ValueError`` (the pool is monopole-only, as in the JAX
     package).
     """
+    half, order, order_pad, s_codes, s_pos, s_vel, s_mass, s_acc = \
+        _sort_state(pos, vel, mass, acc, max_depth, group_size)
+    return _build_from_sorted(
+        s_codes, s_pos, s_vel, s_mass, s_acc, order, order_pad, pos,
+        pos.shape[1], half, theta=theta, softening=softening, skin=skin,
+        max_depth=max_depth, group_size=group_size,
+        window_groups=window_groups, list_cap=list_cap,
+        worklist_budget=worklist_budget, quadrupole=quadrupole,
+        near_groups=near_groups, with_ranges=with_ranges,
+        pool_tile=pool_tile, pool_cap=pool_cap, emit_mode=emit_mode,
+        wl_caps=wl_caps, tree_caps=tree_caps)
+
+
+def build_lists_sorted(s_pos, s_vel, s_mass, s_acc=None, *, order, theta,
+                       softening, skin=4.0, max_depth=10, group_size=256,
+                       window_groups=3, list_cap=2048, worklist_budget=0,
+                       group_offset=0, n_groups=None, quadrupole=False,
+                       near_groups=0, with_ranges=True, pool_tile=0,
+                       pool_cap=0, emit_mode="auto", wl_caps=(),
+                       tree_caps=()) -> BHLists:
+    """:func:`build_lists` for an ALREADY Morton-sorted state (JAX
+    ``build_lists_sorted``).
+
+    ``s_pos``/``s_vel``/``s_acc``: ``(3, npad)``, ``s_mass``: ``(npad,)``,
+    ``npad`` a multiple of ``group_size``, padding slots already zero-mass;
+    ``order``: the ``(npad,)`` caller-meaningful id of each sorted slot,
+    returned as ``BHLists.order`` (``inv_order`` is its inverse over
+    ``npad``).  No sort runs: the codes are recomputed from ``s_pos`` and
+    must already ascend.  ``group_offset``/``n_groups`` restrict the
+    traversal and the lists to that contiguous group range, as the sharded
+    window step does for each rank: the octree is still built over the
+    whole state, each group's window and covered intervals are its global
+    ones, and ``far_range`` holds global sorted slots.  ``ref_pos`` is
+    ``s_pos`` itself.
+    """
+    npad = s_pos.shape[1]
+    if npad % group_size:
+        raise ValueError(f"pre-sorted input of {npad} slots must be padded "
+                         f"to whole groups of {group_size}")
+    half = compute_bounds(s_pos)
+    s_codes = morton_encode(s_pos, half, max_depth)
+    return _build_from_sorted(
+        s_codes, s_pos, s_vel, s_mass, s_acc, order, order, s_pos, npad,
+        half, theta=theta, softening=softening, skin=skin,
+        max_depth=max_depth, group_size=group_size,
+        window_groups=window_groups, list_cap=list_cap,
+        worklist_budget=worklist_budget, group_offset=group_offset,
+        n_groups=n_groups, quadrupole=quadrupole, near_groups=near_groups,
+        with_ranges=with_ranges, pool_tile=pool_tile, pool_cap=pool_cap,
+        emit_mode=emit_mode, wl_caps=wl_caps, tree_caps=tree_caps)
+
+
+def _build_from_sorted(s_codes, s_pos, s_vel, s_mass, s_acc, order,
+                       order_pad, pos, n, half, *, theta, softening, skin,
+                       max_depth, group_size, window_groups, list_cap,
+                       worklist_budget, quadrupole, near_groups, with_ranges,
+                       pool_tile, pool_cap, emit_mode, wl_caps, tree_caps,
+                       group_offset=0, n_groups=None) -> BHLists:
+    """Octree, traversal and finish over a sorted, group-padded state, for
+    the groups ``group_offset .. group_offset + n_groups`` (all by
+    default); the emission mode and finish as :func:`build_lists` says."""
     pooled = bool(pool_tile)
     if pooled and quadrupole:
         raise ValueError("the pooled far layout is monopole-only: "
@@ -683,10 +752,7 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
               and not quadrupole and pooled)
     emit_ranges = (with_ranges and not quadrupole
                    and (emit_mode == "ranges" or cellid))
-    n = pos.shape[1]
     gsz = group_size
-    half, order, order_pad, s_codes, s_pos, s_vel, s_mass, s_acc = \
-        _sort_state(pos, vel, mass, acc, max_depth, gsz)
     npad = s_pos.shape[1]
 
     tree = build_octree(s_codes, s_pos, s_mass, half, max_depth=max_depth,
@@ -694,14 +760,20 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
                         sorted_acc=s_acc, with_quadrupole=quadrupole,
                         level_caps=tuple(tree_caps or ()))
     n_levels = len(tree.levels)
-    ng = npad // gsz
-    gpos = s_pos.reshape(3, ng, gsz)
-    bbox_min = gpos.amin(dim=2).T                                 # (ng, 3)
-    bbox_max = gpos.amax(dim=2).T
-    near = (_select_near_groups(bbox_min, bbox_max, near_groups,
-                                window_groups) if near_groups > 0
-            else torch.zeros((ng, 0), dtype=_I32, device=pos.device))
-    intervals = _covered_intervals(near, window_groups, gsz)
+    ng_all = npad // gsz
+    ng = ng_all if n_groups is None else int(n_groups)
+    g0 = int(group_offset)
+    if ng < 1 or g0 < 0 or g0 + ng > ng_all:
+        raise ValueError(f"groups [{g0}, {g0 + ng}) do not lie in the "
+                         f"state's {ng_all} groups")
+    gpos = s_pos.reshape(3, ng_all, gsz)
+    bmin_all = gpos.amin(dim=2).T                                 # (ng, 3)
+    bmax_all = gpos.amax(dim=2).T
+    bbox_min, bbox_max = bmin_all[g0:g0 + ng], bmax_all[g0:g0 + ng]
+    near = (_select_near_groups(bmin_all, bmax_all, near_groups,
+                                window_groups, g0, ng) if near_groups > 0
+            else torch.zeros((ng, 0), dtype=_I32, device=s_pos.device))
+    intervals = _covered_intervals(near, window_groups, gsz, g0)
     near = near if near_groups > 0 else None
 
     budget = worklist_budget or _auto_budget(npad)
@@ -727,7 +799,7 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
         tree, bbox_min, bbox_max, ng, theta=float(theta),
         soft_sq=float(softening) ** 2, skin=float(skin), gsz=gsz,
         intervals=intervals, list_cap=list_cap, n_levels=n_levels,
-        wl_caps=wl_caps, with_acc=acc is not None, quadrupole=quadrupole,
+        wl_caps=wl_caps, with_acc=s_acc is not None, quadrupole=quadrupole,
         emit_values=not emit_ranges, level_offsets=level_offs)
     cap = pooled and (pool_cap or pool_cap_tiles(
         budget, ng, pool_tile, npad,

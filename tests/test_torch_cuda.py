@@ -496,6 +496,66 @@ def test_cols_kernel_occupancy_and_refusals(cuda):
 MXU_INSTANCES = (("fma", 1), ("fma", 2), ("fma", 4), ("mma", 2), ("mma", 4))
 
 
+@pytest.mark.parametrize("gsz", [64, 256])
+@pytest.mark.parametrize("R", [8, 10])
+@pytest.mark.parametrize("form", ["row", "cols", "mxu"])
+def test_dense_kernels_modes_match_plain(cuda, form, R, gsz):
+    """The haloed and local_slice modes of the row, column and matrix
+    kernels (the wrapper's instance, and for the matrix form every
+    instance) on 4 shards: each within 1e-4 of max|a| of its plain version
+    in the same mode, and equal bit for bit to the unsharded kernel's
+    slice (a zero-mass halo body adds exactly 0)."""
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    ng, L, wg, D = 48, 256, 2, 4
+    ngl, halo = ng // D, wg * gsz
+    seed = R + gsz + len(form)
+    s_pos, s_mass, far, far_n, _ = _dense_inputs(
+        ng, gsz, R, 0, L, seed, cuda, _edge_far_n(ng, gsz // 2, L, seed))
+    kw = dict(G=0.1, softening=2.0, group_size=gsz, window_groups=wg,
+              tau_clamp=24.0)
+    if form != "row":
+        kw.update(far_tile=64, use_cols=form == "cols",
+                  use_mxu=form == "mxu")
+    counter = getattr(ek, "window_eval" if form == "row"
+                      else f"window_eval_{form}")
+    plain = getattr(ek, "window_eval_reference" if form == "row"
+                    else f"window_eval_{form}_reference")
+    pkw = {k: v for k, v in kw.items() if not k.startswith("use_")}
+    full = ek.window_eval(s_pos, s_mass, far, far_n, None, 23, 0.02, **kw)
+    pm = torch.nn.functional.pad(torch.cat([s_pos, s_mass[None]]),
+                                 (halo, halo))
+    for r in range(D):
+        g = slice(r * ngl, (r + 1) * ngl)
+        b = slice(r * ngl * gsz, (r + 1) * ngl * gsz)
+        src = pm[:, r * ngl * gsz:(r + 1) * ngl * gsz + 2 * halo]
+        halo_in = (src[:3].contiguous(), src[3].contiguous(),
+                   far[g].contiguous(), far_n[g].contiguous(), None, 23,
+                   0.02)
+        slice_in = (s_pos, s_mass, far[g].contiguous(),
+                    far_n[g].contiguous(), None, 23, 0.02)
+        for args, mode in ((halo_in, dict(haloed=True)),
+                           (slice_in, dict(local_slice=(r * ngl, ngl)))):
+            before = counter.launches
+            got = ek.window_eval(*args, **mode, **kw)
+            torch.cuda.synchronize()
+            assert counter.launches == before + 1
+            assert got.shape == (3, ngl * gsz)
+            assert _rel(got, plain(*args, **mode, **pkw)) < 1e-4, (r, mode)
+            assert torch.equal(got, full[:, b]), (r, mode)
+            if form == "mxu":
+                mkw = {k: v for k, v in pkw.items()}
+                for contraction, n in MXU_INSTANCES:
+                    if contraction == "fma" and gsz % (32 * n):
+                        continue
+                    inst = ek.mxu_launch(*args, targets=n,
+                                         contraction=contraction, **mode,
+                                         **mkw)
+                    whole = ek.mxu_launch(s_pos, s_mass, far, far_n, None,
+                                          23, 0.02, targets=n,
+                                          contraction=contraction, **mkw)
+                    assert torch.equal(inst, whole[:, b]), (contraction, n)
+
+
 @pytest.mark.parametrize("gsz", [64, 128, 256, 512])
 @pytest.mark.parametrize("K", [0, 8])
 @pytest.mark.parametrize("R", [8, 10])
@@ -611,7 +671,7 @@ def test_mxu_kernel_occupancy_and_refusals(cuda):
     for mma, n, gsz in ((1, 2, 40), (1, 3, 64), (0, 4, 64), (0, 8, 64)):
         err = _kernels.entry.spatialsim_window_eval_mxu(
             args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
-            args[3].data_ptr(), None, None, out.data_ptr(), 512, 8, gsz,
+            args[3].data_ptr(), None, None, out.data_ptr(), 8, 0, 8, gsz,
             mma, n, 2, 0, 8, 64, 64, 4.0, 0.1, 0.0, 0.0,
             _kernels.stream(out))
         assert err != 0, (mma, n, gsz)

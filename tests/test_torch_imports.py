@@ -59,6 +59,17 @@ def test_source_scan_catches_jax_imports():
         assert not _JAX_OR_SCRIPTS.search(line), line
 
 
+def test_scan_covers_the_parallel_port():
+    """The multi-device modules and the digest tool are among the scanned
+    sources (the scans above walk the whole package)."""
+    names = {str(f.relative_to(ROOT))
+             for f in (ROOT / "spatialsim_tpu_torch").rglob("*.py")}
+    assert {f"spatialsim_tpu_torch/parallel/{m}.py"
+            for m in ("__init__", "mesh", "collectives", "distsort",
+                      "sharded", "launch", "dryrun")} <= names
+    assert "spatialsim_tpu_torch/tools/eval_digest.py" in names
+
+
 _JAX_OR_SCRIPTS = re.compile(
     r"^\s*(import\s+(jax|scripts)\b|from\s+(jax|scripts)(\s|\.))", re.M)
 
