@@ -27,7 +27,11 @@ Morton window, 5a-6d the traversal probes.
    bound and its share, SASS instructions a pair, the issue-limited time,
    blocks per SM and waves;
 3. kernel 2 (pooled window eval) against its plain version on the lists
-   the port builds for the 1M galaxy, at steps_since 0 and 23; then every
+   the port builds for the 1M galaxy, at steps_since 0 and 23; a second
+   build of the same state equal to the first bit for bit, its eval too
+   (no deterministic algorithms: the octree's sums and the residual fold
+   are fixed-order segment sums), and one build under ``torch.profiler``
+   (the segment sums' device time beside ``index_add_``'s); then every
    T (targets a thread) and the heavy-first launch order, each held to the
    plain version, beside the previous kernel, with the bound, SASS
    instructions a pair, the issue-limited time, blocks per SM and waves;
@@ -48,14 +52,18 @@ Morton window, 5a-6d the traversal probes.
    under ``torch.cuda.set_sync_debug_mode("warn")``: a plain frame may not
    synchronise), then the CLI at 1M (10 frames; its frame time beside the
    steps of a frame) and 8K (tiny_galaxy, 30 frames, the all-pairs
-   engine), last frames decoded;
+   engine), last frames decoded; then the port's headless playback of the
+   8K session (``python -m spatialsim_tpu_torch.tools.playback``, every
+   frame decoded, motion finite) and one ``render_points`` image of its
+   last frame;
 7. kernel 4 (boids Morton window) against its plain version on the 500K
    ``Flock``'s initial state and again after 48 steps: pass 1 (no dedup)
    and pass 2 (dedup against pass 1's window), max|d|/max|ref| per
    accumulator group (limit 2e-4) and the share of boids whose counts
    differ (limit 1e-4), CUDA-event times; then every T with the box cull
-   on and off, each equal bit for bit to the previous kernel (or, without
-   its sources, to the wrapper's instance), with the share of window
+   on and off, each equal bit for bit to the previous kernel's same
+   instance (the kernel before the modes; or, without its sources, to the
+   wrapper's instance), with the share of window
    pairs the cull skips, the bound over the window's pairs and over the
    pairs tested, SASS counts, the issue-limited time, blocks per SM and
    waves;
@@ -168,9 +176,15 @@ Morton window, 5a-6d the traversal probes.
     48 steps timed beside the unsharded dense step (kernel 3's launches
     counted from zero: the sharded main path), the drift max-reduction's
     cost, and 20 steps of each under the profiler; (d) the ring at 32,768
-    against the all-pairs kernel and sharded Barnes-Hut at 1,048,576
-    against the exact engine (deterministic algorithms for both, after the
-    exact engine against itself).
+    against the all-pairs kernel, the exact engine against itself (equal
+    bit for bit, required) and sharded Barnes-Hut at 1,048,576 against it,
+    all without deterministic algorithms; (e) the sharded boids step
+    through NCCL at world size 1, 500,224 boids, the default config:
+    kernel 4's haloed mode on the step's inputs against its plain version
+    (2e-4 of max|ref|) and the unsharded kernel (bit-equality reported),
+    13 steps across two re-sorts against ``Flock``'s window step (rtol and
+    atol 2e-4; bit-equality reported), then 96 steps timed beside
+    ``Flock``'s with kernel 4's launches counted from zero.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -304,10 +318,17 @@ def window_pairs(ng, gsz, wg):
     return int(groups.sum()) * gsz * gsz
 
 
-def profile_steps(label, step, steps):
+# Kernels whose device time the rebuild profiles sum: the fixed-order
+# segment sums (torch.segment_reduce) and index_add_'s kernels (the integer
+# counts; before the segment sums, the float fold too).
+REBUILD_WATCH = ("segment_reduce", "indexFunc")
+
+
+def profile_steps(label, step, steps, watch=()):
     """Run ``step`` ``steps`` times under torch.profiler; print the wall
-    and device-busy milliseconds, the idle share and the kernels that took
-    the most device time."""
+    and device-busy milliseconds, the idle share, the kernels that took
+    the most device time, and the summed time of the kernels whose names
+    hold each string of ``watch``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -337,6 +358,10 @@ def profile_steps(label, step, steps):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     for name, (us, n) in top:
         print(f"      {us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}")
+    for w in watch:
+        hits = [v for k, v in by_name.items() if w in k]
+        print(f"      kernels named *{w}*: {sum(u for u, _ in hits) / 1e3:.3f}"
+              f" ms in {sum(c for _, c in hits)} launches")
 
 
 def galaxy(n, seed, device):
@@ -950,7 +975,46 @@ def check_frame(rec_dir, frame, n):
           f"colours in [{c.min():.4f}, {c.max():.4f}]")
 
 
+def play_back(rec_root, name, frames):
+    """The port's headless playback of a recorded session (its module
+    entry: every frame decoded, the mean motion a frame), then one image of
+    the last frame from the software renderer (numpy only)."""
+    import numpy as np
+    from spatialsim_tpu_torch.io import codec, session
+    from spatialsim_tpu_torch.render import ExportCamera, render_points
+    env = dict(os.environ, SPATIALSIM_RECORDINGS=str(rec_root),
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spatialsim_tpu_torch.tools.playback", name,
+         "--headless"], cwd=ROOT, env=env, capture_output=True, text=True)
+    secs = time.perf_counter() - t
+    require(proc.returncode == 0,
+            f"playback failed ({proc.returncode}):\n"
+            f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    line = [x for x in proc.stdout.splitlines() if " decoded " in x]
+    require(line and f"decoded {frames} frames" in line[-1], proc.stdout)
+    motion = float(line[-1].rsplit(" ", 1)[1])
+    require(np.isfinite(motion) and motion > 0, f"motion {motion}")
+    pos, col = codec.load_frame(rec_root / name, frames - 1)
+    meta = session.load_metadata(rec_root / name)
+    cam = ExportCamera(radius=meta.get("spawn_radius", 500.0) * 1.6,
+                       mode="orbit", rotation_speed=0.5)
+    cam.update(frames - 1, frames)
+    img = render_points(pos, col, cam.get_position(), up=cam.get_up(),
+                        width=640, height=360, point_size=2)
+    lit = float((img.max(axis=2) > 20).mean())
+    require(img.shape == (360, 640, 3) and lit > 0, (img.shape, lit))
+    print(f"    playback of {name}: {line[-1].strip()} (wall {secs:.3f} s "
+          f"with the interpreter's start); render_points of frame "
+          f"{frames - 1}: {img.shape}, {lit:.4f} of the pixels lit")
+
+
 N_SHARD = 1_048_576    # the 1M galaxy rounded to a multiple of D * 256
+N_BOIDS_SHARD = 500_224   # 500K rounded up to a multiple of the group, 256
+BOIDS_CMP_STEPS = 13   # across the re-sorts before steps 7 and 13
 SHARD_DS = (2, 4, 8)   # shard counts of phase 20 (a)
 N_RING = 32_768
 SHARD_CMP_STEPS = 4    # sharded vs unsharded, across a rebuild at step 3
@@ -985,12 +1049,13 @@ def residual_groups(lists):
     return (live & rangeless & (lists.far[:, 6] > 0)).any(1)
 
 
-def sharded_paths(dev):
+def sharded_paths(dev, kernels):
     """Phase 20: kernel 3's modes against the unsharded kernel and the
     plain versions (a), the sorted build's shards (b), the sharded window
-    step through NCCL at world size 1 against the unsharded step (c), and
-    make_sharded_step's ring and Barnes-Hut (d).  Returns kernel 3's
-    launches in (c)'s timed run, the sharded main path."""
+    step through NCCL at world size 1 against the unsharded step (c),
+    make_sharded_step's ring and Barnes-Hut (d), and the sharded boids step
+    (e, :func:`sharded_boids`).  Returns kernel 3's launches in (c)'s timed
+    run and kernel 4's in (e)'s, the sharded main paths."""
     import numpy as np
     import torch
     from spatialsim_tpu_torch.config.nbody import NBODY, resolve_config
@@ -1137,11 +1202,13 @@ def sharded_paths(dev):
     for label, (sst, sstep) in results.items():
         dp = float((sst.pos - ust.pos).abs().max())
         dv = float((sst.vel - ust.vel).abs().max())
+        same = (bool(torch.equal(sst.pos, ust.pos))
+                and bool(torch.equal(sst.vel, ust.vel)))
         print(f"    (c) {label}: {SHARD_CMP_STEPS} steps (rebuilds "
               f"{sstep.rebuilds}, fallbacks {sstep.fallbacks}) against the "
               f"unsharded dense step (rebuilds {ustep.rebuilds}): max|dpos| "
-              f"{dp:.3e}, max|dvel| {dv:.3e}; equal bit for bit: "
-              f"{bool(torch.equal(sst.pos, ust.pos))}")
+              f"{dp:.3e}, max|dvel| {dv:.3e}; pos and vel equal bit for bit: "
+              f"{same}")
         require(sstep.rebuilds == ustep.rebuilds == 1, label)
         require(sstep.fallbacks == int(label != "sample sort"), label)
         for a, b in ((sst.pos, ust.pos), (sst.vel, ust.vel)):
@@ -1225,41 +1292,161 @@ def sharded_paths(dev):
         NBodyState(rpos, rvel, rmass), DT)
     require(bool(torch.allclose(a.pos, b.pos, rtol=2e-4, atol=2e-4)),
             "ring step")
-    # The octree's moments are index_add_ segment sums, whose float atomics
-    # on the card make two builds of one state differ in the last bits:
-    # the exact engine against itself first, then both engines under
-    # deterministic algorithms, where only the sharding can differ.
+    # The octree's moments are fixed-order segment sums: the exact engine
+    # equals itself bit for bit, without deterministic algorithms; then
+    # sharded Barnes-Hut against it.
+    require(not torch.are_deterministic_algorithms_enabled(),
+            "deterministic algorithms are on")
     bcfg = NBODY.replace(num_bodies=n)
     e1, e2 = (barnes_hut_accel(pos, mass, bcfg) for _ in range(2))
     d = float((e1 - e2).abs().max())
     print(f"    (d) the exact engine at {n:,} against itself: max|da| "
-          f"{d:.3e}, {d / float(e1.abs().max()):.3e} of max|a|; within "
-          f"rtol 2e-4, atol 1e-5: "
-          f"{bool(torch.allclose(e1, e2, rtol=2e-4, atol=1e-5))}")
+          f"{d:.3e}; equal bit for bit: {bool(torch.equal(e1, e2))}")
+    require(bool(torch.equal(e1, e2)), "the exact engine differs from "
+                                       "itself")
     del e1, e2
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        t = time.perf_counter()
-        sbh = sharded_barnes_hut_accel(pos, mass, mesh, bcfg)
-        torch.cuda.synchronize()
-        sbh_s = time.perf_counter() - t
-        t = time.perf_counter()
-        ebh = barnes_hut_accel(pos, mass, bcfg)
-        torch.cuda.synchronize()
-        ebh_s = time.perf_counter() - t
-    finally:
-        torch.use_deterministic_algorithms(False)
+    t = time.perf_counter()
+    sbh = sharded_barnes_hut_accel(pos, mass, mesh, bcfg)
+    torch.cuda.synchronize()
+    sbh_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ebh = barnes_hut_accel(pos, mass, bcfg)
+    torch.cuda.synchronize()
+    ebh_s = time.perf_counter() - t
     d = float((sbh - ebh).abs().max())
-    print(f"    (d) sharded Barnes-Hut at {n:,}, deterministic algorithms: "
-          f"{sbh_s:.3f} s against the exact engine's {ebh_s:.3f} s; "
-          f"max|da| {d:.3e}, {d / float(ebh.abs().max()):.3e} of max|a|; "
-          f"equal bit for bit: {bool(torch.equal(sbh, ebh))}")
+    print(f"    (d) sharded Barnes-Hut at {n:,}: {sbh_s:.3f} s against the "
+          f"exact engine's {ebh_s:.3f} s; max|da| {d:.3e}, "
+          f"{d / float(ebh.abs().max()):.3e} of max|a|; equal bit for bit: "
+          f"{bool(torch.equal(sbh, ebh))}")
     require(bool(torch.allclose(sbh, ebh, rtol=2e-4, atol=1e-5)),
             "sharded Barnes-Hut")
-    torch.distributed.destroy_process_group()
-    del sbh, ebh, ring, ap, a, b
+    del sbh, ebh, ring, ap, a, b, pos, vel, mass
     torch.cuda.empty_cache()
-    return sharded_launches
+    boids_launches = sharded_boids(dev, mesh, kernels)
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    return sharded_launches, boids_launches
+
+
+def sharded_boids(dev, mesh, kernels):
+    """Phase 20 (e): the sharded boids step through NCCL at world size 1,
+    at N_BOIDS_SHARD boids, the default config: kernel 4's haloed mode on
+    the step's own inputs against its plain version (and against the
+    unsharded kernel's rows); the first BOIDS_CMP_STEPS steps against
+    Flock's window step; then BOIDS_STEPS steps timed beside Flock's, with
+    kernel 4's launches counted from zero.  Returns those launches."""
+    import numpy as np
+    import torch
+    from spatialsim_tpu_torch.config.boids import BOIDS
+    from spatialsim_tpu_torch.models.boids import Flock
+    from spatialsim_tpu_torch.ops.boids_window_kernel import (
+        boids_window_accumulate, boids_window_reference)
+    from spatialsim_tpu_torch.parallel import make_sharded_boids_step
+
+    nb = N_BOIDS_SHARD
+    cfg = BOIDS.replace(num_boids=nb)
+    gsz = cfg.group_size
+    flock = Flock(config=cfg, device=dev)
+    inv = flock.state.inv1
+    orig = [a[:, inv].contiguous() for a in (flock.state.pos,
+                                             flock.state.vel,
+                                             flock.state.col)]
+    step, init = make_sharded_boids_step(cfg, nb, mesh)
+    sst = init(*orig)
+    # The haloed kernel on the step's own inputs, each pass, against its
+    # plain version and the unsharded kernel on Flock's (equal) state.
+    ms = plain_ms = abs_err = rel_err = nb_pairs = 0.0
+    pairs = nbytes = 0
+    for ps, ((args, kw), uargs) in enumerate(zip(
+            step.pass_inputs(sst), boids_pass_inputs(flock.state, cfg)), 1):
+        got = boids_window_accumulate(*args, **kw)
+        want = boids_window_reference(*args, **kw)
+        ukw = {k: v for k, v in kw.items() if k != "haloed"}
+        unsharded = boids_window_accumulate(*uargs, **ukw)
+        torch.cuda.synchronize()
+        for r in range(0, 12, 3):
+            d = float((got[r:r + 3] - want[r:r + 3]).abs().max())
+            ref = float(want[r:r + 3].abs().max())
+            require(d <= TOL_BOIDS * ref, f"haloed pass {ps} rows {r}: {d}")
+            rel_err = max(rel_err, d / ref if ref else d)
+        abs_err = max(abs_err, float((got - want).abs().max()))
+        differ = float((got[12:] != want[12:]).any(0).float().mean())
+        require(differ <= TOL_BOIDS_COUNTS, f"haloed pass {ps}: counts")
+        k_ms = cuda_ms(lambda: boids_window_accumulate(*args, **kw), 20)
+        p_ms = cuda_ms(lambda: boids_window_reference(*args, **kw), 3)
+        ms, plain_ms = ms + k_ms, plain_ms + p_ms
+        ng_s = args[0].shape[1] // gsz
+        pairs += window_pairs(nb // gsz, gsz, kw["wg"])
+        nb_pairs += float(want[13].sum())
+        nbytes += 4 * (args[0].shape[1] * (9 + (ps == 2)) + 14 * nb)
+        print(f"    (e) haloed pass {ps} (g0 = {kw['wg']}, {ng_s} source "
+              f"groups of {gsz}): within {rel_err:.3e} of max|ref| of the "
+              f"plain version (tol {TOL_BOIDS}), counts differ for "
+              f"{differ:.3e} of boids; equal bit for bit to the unsharded "
+              f"kernel's rows: {bool(torch.equal(got, unsharded))}; kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    ops = 10.0 * pairs + 30.0 * nb_pairs
+    record_kernel(kernels, "boids_window_haloed", abs_err, rel_err, ms,
+                  plain_ms, ops, nbytes)
+    rec = kernels["boids_window_haloed"]
+    print(f"    (e) haloed, both passes: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}; {pairs:.4e} window pairs, "
+          f"{nb_pairs:.4e} neighbour pairs), {rec['bound_ms'] / ms:.1%} of it")
+    # Trajectories: the sharded step against Flock's window step.
+    for _ in range(BOIDS_CMP_STEPS):
+        sst = step(sst, BOIDS_DT)
+        flock.update(BOIDS_DT)
+    torch.cuda.synchronize()
+    worst, same = 0.0, True
+    for f in ("pos", "vel", "col"):
+        a = getattr(sst, f)[:, sst.inv1]
+        b = getattr(flock.state, f)[:, flock.state.inv1]
+        worst = max(worst, float((a - b).abs().max()))
+        same = same and bool(torch.equal(a, b))
+        require(bool(torch.allclose(a, b, rtol=2e-4, atol=2e-4)),
+                f"sharded boids {f} vs Flock")
+    print(f"    (e) sharded boids step, {nb:,} boids, {BOIDS_CMP_STEPS} "
+          f"steps (re-sorts {step.resorts}, Flock's {flock.resorts}) "
+          f"against Flock's window step: max|d| {worst:.3e} (rtol/atol "
+          f"2e-4); pos, vel and col equal bit for bit: {same}")
+    require(step.resorts == flock.resorts == 2, (step.resorts,
+                                                 flock.resorts))
+    del sst, flock
+    # Timed: BOIDS_STEPS steps of each, from the same state.
+    torch.cuda.synchronize()
+    launches0 = boids_window_accumulate.launches
+    boids_window_accumulate.launches = 0
+    step, init = make_sharded_boids_step(cfg, nb, mesh)
+    sst = init(*orig)
+    box = [sst]
+
+    def one(dt):
+        box[0] = step(box[0], dt)
+    sh_s = timed_steps(one, BOIDS_STEPS, BOIDS_DT)
+    launched = boids_window_accumulate.launches
+    boids_window_accumulate.launches = launches0
+    sst = box[0]
+    require(launched == 2 * BOIDS_STEPS, f"haloed launches {launched}")
+    require(all(bool(torch.isfinite(getattr(sst, f)).all())
+                for f in ("pos", "vel", "col")), "sharded boids state")
+    flock = Flock(config=cfg, device=dev)
+    fl_s = timed_steps(flock.update, BOIDS_STEPS, BOIDS_DT)
+    print(f"    (e) launches of kernel 4 (haloed) in {BOIDS_STEPS} sharded "
+          f"steps: {launched}; re-sorts {step.resorts}")
+    print(f"    (e) sharded boids step: {BOIDS_STEPS / sum(sh_s):.3f} "
+          f"steps/s, median {float(np.median(sh_s)) * 1e3:.4f} ms; Flock: "
+          f"{BOIDS_STEPS / sum(fl_s):.3f} steps/s, median "
+          f"{float(np.median(fl_s)) * 1e3:.4f} ms; median ratio "
+          f"{float(np.median(sh_s)) / float(np.median(fl_s)):.4f}")
+    # Where each step's time goes: 12 steps each (two re-sorts).
+    profile_steps("(e) sharded boids step, 12 steps", lambda: one(BOIDS_DT),
+                  12)
+    profile_steps("(e) Flock's window step, 12 steps",
+                  lambda: flock.update(BOIDS_DT), 12)
+    del sst, box, flock
+    torch.cuda.empty_cache()
+    return launched
 
 
 def main() -> int:
@@ -1479,6 +1666,25 @@ def main() -> int:
           f"pool {tuple(lists.pool.shape)}  "
           f"far_n mean {float(lists.far_n.float().mean()):.1f} "
           f"max {int(lists.far_n.max())}")
+
+    # The same build again, without deterministic algorithms: the octree's
+    # sums and the residual fold add in one fixed order, so every field is
+    # equal bit for bit.  Then one build under the profiler.
+    def rebuild():
+        return bw._resort_state(st.pos, st.vel, st.mass, st.lists.order,
+                                st.lists.inv_order, bw._build_kw(cal),
+                                acc=acc)[3]
+    require(not torch.are_deterministic_algorithms_enabled(),
+            "deterministic algorithms are on")
+    again = rebuild()
+    differ = [f for f, t_ in lists._asdict().items()
+              if isinstance(t_, torch.Tensor)
+              and not torch.equal(t_, getattr(again, f))]
+    print(f"    a second build of the same state: every field equal bit "
+          f"for bit: {not differ} {differ}")
+    require(not differ, f"two builds of one state differ in {differ}")
+    profile_steps("1M list build (the rebuild's lists, pooled cell-id)",
+                  rebuild, 1, watch=REBUILD_WATCH)
     s_pos, s_mass = eval_ab.sorted_inputs(lists, pos, mass)
     # Pairs the function needs: every window group in range, plus every
     # live far entry.  The kernel reads whole pool tiles, but the slots
@@ -1512,6 +1718,13 @@ def main() -> int:
               f"(tol {TOL_WINDOW})  kernel {ms:.4f} ms  plain "
               f"{plain_ms:.4f} ms  kernel {pairs / ms / 1e6:.1f} Gpairs/s")
         require(err <= TOL_WINDOW, f"window eval error {err}")
+        if ss == 0:
+            twice = window_eval_pool(s_pos, s_mass, again.pool,
+                                     again.pstart, again.far_n, ss, DT,
+                                     **kw)
+            require(torch.equal(twice, got), "the two builds' evals differ")
+            print(f"    the second build's eval equal bit for bit: True")
+            del again, twice
         # 18 FP32 operations a pair; the sorted bodies, the 10 pool rows
         # the kernel reads of each live far entry and the per-group tables
         # read once, accelerations written once.
@@ -1727,6 +1940,7 @@ def main() -> int:
         run_recorder(["--preset", "tiny_galaxy", "--bodies", "8k",
                       "--frames", "30", "--name", "smoke_8k"], rec_root)
         check_frame(rec_root / "smoke_8k", 29, 8_000)
+        play_back(rec_root, "smoke_8k", 30)
     done(t0)
 
     # ---- 7. boids kernel vs plain ----------------------------------------
@@ -1813,6 +2027,11 @@ def main() -> int:
                     return boids_window_launch(*args, targets=T, cull=cull,
                                                **kw)
                 out = launch()
+                if b_prev:
+                    # The previous kernel at the same instance (npad in
+                    # place of the modes' (ng, g0, ngs)).
+                    ref_rows = eval_tiles.parent_boids(
+                        plib, *args, targets=T, cull=cull, **kw)
                 torch.cuda.synchronize()
                 require(torch.equal(out, ref_rows),
                         f"{label} pass {ps} T={T} cull={cull}: differs from "
@@ -2014,7 +2233,7 @@ def main() -> int:
     for _ in range(23):
         sim.update(DT)
     profile_steps("N-body 1M, steps 24-26 (one rebuild)",
-                  lambda: sim.update(DT), 3)
+                  lambda: sim.update(DT), 3, watch=REBUILD_WATCH)
     require(sim.rebuilds == 1, sim.rebuilds)
     profile_steps("N-body 1M, steps 27-46 (between rebuilds)",
                   lambda: sim.update(DT), 20)
@@ -2287,7 +2506,7 @@ def main() -> int:
     require(sim50.state.lists.steps_build
             == sim50.config.rebuild_interval, sim50.state.lists.steps_build)
     profile_steps("N-body 50M, the rebuild step",
-                  lambda: sim50.step_raw(dt50), 1)
+                  lambda: sim50.step_raw(dt50), 1, watch=REBUILD_WATCH)
     profile_steps("N-body 50M, 4 steps between rebuilds",
                   lambda: sim50.step_raw(dt50), 4)
     require(sim50.rebuilds == 2, sim50.rebuilds)
@@ -2742,8 +2961,9 @@ def main() -> int:
     # ---- 20. the sharded paths ----------------------------------------------
     t0 = phase("20. parallel/: kernel 3's haloed and local_slice modes, the "
                "sorted build's shards, the sharded window step (NCCL, world "
-               "size 1), the ring and sharded Barnes-Hut")
-    sharded_launches = sharded_paths(dev)
+               "size 1), the ring and sharded Barnes-Hut, the sharded boids "
+               "step with kernel 4's haloed mode")
+    sharded_launches, haloed_launches = sharded_paths(dev, kernels)
     done(t0)
 
     print(f"\ntotal seconds: {time.perf_counter() - wall0:.3f}")
@@ -2762,6 +2982,10 @@ def main() -> int:
              replaces="spatialsim_tpu/ops/boids_window_kernel.py:45",
              launches=launches["boids_window"],
              **kernels["boids_window"]),
+        dict(name="boids_window_haloed", route="cuda",
+             source=f"{src}/boids_window.cu",
+             replaces="spatialsim_tpu/ops/boids_window_kernel.py:45",
+             launches=haloed_launches, **kernels["boids_window_haloed"]),
         dict(name="window_eval", route="cuda",
              source=f"{src}/window_eval.cu",
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:432",

@@ -1,5 +1,6 @@
-"""spatialsim-tpu-torch: the N-body and boids main paths on PyTorch and
-CUDA (H100).
+"""spatialsim-tpu-torch: the N-body and boids simulations on PyTorch and
+CUDA (H100), with the recorder, playback, export, the live viewers and the
+multi-device paths.
 
 A port of :mod:`spatialsim_tpu` (JAX/XLA/Pallas on a TPU), which stays in
 the repository as the reference every module here is tested against.
@@ -8,8 +9,9 @@ Module names mirror the JAX package's (``ops/morton.py``,
 
 The port imports neither jax nor anything of the JAX package.  It keeps
 its own copies of the JAX package's framework-neutral modules
-(``config``, ``distributions``, ``presets``, ``io``), verbatim apart from
-their imports, so initial conditions and recorded frames stay identical.
+(``config``, ``distributions``, ``presets``, ``io``, ``render``, the
+playback and export tools, ...), verbatim apart from their imports, so
+initial conditions and recorded frames stay identical.
 
     from spatialsim_tpu_torch import NBodySimulation
     sim = NBodySimulation(num_bodies=1_000_000, device="cuda")

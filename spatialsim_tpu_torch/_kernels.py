@@ -77,8 +77,8 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                                    _F, _F, _P),
     "spatialsim_window_eval_mxu_occupancy": (_I, _I, _I, _I, _I, _I, _P),
-    "spatialsim_boids_window": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                                _I, _I, _P),
+    "spatialsim_boids_window": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                _F, _F, _I, _I, _P),
     "spatialsim_boids_window_occupancy": (_I, _I, _I, _I, _P),
     # The traversal-primitive probes (csrc/probes_decide15.cu, 18.cu).
     "spatialsim_probe_row_reads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -17,8 +17,16 @@
 // Padding slots sit at 1e9 (pass-2 padding groups at -1e9), so they
 // never pass the predicate; window groups past either end are skipped,
 // which is what the TPU kernel's far-away edge padding amounts to.
-// Output: (14, npad) f32 rows [sep3, align3, coh3, csum3, sep_count,
+// Output: (14, ng * gsz) f32 rows [sep3, align3, coh3, csum3, sep_count,
 // nb_count].
+//
+// Modes (the sharded boids step's halos, which the Pallas kernel does not
+// have: "halos are XLA-path only", spatialsim_tpu/ops/boids_ops.py): the
+// sources are ngs groups, (3, ngs * gsz), and target group g (of ng) is
+// source group g + g0, its window clipped to [0, ngs).  The whole state is
+// g0 = 0, ngs = ng; a shard with wg halo groups on each side is g0 = wg,
+// ngs = ng + 2 wg (pass 2: its own wg, the dedup still against prev_wg).
+// A halo group is a window group like any other: staged, boxed, culled.
 //
 // What bounds it on this card: instruction issue.  At the default config
 // (500K boids, gsz 256, wg 2 then 1) a step has ~1.02e9 window pairs and
@@ -118,8 +126,8 @@ template <int T, bool CULL, bool DEDUP>
 __global__ void __launch_bounds__(1024 / T) boids_window_kernel(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ col, const float* __restrict__ grp,
-    float* __restrict__ out, int npad, int gsz, int wg, float perception_sq,
-    float separation_sq, float prev_wg) {
+    float* __restrict__ out, int g0, int ngs, int gsz, int wg,
+    float perception_sq, float separation_sq, float prev_wg) {
   extern __shared__ float4 sh[];
   const int nthr = blockDim.x;
   const int slots = nthr * T;  // gsz rounded up to whole warps of T
@@ -129,8 +137,10 @@ __global__ void __launch_bounds__(1024 / T) boids_window_kernel(
   float2* s_cc = reinterpret_cast<float2*>(sh + 2 * slots);  // cy cz
   Box* s_box = reinterpret_cast<Box*>(s_cc + slots);
 
-  const int ng = gridDim.x;
   const int g = blockIdx.x;
+  const int gs = g + g0;  // the target group among the sources
+  const size_t nsrc = static_cast<size_t>(ngs) * gsz;  // a source row
+  const size_t nout = static_cast<size_t>(gridDim.x) * gsz;  // an out row
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int base = (t >> 5) * 32 * T + lane;  // slot of target j: base + 32j
@@ -142,11 +152,11 @@ __global__ void __launch_bounds__(1024 / T) boids_window_kernel(
 #pragma unroll
   for (int j = 0; j < T; ++j) {
     const int s = base + 32 * j;
-    const size_t i = static_cast<size_t>(g) * gsz + s;
+    const size_t i = static_cast<size_t>(gs) * gsz + s;
     const bool live = s < gsz;
     xi[j] = live ? pos[i] : kFar;
-    yi[j] = live ? pos[npad + i] : kFar;
-    zi[j] = live ? pos[2 * npad + i] : kFar;
+    yi[j] = live ? pos[nsrc + i] : kFar;
+    zi[j] = live ? pos[2 * nsrc + i] : kFar;
     gi[j] = (DEDUP && live) ? grp[i] : 0.f;
     a[j] = Acc{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f,
                0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -160,7 +170,7 @@ __global__ void __launch_bounds__(1024 / T) boids_window_kernel(
   Box tb{};
   if (CULL) tb = warp_box(tlo, thi);
 
-  for (int h = max(g - wg, 0); h <= min(g + wg, ng - 1); ++h) {
+  for (int h = max(gs - wg, 0); h <= min(gs + wg, ngs - 1); ++h) {
     __syncthreads();  // the previous group's sources are consumed
 #pragma unroll
     for (int j = 0; j < T; ++j) {
@@ -169,11 +179,11 @@ __global__ void __launch_bounds__(1024 / T) boids_window_kernel(
       const bool live = s < gsz;
       float4 p = make_float4(kFar, kFar, kFar, 0.f);
       if (live) {
-        p = make_float4(pos[src], pos[npad + src], pos[2 * npad + src],
+        p = make_float4(pos[src], pos[nsrc + src], pos[2 * nsrc + src],
                         DEDUP ? grp[src] : 0.f);
-        s_vc[s] = make_float4(vel[src], vel[npad + src], vel[2 * npad + src],
+        s_vc[s] = make_float4(vel[src], vel[nsrc + src], vel[2 * nsrc + src],
                               col[src]);
-        s_cc[s] = make_float2(col[npad + src], col[2 * npad + src]);
+        s_cc[s] = make_float2(col[nsrc + src], col[2 * nsrc + src]);
       }
       s_pg[s] = p;
       if (CULL) {
@@ -255,7 +265,7 @@ __global__ void __launch_bounds__(1024 / T) boids_window_kernel(
                             q.sep_count, q.nb_count};
 #pragma unroll
     for (int r = 0; r < 14; ++r) {
-      out[static_cast<size_t>(r) * npad + i] = rows[r];
+      out[static_cast<size_t>(r) * nout + i] = rows[r];
     }
   }
 }
@@ -271,8 +281,8 @@ size_t smem_for(int gsz, int T) {
 }
 
 using KernelFn = void (*)(const float*, const float*, const float*,
-                          const float*, float*, int, int, int, float, float,
-                          float);
+                          const float*, float*, int, int, int, int, float,
+                          float, float);
 
 template <int T>
 KernelFn pick(bool cull, bool dedup) {
@@ -295,22 +305,24 @@ KernelFn kernel_for(int T, bool cull, bool dedup) {
 
 }  // namespace
 
-// One window pass: `targets` (T) targets a thread, the box cull on or off
+// One window pass over ng target groups, source group g + g0 of ngs for
+// target group g: `targets` (T) targets a thread, the box cull on or off
 // (`cull`); grp null for a first pass.
 extern "C" int spatialsim_boids_window(const float* pos, const float* vel,
                                        const float* col, const float* grp,
-                                       float* out, int npad, int gsz, int wg,
-                                       float perception_sq,
+                                       float* out, int ng, int g0, int ngs,
+                                       int gsz, int wg, float perception_sq,
                                        float separation_sq, float prev_wg,
                                        int targets, int cull, void* stream) {
   const KernelFn kernel = kernel_for(targets, cull != 0, grp != nullptr);
-  if (kernel == nullptr || gsz < 1 || gsz > 1024 || npad % gsz) {
+  if (kernel == nullptr || gsz < 1 || gsz > 1024 || wg < 0 ||
+      !window_tile::valid_range(ng, g0, ngs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  kernel<<<npad / gsz, threads_for(gsz, targets), smem_for(gsz, targets),
+  kernel<<<ng, threads_for(gsz, targets), smem_for(gsz, targets),
            static_cast<cudaStream_t>(stream)>>>(
-      pos, vel, col, grp, out, npad, gsz, wg, perception_sq, separation_sq,
-      prev_wg);
+      pos, vel, col, grp, out, g0, ngs, gsz, wg, perception_sq,
+      separation_sq, prev_wg);
   return static_cast<int>(cudaGetLastError());
 }
 

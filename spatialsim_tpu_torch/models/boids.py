@@ -106,6 +106,22 @@ def init_boids_window_state(pos, vel, col, config) -> BoidsWindowState:
                             _inverse(o1), p21, s21, 0)
 
 
+def physics_fn(config):
+    """``physics(pos, vel, col, force, avg_col, dt)``: the flock step's
+    walls, clamps and colour blend, with the float32 blend the JAX step
+    computes."""
+    wall_force = config.max_force * config.wall_weight
+
+    def physics(pos, vel, col, force, avg_col, dt):
+        blend = min(1.0, float(np.float32(config.color_blend_rate)
+                               * np.float32(dt)))
+        return boids_physics(
+            pos, vel, col, force, avg_col, bounds=config.bounds,
+            margin=config.wall_margin, wall_force=wall_force,
+            max_speed=config.max_speed, color_blend=blend, dt=dt)
+    return physics
+
+
 def make_step_fn(config: BoidsConfig, substeps: int = 1):
     """The flock step: ``step(state, dt) -> state``, ``substeps`` physics
     steps of ``dt`` each.
@@ -117,7 +133,6 @@ def make_step_fn(config: BoidsConfig, substeps: int = 1):
     """
     mode = resolve_neighbor_mode(config)
     cell_range = int(math.ceil(config.perception_radius / config.cell_size))
-    wall_force = config.max_force * config.wall_weight
     resort_interval = getattr(config, "resort_interval", 6)
     force_kw = dict(
         perception_radius=config.perception_radius,
@@ -133,14 +148,7 @@ def make_step_fn(config: BoidsConfig, substeps: int = 1):
                                                  "pass2_window_groups", 0),
                      second_pass=config.second_pass, **force_kw)
 
-    def physics(pos, vel, col, force, avg_col, dt):
-        # float32 dt and blend, as the JAX step computes them.
-        blend = min(1.0, float(np.float32(config.color_blend_rate)
-                               * np.float32(dt)))
-        return boids_physics(
-            pos, vel, col, force, avg_col, bounds=config.bounds,
-            margin=config.wall_margin, wall_force=wall_force,
-            max_speed=config.max_speed, color_blend=blend, dt=dt)
+    physics = physics_fn(config)
 
     def window_substep(state: BoidsWindowState, dt):
         if state.steps_since >= resort_interval:

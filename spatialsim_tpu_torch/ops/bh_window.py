@@ -349,8 +349,7 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
     # residual can hold over half the total mass, past 2^24 unit masses,
     # where float32 sums of its thousands of folded cells drift by ~1e-4
     # of the total.
-    res_cols = [torch.zeros((ng + 1,), dtype=torch.float64, device=dev)
-                for _ in range(n_res)]
+    res = torch.zeros((n_res, ng), dtype=torch.float64, device=dev)
 
     # Init: every group x every start-level cell, group-major.
     c0 = levels[0].code.shape[0]
@@ -459,15 +458,16 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
                     fc[flat] = A[r]
             if bool(over.any()):
                 # Entries past the per-group cap fold into the residual.
-                res_idx = torch.where(over, gidx, torch.full_like(gidx, ng))
-                MV = mv_levels[li][:, cidx]
-                w = torch.where(over & active, MV[0], torch.zeros_like(MV[0]))
-                contribs = [w, ccom[0] * w, ccom[1] * w, ccom[2] * w,
+                fold = torch.nonzero(over).squeeze(1)
+                MV = mv_levels[li][:, cidx[fold]]
+                w = MV[0]
+                fc = ccom[:, fold]
+                contribs = [w, fc[0] * w, fc[1] * w, fc[2] * w,
                             MV[1] * w, MV[2] * w, MV[3] * w]
                 if with_acc:
                     contribs += [MV[4] * w, MV[5] * w, MV[6] * w]
-                for rc, c in zip(res_cols, contribs):
-                    rc.index_add_(0, res_idx, c.double())
+                res = _fold_residual(res, gidx[fold],
+                                     torch.stack(contribs).double())
             counts = torch.zeros((ng,), dtype=_I64, device=dev)
             counts.index_add_(0, gidx, ok.to(_I64))
             far_n = torch.clamp(far_n + counts, max=L - 1)
@@ -520,11 +520,35 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
             grid.append(torch.zeros((ng, L), dtype=_F32, device=dev))
         far = torch.stack(grid, dim=1)                           # (ng, R, L)
         del far_cols, grid
-    res = torch.stack([rc[:ng] for rc in res_cols], dim=1).to(_F32)
+    res = res.T.to(_F32).contiguous()
     return (far, far_range, far_n,
             sl_start[:ng * SLIVER_CAP].reshape(ng, SLIVER_CAP),
             sl_end[:ng * SLIVER_CAP].reshape(ng, SLIVER_CAP), sl_n, res,
             torch.stack(wl_sizes + wl_demand))
+
+
+def _fold_residual(res, groups, rows):
+    """``res`` ``(k, ng)`` plus each group's columns of ``rows`` ``(k,
+    K)``, summed in one fixed order: per group, its residual so far, then
+    its columns in worklist order (``groups`` non-decreasing, the worklist
+    being group-sorted).
+
+    The order is that of the ``index_add_`` it replaces on the CPU, so the
+    results are equal bit for bit; on a card ``torch.segment_reduce`` keeps
+    it (one thread a row and group adds its run in sequence), where the
+    atomics of ``index_add_`` added in the order they happened to run.
+    """
+    ng, K = res.shape[1], groups.shape[0]
+    ar = torch.arange(ng, dtype=_I64, device=res.device)
+    heads = torch.searchsorted(groups, ar) + ar
+    data = res.new_empty((res.shape[0], K + ng))
+    data[:, heads] = res
+    data[:, torch.arange(K, dtype=_I64, device=res.device) + groups + 1] = \
+        rows
+    offsets = torch.cat([heads, heads.new_full((1,), K + ng)])
+    return torch.segment_reduce(
+        data, "sum", offsets=offsets.expand(res.shape[0], -1).contiguous(),
+        axis=1, unsafe=True)
 
 
 def _emit_slivers(mask, s, e, gidx, intervals, ng, M, sl_start, sl_end,

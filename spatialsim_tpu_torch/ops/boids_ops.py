@@ -106,7 +106,7 @@ def build_boids_orders(pos, *, cell_size, grid_dim, offset, group_size):
 
 def window_accumulate_reference(s_pos, s_vel, s_col, s_grpf=None, *, gsz,
                                 wg, perception_sq, separation_sq,
-                                prev_wg=None):
+                                prev_wg=None, halo9=None, halo_grpf=None):
     """Morton-window neighbour accumulators over SORTED padded inputs, in
     plain tensor ops (the plain version of ``csrc/boids_window.cu``).
 
@@ -117,6 +117,12 @@ def window_accumulate_reference(s_pos, s_vel, s_col, s_grpf=None, *, gsz,
         at -1e9), or None for a first pass.  Pairs with ``|grp_t - grp_s|
         <= prev_wg`` (default ``wg``) were already counted and are left
         out.
+      halo9: optional ``(left, right)`` pair of ``(9, wg * gsz)`` rows
+        ``[vel3, pos3, col3]``: the sorted slots just outside these (the
+        sharded step's neighbour halos, or the far-away fill).  Without it
+        the window is padded with far-away slots, the unsharded semantics.
+      halo_grpf: the matching ``(wg * gsz,)`` pair for ``s_grpf`` (without
+        it, far-away ids).
     Returns:
       ``(14, npad)`` f32 rows ``[sep3, align3, coh3, csum3, sep_count,
       nb_count]`` in the same sorted layout, ``coh3`` the summed offsets
@@ -138,10 +144,20 @@ def window_accumulate_reference(s_pos, s_vel, s_col, s_grpf=None, *, gsz,
     wg_f = float(prev_wg if prev_wg is not None else wg)
     pad = torch.nn.functional.pad
     # Rows [vel3; pos3; col3], window-padded by wg groups each side.
-    S9 = torch.cat([pad(s_vel, (pw, pw)), pad(s_pos, (pw, pw), value=2e9),
-                    pad(s_col, (pw, pw))], dim=0)
+    if halo9 is not None:
+        for h in halo9:
+            if tuple(h.shape) != (9, pw):
+                raise ValueError(f"halo9: expected (9, {pw}) halves, got "
+                                 f"{tuple(h.shape)}")
+        S9 = torch.cat([halo9[0], torch.cat([s_vel, s_pos, s_col]),
+                        halo9[1]], dim=1)
+    else:
+        S9 = torch.cat([pad(s_vel, (pw, pw)),
+                        pad(s_pos, (pw, pw), value=2e9),
+                        pad(s_col, (pw, pw))], dim=0)
     if dedup:
-        G = pad(s_grpf, (pw, pw), value=1e9)
+        G = (pad(s_grpf, (pw, pw), value=1e9) if halo_grpf is None else
+             torch.cat([halo_grpf[0], s_grpf, halo_grpf[1]]))
     gpos = s_pos.reshape(3, ng, gsz)
     out = s_pos.new_empty((ACC_ROWS, ng, gsz))
     chunk = max(1, _PAIRS_PER_CHUNK // (gsz * gsz))

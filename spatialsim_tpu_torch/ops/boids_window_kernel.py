@@ -3,9 +3,10 @@ kernel (port of ``spatialsim_tpu/ops/boids_window_kernel.py``).
 
 :func:`boids_window_accumulate` is the wrapper of ``csrc/boids_window.cu``.
 A CUDA tensor launches the kernel on PyTorch's current stream (or raises);
-a CPU tensor takes the plain version,
-:func:`spatialsim_tpu_torch.ops.boids_ops.window_accumulate_reference`.
-Both window passes of every window-mode boids step come through here.
+a CPU tensor takes the plain version, :func:`boids_window_reference`
+(:func:`spatialsim_tpu_torch.ops.boids_ops.window_accumulate_reference`).
+Both window passes of every window-mode boids step come through here, the
+sharded step's haloed shards too (``haloed=True``).
 
 The kernel holds T targets a thread and skips, warp by warp, the 32-source
 chunks whose box lies at least the perception radius from the box of the
@@ -47,7 +48,8 @@ def _check(name, t, shape):
 
 
 def boids_window_accumulate(s_pos, s_vel, s_col, s_grpf=None, *, gsz, wg,
-                            perception_sq, separation_sq, prev_wg=None):
+                            perception_sq, separation_sq, prev_wg=None,
+                            haloed=False):
     """Window neighbour accumulators of one pass over SORTED padded state.
 
     Args:
@@ -56,31 +58,58 @@ def boids_window_accumulate(s_pos, s_vel, s_col, s_grpf=None, *, gsz, wg,
       s_grpf: ``(npad,)`` float32 previous pass's group id per slot
         (padding at -1e9), or None for a first pass; pairs with
         ``|grp_t - grp_s| <= prev_wg`` (default ``wg``) are left out.
+      haloed: the inputs carry ``wg`` halo groups on each side of the
+        evaluated slots (the sharded step's shard between its neighbours'
+        edge groups, or the far-away fill): only the inner groups are
+        targets, and their windows read the halos.
     Returns:
-      ``(14, npad)`` float32 rows ``[sep3, align3, coh3, csum3, sep_count,
-      nb_count]``, ``coh3`` the summed offsets ``p_s - p_t``.
+      ``(14, n)`` float32 rows ``[sep3, align3, coh3, csum3, sep_count,
+      nb_count]``, ``coh3`` the summed offsets ``p_s - p_t``; ``n`` is
+      ``npad``, or ``npad - 2 * wg * gsz`` when ``haloed``.
 
     CUDA tensors launch the kernel (``DEFAULT_TARGETS`` targets a thread,
     the box cull on) without synchronising and add one to
     ``boids_window_accumulate.launches``.
     """
     kw = dict(gsz=gsz, wg=wg, perception_sq=perception_sq,
-              separation_sq=separation_sq, prev_wg=prev_wg)
+              separation_sq=separation_sq, prev_wg=prev_wg, haloed=haloed)
     if s_pos.device.type == "cpu":
-        from spatialsim_tpu_torch.ops.boids_ops import (
-            window_accumulate_reference)
-        return window_accumulate_reference(s_pos, s_vel, s_col, s_grpf, **kw)
+        return boids_window_reference(s_pos, s_vel, s_col, s_grpf, **kw)
     return boids_window_launch(s_pos, s_vel, s_col, s_grpf,
                                targets=DEFAULT_TARGETS, cull=True, **kw)
 
 
+def boids_window_reference(s_pos, s_vel, s_col, s_grpf=None, *, gsz, wg,
+                           perception_sq, separation_sq, prev_wg=None,
+                           haloed=False):
+    """The plain version of :func:`boids_window_accumulate`, on any device:
+    :func:`~spatialsim_tpu_torch.ops.boids_ops.window_accumulate_reference`,
+    with ``haloed`` inputs split into the evaluated slots and their
+    ``halo9``/``halo_grpf``."""
+    from spatialsim_tpu_torch.ops.boids_ops import window_accumulate_reference
+    kw = dict(gsz=gsz, wg=wg, perception_sq=perception_sq,
+              separation_sq=separation_sq, prev_wg=prev_wg)
+    if haloed:
+        pw = wg * gsz
+        rows = [s_vel, s_pos, s_col]
+        kw["halo9"] = (torch.cat([r[:, :pw] for r in rows]),
+                       torch.cat([r[:, -pw:] for r in rows]))
+        s_pos, s_vel, s_col = (r[:, pw:-pw] for r in (s_pos, s_vel, s_col))
+        if s_grpf is not None:
+            kw["halo_grpf"] = (s_grpf[:pw], s_grpf[-pw:])
+            s_grpf = s_grpf[pw:-pw]
+    return window_accumulate_reference(s_pos, s_vel, s_col, s_grpf, **kw)
+
+
 def boids_window_launch(s_pos, s_vel, s_col, s_grpf=None, *, gsz, wg,
                         perception_sq, separation_sq, prev_wg=None,
-                        targets, cull):
+                        targets, cull, haloed=False):
     """Launch ``csrc/boids_window.cu`` with ``targets`` (T) targets a
     thread and the box cull on or off, on checked CUDA inputs; adds one to
     ``boids_window_accumulate.launches``.  Every instance gives the same
-    rows, bit for bit."""
+    rows, bit for bit.  ``haloed`` as :func:`boids_window_accumulate`:
+    source groups ``ngs = npad / gsz``, target group g reads source group
+    ``g + wg`` of them (``g0 = 0`` and ``ng = ngs`` otherwise)."""
     tensors = [s_pos, s_vel, s_col] + ([s_grpf] if s_grpf is not None
                                        else [])
     if s_pos.device.type != "cuda" or any(t.device != s_pos.device
@@ -96,16 +125,21 @@ def boids_window_launch(s_pos, s_vel, s_col, s_grpf=None, *, gsz, wg,
     if targets not in BOIDS_TARGETS:
         raise ValueError(f"boids_window_accumulate: targets={targets} not "
                          f"in {BOIDS_TARGETS}")
+    ngs = npad // gsz
+    g0, ng = (wg, ngs - 2 * wg) if haloed else (0, ngs)
+    if ng < 1:
+        raise ValueError(f"boids_window_accumulate: {ngs} groups hold no "
+                         f"target group inside {wg} halo groups a side")
     for name, t in (("s_pos", s_pos), ("s_vel", s_vel), ("s_col", s_col)):
         _check(name, t, (3, npad))
     if s_grpf is not None:
         _check("s_grpf", s_grpf, (npad,))
-    out = torch.empty((ACC_ROWS, npad), dtype=torch.float32,
+    out = torch.empty((ACC_ROWS, ng * gsz), dtype=torch.float32,
                       device=s_pos.device)
     err = _kernels.entry.spatialsim_boids_window(
         s_pos.data_ptr(), s_vel.data_ptr(), s_col.data_ptr(),
         None if s_grpf is None else s_grpf.data_ptr(), out.data_ptr(),
-        npad, gsz, wg, float(perception_sq), float(separation_sq),
+        ng, g0, ngs, gsz, wg, float(perception_sq), float(separation_sq),
         float(prev_wg if prev_wg is not None else wg), int(targets),
         int(bool(cull)), _kernels.stream(s_pos))
     if err:

@@ -17,9 +17,12 @@ moments ``m2`` (about its own COM): the deepest level from body offsets to
 their cell's COM, each coarser level by the parallel-axis merge of its
 children, so every product is of cell-sized (small) quantities.
 
-Segment sums are ``index_add_`` into a buffer with one spare slot (the JAX
-code's out-of-range "drop" ids land there and are sliced off).  On CUDA
-they use atomics, so float sums vary in the last bits from run to run.
+Segment ids are non-decreasing (ranks of sorted codes; the out-of-range
+"drop" ids of empty child slots sit at the tail, since the sentinel code is
+the largest), so a float segment sum is ``torch.segment_reduce`` over the
+contiguous runs: each segment adds its elements in order, on the CPU and on
+a card alike, so one input gives one result, bit for bit.  Integer sums
+(counts) are exact in any order and stay ``index_add_``.
 """
 
 from __future__ import annotations
@@ -70,11 +73,28 @@ def _ranks(codes: torch.Tensor):
 
 
 def _segment(data: torch.Tensor, seg: torch.Tensor, num: int):
-    """Segment sum along the last axis; ids >= num are dropped."""
-    shape = data.shape[:-1] + (num + 1,)
-    out = torch.zeros(shape, dtype=data.dtype, device=data.device)
-    out.index_add_(data.dim() - 1, seg, data)
-    return out[..., :num]
+    """Segment sum along the last axis: ``(..., num)``; ids >= num are
+    dropped.  ``seg`` must be non-decreasing.
+
+    A float sum adds each segment's elements in order (the order of
+    ``index_add_`` on the CPU, so the results are equal bit for bit), one
+    fixed order on every device.  The segments' offsets end where the
+    drop ids begin, so the dropped tail is never read.
+    """
+    if not data.is_floating_point():
+        out = torch.zeros(data.shape[:-1] + (num + 1,), dtype=data.dtype,
+                          device=data.device)
+        out.index_add_(data.dim() - 1, seg, data)
+        return out[..., :num]
+    starts = torch.searchsorted(
+        seg, torch.arange(num + 1, dtype=seg.dtype, device=seg.device))
+    # Rows along the last axis: on a card, one thread a (row, segment)
+    # adds its run of consecutive elements, the CPU's order.
+    rows = data.reshape(-1, data.shape[-1])
+    out = torch.segment_reduce(
+        rows, "sum", offsets=starts.expand(rows.shape[0], -1).contiguous(),
+        axis=1, unsafe=True)
+    return out.reshape(data.shape[:-1] + (num,))
 
 
 def _scatter_min(init_val, size: int, seg: torch.Tensor,

@@ -1,14 +1,14 @@
 """One sharded step of each engine over the bodies axis: the ring
-all-pairs, sharded Barnes-Hut and the sharded window engine (the
-counterpart of ``__graft_entry__.dryrun_multichip`` without its boids
-step).
+all-pairs, sharded Barnes-Hut, the sharded window engine and the sharded
+boids step (the counterpart of ``__graft_entry__.dryrun_multichip``).
 
     python -m spatialsim_tpu_torch.parallel.dryrun            # one card
     torchrun --nproc-per-node=4 -m spatialsim_tpu_torch.parallel.dryrun
     python -m spatialsim_tpu_torch.parallel.dryrun --device cpu   # gloo
 
-``--check BODIES`` then holds the sharded sample sort, ring and window
-engine to the unsharded ones at BODIES bodies a rank (:func:`check`).
+``--check BODIES`` then holds the sharded sample sort, ring, window engine
+and boids step to the unsharded ones at BODIES bodies a rank
+(:func:`check`).
 
 The functions below take the bodies axis first and the WHOLE inputs in
 original order, run the sharded code on this rank's part and return this
@@ -26,13 +26,14 @@ import numpy as np
 import torch
 
 from spatialsim_tpu_torch import distributions
+from spatialsim_tpu_torch.config.boids import BoidsConfig
 from spatialsim_tpu_torch.config.nbody import NBodyConfig
 from spatialsim_tpu_torch.models.nbody import NBodyState
 from spatialsim_tpu_torch.parallel import distsort
 from spatialsim_tpu_torch.parallel.mesh import make_mesh
 from spatialsim_tpu_torch.parallel.sharded import (
-    _local, make_sharded_step, make_sharded_window_step, ring_allpairs_accel,
-    shard_state)
+    _local, make_sharded_boids_step, make_sharded_step,
+    make_sharded_window_step, ring_allpairs_accel, shard_state)
 
 
 def galaxy(n, seed):
@@ -93,15 +94,48 @@ def window_steps(mesh, config, pos, vel, mass, *, substeps=1, calls=1,
                 fallbacks=step.fallbacks, refreshes=step.refreshes)
 
 
+def flock_state(config, seed=0):
+    """``(pos, vel, col)`` of ``Flock(config=config, seed=seed)`` on the
+    CPU, ``(3, n)`` float32 in original boid order."""
+    from spatialsim_tpu_torch.models.boids import Flock
+    flock = Flock(config=config, seed=seed, device="cpu")
+    inv = flock.state.inv1
+    return tuple(a[:, inv].contiguous() for a in (
+        flock.state.pos, flock.state.vel, flock.state.col))
+
+
+def boids_steps(mesh, config, pos, vel, col, *, substeps=1, calls=1,
+                dt=1.0 / 30.0):
+    """``calls`` calls of :func:`make_sharded_boids_step`'s step from the
+    whole original-order state.  Returns a dict: this rank's sorted-layout
+    ``pos``/``vel``/``col`` shard, the whole ``inv1`` (original id ->
+    sorted slot) and the step's ``resorts``; tensors on the CPU."""
+    n = pos.shape[1]
+    step, init = make_sharded_boids_step(config, n, mesh, substeps=substeps)
+    st = init(pos, vel, col)
+    for _ in range(calls):
+        st = step(st, dt)
+    return dict(pos=st.pos.cpu(), vel=st.vel.cpu(), col=st.col.cpu(),
+                inv1=st.inv1.cpu(), resorts=step.resorts)
+
+
+def boids_config(n, **kw):
+    """``tests/test_sharded.py``'s boids configuration at ``n`` boids:
+    window mode, group 64, window groups 2 then 1, a re-sort every 3."""
+    base = dict(num_boids=n, neighbor_mode="window", group_size=64,
+                window_groups=2, pass2_window_groups=1, resort_interval=3)
+    return BoidsConfig(**dict(base, **kw))
+
+
 def _require(cond, what):
     if not cond:
         raise RuntimeError(f"dryrun check failed: {what}")
 
 
 def run(mesh, bodies_per_rank=128):
-    """The dry run: one sharded step (2 substeps) of the ring, Barnes-Hut
-    and the window engine at ``bodies_per_rank * size`` bodies; returns a
-    line saying what ran."""
+    """The dry run: one sharded step (2 substeps) of the ring, Barnes-Hut,
+    the window engine and the boids step at ``bodies_per_rank * size``
+    bodies; returns a line saying what ran."""
     n = bodies_per_rank * mesh.size
     cfg = NBodyConfig(num_bodies=n, theta=0.8, G=0.1, softening=2.0,
                       max_depth=6, group_size=64, frontier_capacity=512,
@@ -117,8 +151,13 @@ def run(mesh, bodies_per_rank=128):
     out = window_steps(mesh, wcfg, pos, vel, mass, substeps=2)
     _require(out["pos"].shape == (3, n // mesh.size)
              and bool(torch.isfinite(out["pos"]).all()), "window")
+    bcfg = boids_config(n, resort_interval=2)
+    out = boids_steps(mesh, bcfg, *flock_state(bcfg), substeps=2)
+    _require(out["pos"].shape == (3, n // mesh.size)
+             and bool(torch.isfinite(out["pos"]).all()), "boids")
     return (f"dryrun({mesh.size} ranks, {mesh.device}) OK: ring all-pairs "
-            f"+ sharded Barnes-Hut + sharded window engine, {n} bodies")
+            f"+ sharded Barnes-Hut + sharded window engine + sharded boids, "
+            f"{n} bodies")
 
 
 def check(mesh, bodies_per_rank):
@@ -126,8 +165,9 @@ def check(mesh, bodies_per_rank):
     unsharded ones at ``bodies_per_rank * size`` galaxy bodies: the sample
     sort of random codes equal to one stable sort; the ring within 2e-4 of
     the all-pairs engine; the window engine (3 calls of 2 substeps, a
-    rebuild at substep 4) within 2e-4 of the unsharded dense step.
-    Returns the lines to print."""
+    rebuild at substep 4) within 2e-4 of the unsharded dense step; the
+    boids step (3 calls of 2 substeps, a re-sort at substep 4) within 2e-4
+    of the unsharded window step.  Returns the lines to print."""
     from spatialsim_tpu_torch.ops import bh_window as bw
     from spatialsim_tpu_torch.ops.allpairs import allpairs_accel
     from spatialsim_tpu_torch.parallel.collectives import all_gather
@@ -185,7 +225,38 @@ def check(mesh, bodies_per_rank):
                 f"{off} bodies past rtol/atol 2e-4")
         _require(off == 0, line)
         lines.append(line)
+    lines.append(check_boids(mesh, n))
     return lines
+
+
+def check_boids(mesh, n):
+    """The sharded boids step against the unsharded frozen-order window
+    step at ``n`` boids (:func:`boids_config`), 3 calls of 2 substeps
+    across a re-sort, on every rank; returns the line to print."""
+    from spatialsim_tpu_torch.models.boids import (
+        init_boids_window_state, make_step_fn)
+    from spatialsim_tpu_torch.parallel.collectives import all_gather
+    dev = mesh.device
+    cfg = boids_config(n)
+    pos, vel, col = flock_state(cfg)
+    out = boids_steps(mesh, cfg, pos, vel, col, substeps=2, calls=3)
+    ustep = make_step_fn(cfg, substeps=2)
+    ust = init_boids_window_state(pos.to(dev), vel.to(dev), col.to(dev), cfg)
+    for _ in range(3):
+        ust = ustep(ust, 1.0 / 30.0)
+    worst, off = 0.0, 0
+    for f in ("pos", "vel", "col"):
+        got = all_gather(out[f].to(dev), mesh, axis=1)[
+            :, out["inv1"].to(dev)]
+        want = getattr(ust, f)[:, ust.inv1]
+        d = (got - want).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 2e-4 + 2e-4 * want.abs()).any(0).sum())
+    line = (f"boids step at {n:,}, 6 substeps: re-sorts {out['resorts']} "
+            f"(unsharded {ustep.resorts}); max|d| {worst:.3e} against the "
+            f"unsharded window step, {off} boids past rtol/atol 2e-4")
+    _require(off == 0 and out["resorts"] == ustep.resorts, line)
+    return line
 
 
 def main(argv=None) -> int:
@@ -194,15 +265,10 @@ def main(argv=None) -> int:
                     help="cuda: NCCL, one card a rank; cpu: gloo")
     ap.add_argument("--bodies-per-rank", type=int, default=128)
     ap.add_argument("--check", type=int, default=0, metavar="BODIES",
-                    help="then hold the sharded sort, ring and window "
-                         "engine to the unsharded ones at BODIES a rank")
-    ap.add_argument("--deterministic", action="store_true",
-                    help="torch.use_deterministic_algorithms: the octree's "
-                         "index_add_ sums otherwise round in the order of "
-                         "the card's atomics, run to run")
+                    help="then hold the sharded sort, ring, window engine "
+                         "and boids step to the unsharded ones at BODIES a "
+                         "rank")
     args = ap.parse_args(argv)
-    if args.deterministic:
-        torch.use_deterministic_algorithms(True, warn_only=True)
     mesh = make_mesh(device=args.device)
     lines = [run(mesh, args.bodies_per_rank)]
     if args.check:

@@ -1,5 +1,5 @@
 """Sharded force engines and steps over the bodies axis (port of
-``spatialsim_tpu/parallel/sharded.py``, its boids step aside).
+``spatialsim_tpu/parallel/sharded.py``).
 
 JAX runs one ``shard_map`` program over the mesh; here every rank runs the
 same Python, and each function takes and returns the RANK'S SHARD: ``(3,
@@ -24,6 +24,10 @@ is decided from values that are equal on all ranks.
   the rank's shard with the dense kernel in its ``haloed`` mode; whole-state
   gathers happen only at a rebuild (after the distributed sample sort) and
   a moment refresh.
+* :func:`make_sharded_boids_step`: the boids window engine with its
+  pass-1-sorted slots split by rank: a halo exchange for pass 1, gathers of
+  the 9-row state and the 14 accumulator rows for pass 2, and a replicated
+  re-sort every ``resort_interval`` steps.
 * :func:`make_sharded_step`: ring or Barnes-Hut, then the integrator.
 """
 
@@ -318,6 +322,142 @@ def make_sharded_window_step(config, n: int, mesh, substeps: int = 1,
     step.rebuilds = 0
     step.fallbacks = 0
     step.refreshes = 0
+    return step, init_fn
+
+
+def make_sharded_boids_step(config, n: int, mesh, substeps: int = 1):
+    """The boids window engine with its boids split by rank.
+
+    As the unsharded frozen-order step (``models/boids.py``), with the
+    JAX package's collective shapes:
+
+    * the state lives pass-1-Morton-sorted, and rank d holds the sorted
+      slots ``[d n/D, (d+1) n/D)``;
+    * pass 1: two non-cyclic shifts bring ``window_groups`` edge groups
+      of the 9 state rows ``[vel, pos, col]`` from each neighbour; the
+      outermost ranks fill the missing halo with far-away slots (pos 2e9,
+      vel and col 0), which never pass the perception test.  The window
+      kernel evaluates the haloed shard (``haloed=True``);
+    * pass 2 (``second_pass``) permutes globally: one ``all_gather`` of the
+      9-row state; each rank evaluates its own ``n/D`` pass-2 slots with
+      ``pass2_window_groups`` halo groups on each side taken from the
+      gathered state (slots past either end far away, group id 1e9), and
+      one ``all_gather`` of the 14 accumulator rows brings each rank its
+      boids' rows through ``s21``;
+    * a re-sort (``steps_since >= resort_interval``, a host counter equal
+      on every rank) gathers the state, rebuilds both orders exactly as
+      the unsharded step (``build_boids_orders``) and re-slices the shard;
+    * merge, steering and physics are elementwise on the shard.
+
+    ``n`` must divide into whole groups on every rank, and a rank must hold
+    at least ``window_groups`` groups.  Returns ``(step, init_fn)``:
+    ``step(state, dt)`` takes and returns this rank's
+    :class:`~spatialsim_tpu_torch.models.boids.BoidsWindowState`
+    (pos/vel/col the shard, the orders whole) and counts its re-sorts in
+    ``step.resorts``; ``step.pass_inputs(state)`` gives the two passes'
+    haloed kernel inputs (a collective call, as a substep makes it);
+    ``init_fn(pos, vel, col)`` takes the whole state in original boid order
+    on every rank and returns this rank's state.
+    """
+    import numpy as np
+
+    from spatialsim_tpu_torch.models.boids import (
+        _grid_kw, init_boids_window_state, physics_fn)
+    from spatialsim_tpu_torch.ops.boids_ops import (
+        _inverse, _merge_and_steer, build_boids_orders)
+    from spatialsim_tpu_torch.ops.boids_window_kernel import (
+        boids_window_accumulate)
+    D, rank = mesh.size, mesh.rank
+    gsz = config.group_size
+    if n % (D * gsz):
+        raise ValueError("num_boids must divide evenly by devices*groups")
+    nl = n // D
+    wg = config.window_groups
+    wg2 = getattr(config, "pass2_window_groups", 0) or wg
+    pw, pw2 = wg * gsz, wg2 * gsz
+    if pw > nl:
+        raise ValueError(f"window_groups {wg} exceeds the {nl // gsz} "
+                         f"groups a rank holds: one neighbour exchange "
+                         f"would not cover the window")
+    second_pass = config.second_pass
+    resort_interval = getattr(config, "resort_interval", 6)
+    grid_kw = _grid_kw(config)
+    acc_kw = dict(gsz=gsz, perception_sq=config.perception_radius ** 2,
+                  separation_sq=config.separation_radius ** 2)
+    steer = (config.separation_weight, config.alignment_weight,
+             config.cohesion_weight, config.max_speed, config.max_force)
+    physics = physics_fn(config)
+    dev = mesh.device
+    mine = slice(rank * nl, (rank + 1) * nl)
+    far9 = torch.cat([torch.zeros((3, pw), device=dev),
+                      torch.full((3, pw), 2e9, device=dev),
+                      torch.zeros((3, pw), device=dev)])
+
+    def resort(state):
+        sf = all_gather(torch.cat([state.pos, state.vel, state.col]), mesh,
+                        axis=1)
+        o1, p21, s21 = build_boids_orders(sf[0:3], group_size=gsz,
+                                          **grid_kw)
+        s9 = sf[:, o1[mine]]
+        return type(state)(s9[0:3].contiguous(), s9[3:6].contiguous(),
+                           s9[6:9].contiguous(), state.order1[o1],
+                           _inverse(o1)[state.inv1], p21, s21, 0)
+
+    def pass_inputs(state):
+        """``[(args, kw), ...]``: each window pass's haloed kernel input
+        (pass 1, then pass 2 with ``second_pass``), after this rank's halo
+        exchange and state gather."""
+        s9 = torch.cat([state.vel, state.pos, state.col])      # (9, nl)
+        from_left = shift([s9[:, nl - pw:]], mesh, +1)[0]
+        from_right = shift([s9[:, :pw]], mesh, -1)[0]
+        src = torch.cat([from_left if rank > 0 else far9, s9,
+                         from_right if rank < D - 1 else far9], dim=1)
+        out = [((src[3:6], src[0:3], src[6:9], None),
+                dict(wg=wg, haloed=True, **acc_kw))]
+        if second_pass:
+            sf = all_gather(s9, mesh, axis=1)                   # (9, n)
+            k2 = rank * nl + torch.arange(-pw2, nl + pw2, device=dev)
+            valid = (k2 >= 0) & (k2 < n)
+            p21w = torch.where(valid, state.p21[k2.clamp(0, n - 1)], 0)
+            P2 = torch.where(valid, sf[:, p21w], 0.0)
+            P2[3:6] = torch.where(valid, P2[3:6], 2e9)
+            g1f = torch.where(valid, (p21w // gsz).to(torch.float32), 1e9)
+            out.append(((P2[3:6], P2[0:3], P2[6:9], g1f),
+                        dict(wg=wg2, prev_wg=wg, haloed=True, **acc_kw)))
+        return out
+
+    def substep(state, dt):
+        if state.steps_since >= resort_interval:
+            state = resort(state)
+            step.resorts += 1
+        passes = pass_inputs(state)
+        rows = boids_window_accumulate(*passes[0][0], **passes[0][1])
+        if second_pass:
+            acc2 = boids_window_accumulate(*passes[1][0], **passes[1][1])
+            rows = rows + all_gather(acc2, mesh, axis=1)[:,
+                                                         state.s21[mine]]
+        force, avg_col = _merge_and_steer(rows, state.pos, state.vel,
+                                          state.col, *steer)
+        pos, vel, col = physics(state.pos, state.vel, state.col, force,
+                                avg_col, dt)
+        return state._replace(pos=pos, vel=vel, col=col,
+                              steps_since=state.steps_since + 1)
+
+    def step(state, dt):
+        dt = float(np.float32(dt))
+        for _ in range(substeps):
+            state = substep(state, dt)
+        return state
+
+    def init_fn(pos, vel, col):
+        st = init_boids_window_state(*(a.to(dev) for a in (pos, vel, col)),
+                                     config)
+        return st._replace(pos=st.pos[:, mine].contiguous(),
+                           vel=st.vel[:, mine].contiguous(),
+                           col=st.col[:, mine].contiguous())
+
+    step.resorts = 0
+    step.pass_inputs = pass_inputs
     return step, init_fn
 
 

@@ -64,7 +64,7 @@ PARENT_SIGNATURES = {
         _P)),
     "allpairs.cu": ("spatialsim_allpairs", (_P, _P, _P, _I, _F, _F, _P)),
     "boids_window.cu": ("spatialsim_boids_window", (
-        _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P)),
+        _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P)),
     "window_eval_cols.cu": ("spatialsim_window_eval_cols", (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
         _F, _P)),
@@ -431,9 +431,11 @@ def parent_allpairs(lib, pos, mass, G, softening):
 
 
 def parent_boids(lib, s_pos, s_vel, s_col, s_grpf=None, *, gsz, wg,
-                 perception_sq, separation_sq, prev_wg=None):
-    """The previous boids window kernel on the same inputs as
-    ``boids_window_accumulate``."""
+                 perception_sq, separation_sq, prev_wg=None, targets=1,
+                 cull=True):
+    """The previous boids window kernel (``npad``, T and cull in place of
+    the modes' ``(ng, g0, ngs)``) on the same inputs as
+    ``boids_window_launch``, at the instance ``targets``/``cull``."""
     import torch
     npad = s_pos.shape[1]
     out = torch.empty((14, npad), dtype=torch.float32, device=s_pos.device)
@@ -441,8 +443,8 @@ def parent_boids(lib, s_pos, s_vel, s_col, s_grpf=None, *, gsz, wg,
         s_pos.data_ptr(), s_vel.data_ptr(), s_col.data_ptr(),
         None if s_grpf is None else s_grpf.data_ptr(), out.data_ptr(), npad,
         gsz, wg, float(perception_sq), float(separation_sq),
-        float(prev_wg if prev_wg is not None else wg),
-        _kernels.stream(s_pos)), "previous boids_window")
+        float(prev_wg if prev_wg is not None else wg), int(targets),
+        int(bool(cull)), _kernels.stream(s_pos)), "previous boids_window")
     return out
 
 

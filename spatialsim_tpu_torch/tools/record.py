@@ -200,8 +200,8 @@ def record(config: dict, resume: bool = False, device="cuda") -> None:
         print(f"[Compress] {s['compressed']} frames packed, "
               f"{s['ratio'] * 100:.1f}% size reduction")
         print(f"[Record] Output: {rec_dir}")
-        print(f"[Record] Playback: python -m spatialsim_tpu.tools.playback "
-              f"{config['session_name']}")
+        print(f"[Record] Playback: python -m "
+              f"spatialsim_tpu_torch.tools.playback {config['session_name']}")
     except KeyboardInterrupt:
         # Every frame whose step ran is written, and the checkpoint holds
         # the state after the last of them, so a resume finds every frame

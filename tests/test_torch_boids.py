@@ -129,6 +129,51 @@ def test_window_accumulate_reference_matches_jax(use_pallas, dedup):
     _close(got.numpy(), want, 2e-4)
 
 
+@pytest.mark.parametrize("dedup", [False, True], ids=["pass1", "pass2"])
+def test_window_accumulate_halos_match_jax(dedup):
+    """``halo9``/``halo_grpf``: a shard between real halos cut from a
+    larger sorted state (left) and the far-away fill (right), against
+    JAX's ``_window_accumulate(halo9=...)``; the wrapper's ``haloed`` mode
+    on the CPU is the same plain version."""
+    from spatialsim_tpu_torch.ops.boids_window_kernel import (
+        boids_window_accumulate)
+    gsz, nl = 64, 512
+    wg, prev = (1, 2) if dedup else (2, None)
+    pw = wg * gsz
+    pos, vel, col = _state(nl + 2 * pw, 13, 40.0)
+    grp = np.random.default_rng(14).integers(0, 40, nl + 2 * pw).astype(
+        np.float32)
+    s9 = np.concatenate([vel, pos, col])
+    hl = s9[:, :pw]
+    hr = np.concatenate([np.zeros((3, pw)), np.full((3, pw), 2e9),
+                         np.zeros((3, pw))]).astype(np.float32)
+    c = slice(pw, pw + nl)
+    gl, gr = grp[:pw], np.full(pw, 1e9, np.float32)
+    kw = dict(gsz=gsz, wg=wg, perception_sq=25.0 ** 2,
+              separation_sq=10.0 ** 2, prev_wg=prev)
+    want = _jax_rows(jbo._window_accumulate(
+        jnp.asarray(pos[:, c]), jnp.asarray(vel[:, c]),
+        jnp.asarray(col[:, c]), jnp.asarray(grp[c])[None] if dedup else None,
+        halo9=(jnp.asarray(hl), jnp.asarray(hr)),
+        halo_grpf=((jnp.asarray(gl)[None], jnp.asarray(gr)[None]) if dedup
+                   else None), **kw), pos[:, c])
+    got = tbo.window_accumulate_reference(
+        _t(pos[:, c]), _t(vel[:, c]), _t(col[:, c]),
+        _t(grp[c]) if dedup else None, halo9=(_t(hl), _t(hr)),
+        halo_grpf=(_t(gl), _t(gr)) if dedup else None, **kw)
+    assert want[13].sum() > 5 * nl
+    # The left halo's boids are real neighbours of the shard's first group.
+    assert want[13, :gsz].sum() > want[13, 2 * gsz:3 * gsz].sum() / 4
+    _close(got.numpy(), want, 2e-4)
+    src = [np.concatenate([a[:, :pw + nl], b], axis=1)
+           for a, b in ((pos, hr[3:6]), (vel, hr[0:3]), (col, hr[6:9]))]
+    sgrp = np.concatenate([grp[:pw + nl], gr])
+    rows = boids_window_accumulate(*(_t(a) for a in src),
+                                   _t(sgrp) if dedup else None, haloed=True,
+                                   **kw)
+    assert torch.equal(rows, got)
+
+
 def test_kernel_wrapper_takes_plain_version_on_cpu():
     from spatialsim_tpu_torch.ops.boids_window_kernel import (
         boids_window_accumulate)

@@ -203,6 +203,119 @@ def test_boids_every_instance_equals_bit_for_bit(cuda, gsz, dedup):
             assert torch.equal(got, first), (T, cull)
 
 
+@pytest.mark.parametrize("halo", ["far", "real"])
+@pytest.mark.parametrize("dedup", [False, True])
+def test_boids_haloed_mode(cuda, dedup, halo):
+    """Kernel 4's haloed mode (``g0 = wg``, pass 1 wg 2, pass 2 wg 1):
+    against its plain version (counts equal, sums within 2e-4 of max),
+    every instance equal bit for bit, and equal bit for bit to the
+    unsharded kernel's rows: with the far-away fill around the whole
+    state, and with real halos cut from a larger state (a shard of groups
+    [8, 24) of 32)."""
+    from spatialsim_tpu_torch.ops.boids_window_kernel import (
+        BOIDS_TARGETS, boids_window_accumulate, boids_window_launch,
+        boids_window_reference)
+    gsz, n = 256, 8192
+    args = _boids_pass_inputs(n, gsz, 5, cuda)[1 if dedup else 0]
+    wg = 1 if dedup else 2
+    kw = dict(gsz=gsz, wg=wg, perception_sq=25.0, separation_sq=9.0,
+              prev_wg=2 if dedup else None)
+    full = boids_window_accumulate(*args, **kw)
+    pw = wg * gsz
+    if halo == "far":
+        fill = (2e9, 0.0, 0.0, 1e9)
+        src = [None if a is None else torch.cat(
+            [torch.full(a.shape[:-1] + (pw,), f, device=cuda), a,
+             torch.full(a.shape[:-1] + (pw,), f, device=cuda)], -1)
+            for a, f in zip(args, fill)]
+        want_rows = full
+    else:
+        lo, hi = 8 * gsz - pw, 24 * gsz + pw
+        src = [None if a is None else a[..., lo:hi].contiguous()
+               for a in args]
+        want_rows = full[:, 8 * gsz:24 * gsz]
+    before = boids_window_accumulate.launches
+    got = boids_window_accumulate(*src, haloed=True, **kw)
+    torch.cuda.synchronize()
+    assert boids_window_accumulate.launches == before + 1
+    assert got.shape == want_rows.shape
+    assert torch.equal(got, want_rows)
+    want = boids_window_reference(*src, haloed=True, **kw)
+    assert float(want[13].sum()) > 100
+    assert torch.equal(got[12:], want[12:])
+    for r in range(0, 12, 3):
+        err = float((got[r:r + 3] - want[r:r + 3]).abs().max())
+        assert err <= 2e-4 * float(want[r:r + 3].abs().max()), (r, err)
+    for T in BOIDS_TARGETS:
+        for cull in (False, True):
+            out = boids_window_launch(*src, targets=T, cull=cull,
+                                      haloed=True, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(out, got), (T, cull)
+
+
+def test_boids_haloed_mode_refuses_too_few_groups(cuda):
+    from spatialsim_tpu_torch.ops.boids_window_kernel import (
+        boids_window_accumulate)
+    x = torch.zeros((3, 4 * 64), device=cuda)
+    with pytest.raises(ValueError, match="no target group"):
+        boids_window_accumulate(x, x, x, gsz=64, wg=2, perception_sq=1.0,
+                                separation_sq=1.0, haloed=True)
+
+
+def test_segment_sums_equal_the_cpus(cuda):
+    """The octree's segment sums and the residual fold add in one fixed
+    order on the card too: equal to the CPU's results bit for bit, and
+    run to run."""
+    from spatialsim_tpu_torch.ops import bh_window as bw
+    from spatialsim_tpu_torch.ops import octree
+    rng = np.random.default_rng(0)
+    seg = torch.tensor(np.concatenate([np.sort(rng.integers(0, 50_000,
+                                                            400_000)),
+                                       np.full(1000, 50_000)]))
+    data = torch.tensor(rng.normal(size=(3, seg.numel())).astype(np.float32))
+    cpu = octree._segment(data, seg, 50_000)
+    a, b = (octree._segment(data.to(cuda), seg.to(cuda), 50_000)
+            for _ in range(2))
+    assert torch.equal(a, b) and torch.equal(a.cpu(), cpu)
+    res = torch.tensor(rng.normal(size=(10, 4000)))
+    groups = torch.tensor(np.sort(rng.integers(0, 4000, 300_000)))
+    rows = torch.tensor(rng.normal(size=(10, 300_000)))
+    cpu = bw._fold_residual(res, groups, rows)
+    a, b = (bw._fold_residual(res.to(cuda), groups.to(cuda), rows.to(cuda))
+            for _ in range(2))
+    assert torch.equal(a, b) and torch.equal(a.cpu(), cpu)
+
+
+def test_two_1m_builds_bit_equal(cuda):
+    """Two builds of one 1M galaxy state (the default config, calibrated)
+    give equal lists and accelerations bit for bit, without deterministic
+    algorithms; so does the exact engine."""
+    from spatialsim_tpu_torch.config.nbody import NBODY, resolve_config
+    from spatialsim_tpu_torch.ops import bh_window as bw
+    from spatialsim_tpu_torch.ops.barnes_hut import barnes_hut_accel
+    assert not torch.are_deterministic_algorithms_enabled()
+    n = 1_000_000
+    pos, vel, mass = _galaxy(n, 0, cuda)
+    cfg = bw.calibrate_config(resolve_config(NBODY.replace(num_bodies=n), n),
+                              pos, vel, mass)
+    acc = torch.as_tensor((np.random.default_rng(1).standard_normal(
+        (3, n)) * 0.1).astype(np.float32), device=cuda)
+    builds = [bw.build_lists(pos, vel, mass, acc, **bw._build_kw(cfg))
+              for _ in range(2)]
+    for f, t in builds[0]._asdict().items():
+        if isinstance(t, torch.Tensor):
+            assert torch.equal(t, getattr(builds[1], f)), f
+    ekw = bw._eval_kw(cfg)
+    a, b = (bw.eval_accel(lst, pos, mass, 0.02, **ekw) for lst in builds)
+    assert torch.equal(a, b)
+    del builds, a, b
+    p2, m2 = pos[:, :200_000].contiguous(), mass[:200_000].contiguous()
+    e1, e2 = (barnes_hut_accel(p2, m2, NBODY.replace(num_bodies=200_000))
+              for _ in range(2))
+    assert torch.equal(e1, e2)
+
+
 def test_boids_occupancy(cuda):
     from spatialsim_tpu_torch.ops.boids_window_kernel import (
         boids_occupancy, boids_threads)

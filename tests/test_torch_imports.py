@@ -4,7 +4,10 @@ modules and imports nothing of the JAX package.
 * a source scan: no ``import spatialsim_tpu`` / ``from spatialsim_tpu``
   statement in ``spatialsim_tpu_torch/`` or ``chip_smoke.py`` (the
   subprocess test in ``test_torch_slice.py`` checks ``sys.modules``);
-* the copies against their JAX-package originals: every initial-condition
+* the copies against their JAX-package originals: the verbatim copies'
+  sources equal apart from the package name (``render/``, ``apps/world``,
+  ``apps/input_handler``, ``tools/playback``, ``tools/export``,
+  ``utils/logging``, ``io/``, ``config/``, ...), every initial-condition
   distribution bit-identical for a seed, equal presets, equal config
   defaults and ``resolve_config`` results, identical codec bytes, the
   same recorder helpers.
@@ -86,6 +89,38 @@ def test_port_sources_import_neither_jax_nor_scripts():
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _JAX_OR_SCRIPTS.finditer(f.read_text())]
     assert not bad, bad
+
+
+# Copies verbatim apart from the package's name (in imports and in the
+# module paths their text names).
+VERBATIM = [
+    "render/__init__.py", "render/camera.py", "render/points.py",
+    "render/boid_geometry.py", "apps/__init__.py", "apps/world.py",
+    "apps/input_handler.py", "tools/playback.py", "tools/export.py",
+    "utils/__init__.py", "utils/logging.py", "io/__init__.py",
+    "io/codec.py", "io/session.py", "io/compressor.py", "distributions.py",
+    "_distributions_extra.py", "presets.py", "config/__init__.py",
+    "config/boids.py", "config/nbody.py"]
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_copies_equal_the_originals(rel):
+    port = (ROOT / "spatialsim_tpu_torch" / rel).read_text()
+    orig = (ROOT / "spatialsim_tpu" / rel).read_text()
+    assert port.replace("spatialsim_tpu_torch", "spatialsim_tpu") == orig
+
+
+def test_scan_covers_the_viewers_and_utils():
+    """The modules ported in place of a copy (the viewers, profiling) are
+    among the scanned sources, and the copied modules import."""
+    import importlib
+    names = {str(f.relative_to(ROOT))
+             for f in (ROOT / "spatialsim_tpu_torch").rglob("*.py")}
+    assert {"spatialsim_tpu_torch/apps/viewer.py",
+            "spatialsim_tpu_torch/utils/profiling.py"} <= names
+    for rel in VERBATIM + ["apps/viewer.py", "utils/profiling.py"]:
+        importlib.import_module("spatialsim_tpu_torch." + rel[:-3].replace(
+            "/__init__", "").replace("/", "."))
 
 
 @pytest.mark.parametrize("name", jax_distributions.DISTRIBUTIONS)

@@ -17,9 +17,13 @@
   (drift "off" and "max", 2 substeps a call across a rebuild) within 2e-4
   of JAX's unsharded step; the forced replicated fallback and the moment
   refresh, each against the unsharded dense step; ring and Barnes-Hut
-  steps against the unsharded engines; the dry run.  Against JAX's own
-  sharded window and Barnes-Hut steps only under ``-m slow`` (their JAX
-  programs are slow to build, as in ``tests/test_sharded.py``).
+  steps against the unsharded engines; the sharded boids step
+  (``second_pass`` on and off, 3 calls of 2 substeps across a re-sort)
+  within 2e-4 of the port's unsharded frozen-order step
+  (``tests/test_sharded.py``'s bar) and within ``test_torch_boids.py``'s
+  1e-3 of JAX's unsharded ``Flock``; the dry run.  Against JAX's own
+  sharded window, Barnes-Hut and boids steps only under ``-m slow`` (their
+  JAX programs are slow to build, as in ``tests/test_sharded.py``).
 """
 
 import functools
@@ -31,6 +35,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from spatialsim_tpu.config.boids import BoidsConfig as JaxBoidsConfig
 from spatialsim_tpu.config.nbody import NBodyConfig as JaxConfig
 from spatialsim_tpu.ops import bh_window as jbw
 from spatialsim_tpu.ops.bh_eval_kernel import pallas_window_eval
@@ -200,6 +205,7 @@ def test_build_lists_sorted_range_matches_jax(offset):
 # ---------------------------------------------------------------------------
 
 N_WIN = 1024
+N_BOIDS = 4096
 
 
 def _window_cfg(cls, drift="off", **kw):
@@ -256,6 +262,11 @@ def _calls():
             dryrun.sharded_steps, (NBodyConfig(**STEP_CFG), spos, svel,
                                    smass),
             dict(engine=engine, substeps=2, dt=0.05))
+    for sp in (True, False):
+        bcfg = dryrun.boids_config(N_BOIDS, second_pass=sp)
+        calls[f"boids-{sp}"] = (dryrun.boids_steps,
+                                (bcfg,) + dryrun.flock_state(bcfg, 7),
+                                dict(substeps=2, calls=3))
     calls["dryrun"] = (dryrun.run, (), {})
     return calls
 
@@ -458,11 +469,78 @@ def test_sharded_barnes_hut_step_matches_jax_sharded(ranks, D):
             np.asarray(getattr(want, f)), rtol=2e-4, atol=2e-4, err_msg=f)
 
 
+def _boids_original(results):
+    """Whole original-order (pos, vel, col) from the ranks' sorted
+    shards."""
+    inv = results[0]["inv1"]
+    return [torch.cat([r[f] for r in results], 1)[:, inv].numpy()
+            for f in ("pos", "vel", "col")]
+
+
+@pytest.mark.parametrize("second_pass", [True, False])
+@pytest.mark.parametrize("D", [2, 4])
+def test_sharded_boids_matches_unsharded(ranks, D, second_pass):
+    """``tests/test_sharded.py``'s case (4,096 boids, group 64, windows 2
+    then 1, a re-sort every 3 substeps; 6 substeps) against the port's
+    unsharded frozen-order step at 2e-4, and against JAX's unsharded
+    ``Flock`` at ``test_torch_boids.py``'s 1e-3 (the two sum the same
+    pairs in another order)."""
+    from spatialsim_tpu.models.boids import Flock as JaxFlock
+    from spatialsim_tpu.models.boids import make_step_fn as jax_step_fn
+    from spatialsim_tpu_torch.models.boids import (
+        init_boids_window_state, make_step_fn as boids_step_fn)
+    res = ranks(D)[f"boids-{second_pass}"]
+    assert [r["resorts"] for r in res] == [1] * D
+    got = _boids_original(res)
+    cfg = dryrun.boids_config(N_BOIDS, second_pass=second_pass)
+    ustep = boids_step_fn(cfg, substeps=2)
+    ust = init_boids_window_state(*dryrun.flock_state(cfg, 7), cfg)
+    jcfg = JaxBoidsConfig(**{k: getattr(cfg, k) for k in (
+        "num_boids", "neighbor_mode", "group_size", "window_groups",
+        "pass2_window_groups", "second_pass", "resort_interval")})
+    jstep = jax_step_fn(jcfg, substeps=2)
+    jst = JaxFlock(config=jcfg, seed=7).state
+    for _ in range(3):
+        ust = ustep(ust, 1 / 30)
+        jst = jstep(jst, jnp.float32(1 / 30))
+    assert ustep.resorts == 1
+    jinv = np.asarray(jst.inv1)
+    for g, f in zip(got, ("pos", "vel", "col")):
+        np.testing.assert_allclose(
+            g, getattr(ust, f)[:, ust.inv1].numpy(), rtol=2e-4, atol=2e-4,
+            err_msg=f)
+        np.testing.assert_allclose(g, np.asarray(getattr(jst, f))[:, jinv],
+                                   rtol=0, atol=1e-3, err_msg=f)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("second_pass", [True, False])
+@pytest.mark.parametrize("D", [2, 4])
+def test_sharded_boids_matches_jax_sharded(ranks, D, second_pass):
+    """Against JAX's own sharded boids step on D virtual devices."""
+    from spatialsim_tpu.parallel.sharded import make_sharded_boids_step
+    cfg = dryrun.boids_config(N_BOIDS, second_pass=second_pass)
+    jcfg = JaxBoidsConfig(**{k: getattr(cfg, k) for k in (
+        "num_boids", "neighbor_mode", "group_size", "window_groups",
+        "pass2_window_groups", "second_pass", "resort_interval")})
+    step, init = make_sharded_boids_step(jcfg, N_BOIDS, jax_mesh(D),
+                                         substeps=2)
+    st = init(*(jnp.asarray(a.numpy())
+                for a in dryrun.flock_state(cfg, 7)))
+    for _ in range(3):
+        st = step(st, jnp.float32(1 / 30))
+    inv = np.asarray(st.inv1)
+    got = _boids_original(ranks(D)[f"boids-{second_pass}"])
+    for g, f in zip(got, ("pos", "vel", "col")):
+        np.testing.assert_allclose(g, np.asarray(getattr(st, f))[:, inv],
+                                   rtol=0, atol=1e-3, err_msg=f)
+
+
 @pytest.mark.parametrize("D", [2, 4])
 def test_dryrun_on_gloo_ranks(ranks, D):
     assert ranks(D)["dryrun"] == [
         f"dryrun({D} ranks, cpu) OK: ring all-pairs + sharded Barnes-Hut "
-        f"+ sharded window engine, {128 * D} bodies"] * D
+        f"+ sharded window engine + sharded boids, {128 * D} bodies"] * D
 
 
 def test_make_mesh_needs_a_card_unless_cpu_is_asked(monkeypatch):
