@@ -70,7 +70,8 @@ Morton window, 5a-6d the traversal probes.
 8. the boids main path with every kernel launch counted from zero:
    ``Flock(num_boids=500_000)`` and ``Flock(num_boids=100_000)`` at the
    default config, 96 steps each at dt 1/30 (2 launches a step, 15
-   re-sorts), under ``bench.py``'s metric names, then the same runs
+   re-sorts), each step synchronised (labelled "Flock rate": the
+   ``bench.py`` names are phase 21's, from the port bench), then the same runs
    through the previous kernel (when its sources are there), and the 20K
    grid mode (no kernel, 10 steps);
 9. the 500K flock after those 96 steps: window forces against the exact
@@ -184,7 +185,30 @@ Morton window, 5a-6d the traversal probes.
     (2e-4 of max|ref|) and the unsharded kernel (bit-equality reported),
     13 steps across two re-sorts against ``Flock``'s window step (rtol and
     atol 2e-4; bit-equality reported), then 96 steps timed beside
-    ``Flock``'s with kernel 4's launches counted from zero.
+    ``Flock``'s with kernel 4's launches counted from zero;
+21. (a) compact emission at 1M (the default config calibrated, one
+    state): the ranges, compact and compact-mm pools equal bit for bit
+    (compact-mm is the compact path on the port), kernel 2 equal on the
+    three pools, 3 CUDA-synchronised builds of each mode
+    beside the cell-id finish, then ``NBodySimulation(num_bodies=
+    1_000_000, config=NBODY.replace(traversal_emit="compact"))`` for 48
+    steps, launches counted from zero; (b) the port bench
+    (``python -m spatialsim_tpu_torch.tools.bench``, the full suite in its
+    own processes): the card line and four JSON lines under ``bench.py``'s
+    names, values finite and positive, no metric failed, each metric's
+    kernel launches; (c) 10M bodies at the bench's 10m config through
+    ``NBodySimulation`` (the Plummer cluster, depth 9, group 1024, list
+    cap 8192, pooled): set-up seconds, peak memory, per-group mass (1e-4),
+    phase 5's protocol on 4,096 bodies (fresh <= 5%, tau = 23 reported)
+    and kernel 2 on the run's lists (T = 4) against its plain version;
+    for this config and ``scripts/extreme_run.py``'s (reported): the list
+    line, worklist demand against caps and the fresh-list error on 1,024
+    and 4,096 bodies;
+    (d) the readings behind ``tools/record.py``'s estimate anchors beside
+    its constants (the 1M bench line, the bench at 10,000 bodies with the
+    all-pairs engine, kernel 1 at 32,768), then ``record --estimate`` for
+    ``tiny_galaxy`` at 8K, ``bar_galaxy`` at 1M and the 50M preset beside
+    the times this run measured there (printed, not gated).
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -898,11 +922,11 @@ def force_errors(approx, exact):
             float(err.pow(2).mean().sqrt() / mag.pow(2).mean().sqrt()))
 
 
-def warmed_state(bw, pos, vel, mass, config):
+def warmed_state(bw, pos, vel, mass, config, n=N_MAIN):
     """Phase 5's protocol start: 5 warm-up steps at rebuild interval 4,
     so the lists carry real cell accelerations (lists 1 step old)."""
     st = bw.init_window_state(pos, vel, mass, config)
-    return bw.make_window_step(config.replace(rebuild_interval=4), N_MAIN,
+    return bw.make_window_step(config.replace(rebuild_interval=4), n,
                                substeps=5)(st, DT)
 
 
@@ -1449,6 +1473,467 @@ def sharded_boids(dev, mesh, kernels):
     return launched
 
 
+# Phase 21.
+N_10M = 10_000_000
+BUILD_REPS = 3         # timed builds of each emission mode
+BENCH_METRICS = ("boids_steps_per_sec_100k", "boids_steps_per_sec_500k",
+                 "nbody_steps_per_sec_1000k_theta0.8",
+                 "nbody_frame_time_ms_10000k")
+# record --estimate: preset, body-count override, frames.
+ESTIMATES = (("tiny_galaxy", "8k"), ("bar_galaxy", "1m"),
+             (PRESET_50M, None))
+
+
+def pool_far_mass(lists):
+    """(ng,) float64 mass of each group's far entries in the pool (row 6,
+    the first far_n slots from its first tile)."""
+    import torch
+    ct, _, tile = lists.pool.shape
+    ng = lists.far_n.shape[0]
+    pstart, far_n = lists.pstart.long(), lists.far_n.long()
+    t_idx = torch.arange(ct, device=pstart.device)
+    g = (torch.searchsorted(pstart, t_idx, right=True) - 1).clamp(0, ng - 1)
+    ent = ((t_idx - pstart[g])[:, None] * tile
+           + torch.arange(tile, device=pstart.device)[None])
+    live = (ent < far_n[g][:, None]) & (t_idx < pstart[-1] + (
+        far_n[-1] + tile - 1) // tile)[:, None]
+    m = lists.pool[:, 6, :].double()
+    return torch.zeros(ng, dtype=torch.float64, device=m.device).index_add_(
+        0, g[:, None].expand(ct, tile)[live], m[live])
+
+
+def require_pool_mass_conserved(st, config, label):
+    """Pooled lists: every group's window mass plus its far entries' mass
+    (slivers and residual included) equals the total within 1e-4."""
+    import torch
+    lists = st.lists
+    gsz, wg = config.group_size, config.window_groups
+    ng = lists.far_n.shape[0]
+    n = st.mass.shape[0]
+    gm = torch.zeros(ng * gsz, dtype=torch.float64, device=st.mass.device)
+    gm[:n] = st.mass.double()
+    gm = gm.reshape(ng, gsz).sum(1)
+    c = torch.cat([gm.new_zeros(1), gm.cumsum(0)])
+    g = torch.arange(ng, device=gm.device)
+    window = (c[torch.clamp(g + wg, max=ng - 1) + 1]
+              - c[torch.clamp(g - wg, min=0)])
+    total = float(gm.sum())
+    rel = float(((window + pool_far_mass(lists)) - total).abs().max()) / total
+    print(f"    mass conservation ({label}): max over {ng} groups of "
+          f"|window + far - total| / total = {rel:.3e} (limit 1e-4)")
+    require(rel <= 1e-4, f"{label}: per-group mass off by {rel}")
+
+
+def compact_on_card(dev, kernels):
+    """Phase 21 (a): the three range emissions of one 1M state, equal bit
+    for bit ("compact-mm" runs the compact path); kernel 2 on the pools;
+    the build times beside the default cell-id finish; then the 1M window step
+    with compact emission, launches counted from zero.  Returns kernel
+    2's launches in that run."""
+    import torch
+    from spatialsim_tpu_torch.config.nbody import NBODY, resolve_config
+    from spatialsim_tpu_torch.models.nbody import NBodySimulation
+    from spatialsim_tpu_torch.ops import bh_window as bw
+    from spatialsim_tpu_torch.ops.bh_eval_kernel import (
+        window_eval, window_eval_pool)
+    cfg = resolve_config(NBODY.replace(num_bodies=N_MAIN), N_MAIN)
+    pos, vel, mass = galaxy(N_MAIN, 0, dev)
+    cal = bw.calibrate_config(cfg, pos, vel, mass)
+    st = bw.init_window_state(pos, vel, mass, cal)
+    acc = bw.eval_accel_sorted(st.lists, st.pos, st.mass, DT,
+                               **bw._eval_kw(cal))
+
+    def build(mode):
+        return rebuilt_lists(bw, st, cal.replace(traversal_emit=mode), acc)
+
+    lists = {mode: build(mode) for mode in ("ranges", "compact", "compact-mm")}
+    ref = lists["ranges"]
+    fields = ("order", "inv_order", "far_n", "pstart", "pool")
+    for mode in ("compact", "compact-mm"):
+        differ = [f for f in fields
+                  if not torch.equal(getattr(ref, f), getattr(lists[mode], f))]
+        print(f"    {mode} against ranges: far_n, pstart and the whole pool "
+              f"{tuple(ref.pool.shape)} equal bit for bit: {not differ} "
+              f"{differ}")
+        require(not differ, f"{mode} pool differs from ranges in {differ}")
+
+    s_pos, s_mass = padded_sorted(st)
+    kw = bw._eval_kw(cal)
+    evals = {m: window_eval_pool(s_pos, s_mass, l.pool, l.pstart, l.far_n,
+                                 0, DT, **kw) for m, l in lists.items()}
+    same = all(torch.equal(evals["ranges"], e) for e in evals.values())
+    print(f"    kernel 2 on the ranges, compact and compact-mm pools: equal "
+          f"bit for bit: {same}")
+    require(same, "kernel 2 differs between the equal pools")
+    del evals, lists, ref
+
+    # Build times, CUDA-synchronised: the default cell-id finish first.
+    times = {}
+    for mode in ("auto", "ranges", "compact", "compact-mm"):
+        out = []
+        for _ in range(BUILD_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            build(mode)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        times[mode] = out
+        print(f"    1M build ({'cell-id' if mode == 'auto' else mode}): "
+              f"{', '.join(f'{x:.3f}' for x in out)} ms (median "
+              f"{statistics.median(out):.3f})")
+    del st, acc, pos, vel, mass
+    torch.cuda.empty_cache()
+
+    for fn in (window_eval_pool, window_eval):
+        fn.launches = 0
+    t = time.perf_counter()
+    sim = NBodySimulation(num_bodies=N_MAIN,
+                          config=NBODY.replace(traversal_emit="compact"),
+                          device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    step_s = timed_steps(sim.update, STEPS, DT)
+    launched = window_eval_pool.launches
+    print(f"    compact main path: init {init_s:.3f} s; launches "
+          f"window_eval_pool {launched}, window_eval {window_eval.launches}")
+    report_steps("1M window step, traversal_emit='compact'", step_s)
+    require(launched == STEPS and window_eval.launches == 0,
+            (launched, window_eval.launches))
+    require(sim.rebuilds == 1, f"rebuilds {sim.rebuilds}")
+    for name, t_ in (("pos", sim.state.pos), ("vel", sim.state.vel)):
+        require(t_.shape == (3, N_MAIN) and bool(torch.isfinite(t_).all()),
+                f"compact {name} finite, shape {tuple(t_.shape)}")
+    require_pool_mass_conserved(sim.state, sim.config, "compact, step 48")
+    del sim
+    torch.cuda.empty_cache()
+    return launched
+
+
+def bench_proc(extra=()):
+    """``python -m spatialsim_tpu_torch.tools.bench`` with ``extra``
+    arguments, as a user runs it; its card line, JSON lines and launch
+    lines printed.  Returns ({metric: value}, {job: kernel launches},
+    the process, its wall seconds)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spatialsim_tpu_torch.tools.bench", *extra],
+        cwd=ROOT, env=env, capture_output=True, text=True)
+    secs = time.perf_counter() - t
+    for line in proc.stdout.splitlines() + proc.stderr.splitlines():
+        if line.startswith(("{", "[bench]")) or " W, " in line or \
+                line.endswith(" W"):
+            print("    " + line)
+    values, launches = {}, {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            rec = json.loads(line)
+            require(set(rec) == {"metric", "value", "unit", "vs_baseline"},
+                    rec)
+            values[rec["metric"]] = rec["value"]
+    for line in proc.stderr.splitlines():
+        if " kernel launches: " in line:
+            job, _, counts = line[len("[bench] "):].partition(
+                " kernel launches: ")
+            launches[job] = json.loads(counts)
+    require(proc.returncode == 0 and "FAILED" not in proc.stderr,
+            f"bench {list(extra)} rc {proc.returncode}:\n"
+            f"{proc.stderr[-4000:]}")
+    return values, launches, proc, secs
+
+
+def run_bench():
+    """Phase 21 (b): the port bench's full suite.  Every metric's line
+    under bench.py's name, its value finite and positive, no metric
+    failed; returns ({metric: value}, {job: kernel launches})."""
+    import math
+    values, launches, _, secs = bench_proc()
+    print(f"    bench wall seconds: {secs:.3f} (four metrics, a process "
+          f"each)")
+    require(tuple(sorted(values)) == tuple(sorted(BENCH_METRICS)), values)
+    require(all(math.isfinite(v) and v > 0 for v in values.values()),
+            values)
+    require(launches.get("1m", {}).get("window_eval_pool", 0) > 0
+            and launches.get("10m", {}).get("window_eval_pool", 0) > 0
+            and launches.get("boids", {}).get("boids_window", 0) > 0
+            and launches.get("boids500k", {}).get("boids_window", 0) > 0,
+            launches)
+    return values, launches
+
+
+def list_health(st, c, label):
+    """The list line of the JAX package's ``scripts/extreme_run.py``: far_n
+    mean, p99 and max, groups at the list cap, groups folded whole
+    (far_n <= 1), and the pool tiles in use."""
+    import numpy as np
+    fn = st.lists.far_n.cpu().numpy()
+    ps = st.lists.pstart.cpu().numpy()
+    used = int(ps[-1] + -(-int(fn[-1]) // c.pool_tile))
+    print(f"    {label} lists: far_n mean={fn.mean():.0f} "
+          f"p99={np.percentile(fn, 99):.0f} max={fn.max()} "
+          f"at_cap={(fn >= c.list_capacity - 1).sum()} "
+          f"folded={(fn <= 1).sum()}/{fn.shape[0]} | pool tiles "
+          f"{used}/{st.lists.pool.shape[0]}")
+
+
+def demand_against_caps(st, c, label):
+    """``build_diagnostics`` on the state: each level's pre-clamp worklist
+    demand beside its cap (a demand above its cap folds cells coarsely
+    at that level)."""
+    from spatialsim_tpu_torch.ops import bh_window as bw
+    pos_o, vel_o, mass_o = original_order(st)
+    d = bw.build_diagnostics(pos_o, vel_o, mass_o, c)
+    over = [li for li, (dm, cap) in enumerate(zip(d["wl_demand"],
+                                                  d["wl_caps"]))
+            if dm > cap]
+    print(f"    {label} worklists, level: demand / cap: "
+          + ", ".join(f"{li}: {int(dm)} / {cap}" for li, (dm, cap) in
+                      enumerate(zip(d["wl_demand"], d["wl_caps"])))
+          + f"; levels over their cap: {over}; groups at the list cap "
+          f"{d['groups_at_cap']}; residual share of the mass "
+          f"{d['residual_mass_frac']:.3e}")
+
+
+def fresh_sample_errors(st, c, label):
+    """The force error of ``scripts/extreme_run.py`` on the first build's
+    lists (tau 0): |da|/|a| against a direct sum over all bodies, on the
+    1,024 bodies its ``default_rng(1)`` draws and on the 4,096 that phase
+    5's protocol draws from the same seed."""
+    import numpy as np
+    import torch
+    from spatialsim_tpu_torch.ops import bh_window as bw
+    n = st.pos.shape[1]
+    acc = bw.eval_accel_sorted(st.lists, st.pos, st.mass, 0.0,
+                               **bw._eval_kw(c))
+    inv = st.lists.inv_order.long()
+    for k in (1024, N_SAMPLE):
+        idx = np.sort(np.random.default_rng(1).choice(n, k, replace=False))
+        slots = inv[torch.as_tensor(idx, device=inv.device)]
+        exact = direct_accel(st.pos[:, slots], st.pos, st.mass, c.G,
+                             c.softening, chunk=16)
+        a = acc[:, slots].double()
+        err = ((a - exact).norm(dim=0)
+               / exact.norm(dim=0).clamp(min=1e-12)).cpu().numpy()
+        print(f"    {label}, force error (fresh lists, {k} samples): "
+              f"median={np.median(err):.4f} "
+              f"p99={np.percentile(err, 99):.4f} "
+              f"rms={np.sqrt((err ** 2).mean()):.4f}")
+
+
+def extreme_run_config(n):
+    """``scripts/extreme_run.py``'s config at ``n`` bodies and theta 0.8
+    (the JAX package's calibrated 10M error log)."""
+    from spatialsim_tpu_torch.config.nbody import NBodyConfig, resolve_config
+    return resolve_config(NBodyConfig(
+        num_bodies=n, theta=0.8, G=0.08, softening=3.0, damping=1.0,
+        spawn_radius=700.0, distribution="cluster", engine="window",
+        rebuild_drift_mode="off"), n)
+
+
+def ten_million(dev, kernels):
+    """Phase 21 (c): the bench's 10m config through NBodySimulation in this
+    process: set-up, peak memory, per-group mass, phase 5's protocol on
+    4,096 bodies (fresh <= 5%; tau = 23 reported), and kernel 2 on the
+    run's lists (group 1024, T = 4) against its plain version.  Beside
+    them, for this config and for ``scripts/extreme_run.py``'s (the JAX
+    package's 10M error log): the list line, each level's worklist
+    demand against its cap, and the fresh-list error on 1,024 and 4,096
+    bodies (reported).  Returns kernel 2's launches in the run."""
+    import numpy as np
+    import torch
+    from spatialsim_tpu_torch.ops import bh_window as bw
+    from spatialsim_tpu_torch.ops.bh_eval_kernel import (
+        tile_targets, window_eval_pool, window_eval_pool_reference)
+    from spatialsim_tpu_torch.models.nbody import NBodySimulation
+    from spatialsim_tpu_torch.tools import bench
+    args = bench.parser().parse_args(["--only", "10m"])
+    kw = bench.job_kwargs("10m", args)
+    cfg = bench.nbody_config(**{k: kw[k] for k in (
+        "n", "theta", "distribution", "engine", "group_size", "depth",
+        "list_cap", "skin", "rebuild_interval", "drift_mode")})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    window_eval_pool.launches = 0
+    t = time.perf_counter()
+    sim = NBodySimulation(num_bodies=N_10M, config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    c = sim.config
+    print(f"    10M cluster: set-up {time.perf_counter() - t:.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in sim.setup_seconds.items())
+          + f"); depth {c.max_depth}, group {c.group_size}, list cap "
+          f"{c.list_capacity}, advance order {c.advance_order}, pool tile "
+          f"{c.pool_tile}, pool_cap {c.pool_cap} tiles, wl_caps "
+          f"{c.wl_caps}, tree_caps {c.tree_caps}")
+    lists = sim.state.lists
+    print(f"    10M lists: pool {tuple(lists.pool.shape)} "
+          f"({lists.pool.numel() * 4 / 1e9:.3f} GB), far_n mean "
+          f"{float(lists.far_n.float().mean()):.1f} max "
+          f"{int(lists.far_n.max())}; peak device memory GB "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    require(c.max_depth == 9 and c.group_size == 1024
+            and c.list_capacity == 8192 and c.pool_tile > 0, c)
+    require_pool_mass_conserved(sim.state, c, "10M first build")
+    list_health(sim.state, c, "10M (bench config)")
+    demand_against_caps(sim.state, c, "10M (bench config)")
+    fresh_sample_errors(sim.state, c, "10M (bench config)")
+
+    # Phase 5's protocol: 5 warm-up steps at interval 4, then the lists
+    # frozen to tau = 23; a sample of 4,096 against a direct sum.
+    idx = torch.as_tensor(np.sort(np.random.default_rng(1).choice(
+        N_10M, N_SAMPLE, replace=False)), device=dev)
+    ekw = bw._eval_kw(c)
+
+    def errors(st, tag, fresh):
+        pos_o, vel_o, mass_o = original_order(st)
+        exact = direct_accel(pos_o[:, idx], pos_o, mass_o, c.G,
+                             c.softening, chunk=16)
+        got = force_errors(bw.eval_accel(st.lists, pos_o, mass_o, DT,
+                                         **ekw)[:, idx], exact)
+        print(f"    10M {tag}, lists {st.lists.steps_since} steps old: rms "
+              f"of |da|/|a| {got[0]:.4%}  median {got[1]:.4%}  "
+              f"rms|da|/rms|a| {got[2]:.4%}")
+        if fresh:
+            fl = bw.build_lists(pos_o, vel_o, mass_o, **bw._build_kw(c))
+            fr = force_errors(bw.eval_accel(fl, pos_o, mass_o, 0.0,
+                                            **ekw)[:, idx], exact)
+            print(f"    10M {tag}, rebuilt: rms of |da|/|a| {fr[0]:.4%}  "
+                  f"median {fr[1]:.4%}  rms|da|/rms|a| {fr[2]:.4%}")
+        return got[0]
+
+    pos0 = sim.state.pos[:, sim.state.lists.inv_order.long()]
+    vel0 = sim.state.vel[:, sim.state.lists.inv_order.long()]
+    mass0 = sim.state.mass[sim.state.lists.inv_order.long()]
+    del sim, lists
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    st = warmed_state(bw, pos0, vel0, mass0, c, n=N_10M)
+    del pos0, vel0, mass0
+    e_fresh = errors(st, "protocol", True)
+    frozen = bw.make_window_step(c.replace(rebuild_interval=10 ** 6), N_10M,
+                                 substeps=1)
+    step_s = []
+    for _ in range(22):
+        tt = time.perf_counter()
+        st = frozen(st, DT)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - tt)
+    require(st.lists.steps_since == 23, st.lists.steps_since)
+    e_stale = errors(st, "protocol", False)
+    print(f"    10M: protocol wall {time.perf_counter() - t:.3f} s; plain "
+          f"steps (frozen lists) median "
+          f"{statistics.median(step_s) * 1e3:.3f} ms; peak device memory "
+          f"GB {torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    print(f"    limit on the fresh rms of |da|/|a|: 5% (tau = 23 reported: "
+          f"{e_stale:.4%})")
+    require(e_fresh <= 0.05, f"10M fresh rms {e_fresh}")
+    require_pool_mass_conserved(st, c, "10M after the protocol's builds")
+    launched = window_eval_pool.launches
+    builds = []
+    for _ in range(BUILD_REPS):
+        torch.cuda.synchronize()
+        tt = time.perf_counter()
+        rebuilt_lists(bw, st, c, st.acc)
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - tt) * 1e3)
+    print(f"    10M list builds (the rebuild, cell-id): "
+          f"{', '.join(f'{x:.3f}' for x in builds)} ms")
+
+    # Kernel 2 at the 10M shape: group 1024, T = tile_targets(1024).
+    s_pos, s_mass = padded_sorted(st)
+    lists = st.lists
+    args = (s_pos, s_mass, lists.pool, lists.pstart, lists.far_n,
+            lists.steps_since, DT)
+    got = window_eval_pool(*args, **ekw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = window_eval_pool_reference(*args, **ekw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    abs_err, err = kernel_errors(got, want)
+    ms = cuda_ms(lambda: window_eval_pool(*args, **ekw), 5)
+    gsz, wg = c.group_size, c.window_groups
+    ng = lists.far_n.shape[0]
+    live = int(lists.far_n.long().sum())
+    pairs = window_pairs(ng, gsz, wg) + live * gsz
+    nbytes = 4 * (s_pos.numel() + s_mass.numel() + 10 * live
+                  + lists.pstart.numel() + lists.far_n.numel() + got.numel())
+    b_ms, b_by = bound(18.0 * pairs, nbytes)
+    print(f"    kernel 2 on the 10M lists (group {gsz}, T="
+          f"{tile_targets(gsz)}, tau {lists.steps_since}): max|da| = "
+          f"{abs_err:.3e}, max|da|/max|a| = {err:.3e} (tol {TOL_WINDOW}); "
+          f"kernel {ms:.4f} ms = {pairs / ms / 1e6:.1f} Gpairs/s over "
+          f"{pairs:.4e} pairs; plain {plain_ms:.4f} ms; bound {b_ms:.4f} "
+          f"ms ({b_by}), {b_ms / ms:.1%} of it")
+    require(err <= TOL_WINDOW, f"10M window eval error {err}")
+    record_kernel(kernels, "window_eval_pool_10m", abs_err, err, ms,
+                  plain_ms, 18.0 * pairs, nbytes)
+    del st, lists, args, got, want, s_pos, s_mass
+    torch.cuda.empty_cache()
+
+    # The JAX package's own 10M error protocol (scripts/extreme_run.py
+    # 10000000 10 0.8: its softer, wider cluster, fresh lists, 1,024
+    # samples), on the port.
+    xc = extreme_run_config(N_10M)
+    t = time.perf_counter()
+    sim = NBodySimulation(num_bodies=N_10M, config=xc, device="cuda")
+    torch.cuda.synchronize()
+    print(f"    10M (extreme_run config: G {xc.G}, softening "
+          f"{xc.softening}, spawn radius {xc.spawn_radius}): set-up "
+          f"{time.perf_counter() - t:.3f} s; wl_caps {sim.config.wl_caps}")
+    list_health(sim.state, sim.config, "10M (extreme_run config)")
+    demand_against_caps(sim.state, sim.config, "10M (extreme_run config)")
+    fresh_sample_errors(sim.state, sim.config, "10M (extreme_run config)")
+    del sim
+    torch.cuda.empty_cache()
+    return launched
+
+
+def estimate_anchors(line_1m, allpairs_ms):
+    """Phase 21 (d): the readings behind ``tools/record.py``'s estimate
+    anchors, taken in this run beside the constants: the 1M bench line
+    (phase 21 (b)), the port bench at 10,000 bodies with the all-pairs
+    engine (measured here), kernel 1 at 32,768 (phase 2)."""
+    import math
+    from spatialsim_tpu_torch.tools import record
+    values, launches, _, _ = bench_proc(
+        ["--only", "1m", "--bodies", "10000", "--engine", "allpairs"])
+    (metric, floor), = values.items()
+    require(math.isfinite(floor) and floor > 0, values)
+    require(launches.get("1m", {}).get("allpairs", 0) > 0, launches)
+    pair_ms = 32_768 ** 2 / record._EST_ALLPAIRS_PAIRS_PER_S * 1e3
+    print(f"    estimate anchors, tools/record.py beside this run: 1M "
+          f"window {1 / record._EST_ANCHOR_STEP_S:.3f} steps/s beside "
+          f"{line_1m} (21 (b)); step floor "
+          f"{1 / record._EST_STEP_FLOOR_S:.3f} steps/s beside {floor} "
+          f"({metric}, --bodies 10000 --engine allpairs); kernel 1 at "
+          f"32,768 {pair_ms:.4f} ms beside {allpairs_ms:.4f} ms (phase 2)")
+
+
+def estimates(measured, device="cuda"):
+    """Phase 21 (d): ``record --estimate`` for three presets beside the
+    step or frame time this run measured at that shape (printed, not
+    gated)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for preset, bodies in ESTIMATES:
+        cmd = [sys.executable, "-m", "spatialsim_tpu_torch.tools.record",
+               "--preset", preset, "--estimate", "--device", device]
+        if bodies:
+            cmd += ["--bodies", bodies]
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True)
+        require(proc.returncode == 0, f"{cmd}: {proc.stdout}{proc.stderr}")
+        line = proc.stdout.strip().splitlines()[-1]
+        est_s = float(line.split("; ")[1].split(" s on ")[0])
+        from spatialsim_tpu_torch.presets import get_preset_config
+        pc = get_preset_config(preset)
+        frames, sub = int(pc["total_frames"]), int(pc.get("substeps", 1))
+        print(f"    {line}")
+        print(f"    {preset}: estimate {est_s / frames * 1e3:.3f} ms a frame "
+              f"({sub} steps) beside {measured[preset]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1778,6 +2263,7 @@ def main() -> int:
         step_s.append(time.perf_counter() - t)
         if k == STEPS - 2:
             st47 = sim.state
+    step_s_1m = step_s
     launches = {"allpairs": allpairs_accel.launches,
                 "window_eval_pool": window_eval_pool.launches}
     require(window_eval.launches == 0,
@@ -1937,8 +2423,9 @@ def main() -> int:
               f"{frame_ms:.3f} ms a frame (median of 10) beside "
               f"{frame_step_ms:.3f} ms for a frame's steps alone (median of "
               f"6, in this process)")
-        run_recorder(["--preset", "tiny_galaxy", "--bodies", "8k",
-                      "--frames", "30", "--name", "smoke_8k"], rec_root)
+        frame8k_ms = run_recorder(["--preset", "tiny_galaxy", "--bodies",
+                                   "8k", "--frames", "30", "--name",
+                                   "smoke_8k"], rec_root)
         check_frame(rec_root / "smoke_8k", 29, 8_000)
         play_back(rec_root, "smoke_8k", 30)
     done(t0)
@@ -2118,7 +2605,7 @@ def main() -> int:
                   if k >= interval and k % interval == 0]
         plain = [s_ for k, s_ in enumerate(step_s)
                  if not (k >= interval and k % interval == 0)]
-        print(f"    boids_steps_per_sec_{n // 1000}k = "
+        print(f"    Flock rate, {n // 1000}K boids, synchronised steps: "
               f"{BOIDS_STEPS / sum(step_s):.3f} steps/s ({BOIDS_STEPS} steps "
               f"in {sum(step_s):.4f} s, re-sorts included)")
         print(f"    N={n}: init {init_s:.3f} s; median step "
@@ -2161,10 +2648,10 @@ def main() -> int:
             for n in (N_BOIDS, 100_000):
                 flock = Flock(num_boids=n, device="cuda")
                 step_s = timed_steps(flock.update, BOIDS_STEPS, BOIDS_DT)
-                print(f"    through the previous kernel: boids_steps_per_sec_"
-                      f"{n // 1000}k = {BOIDS_STEPS / sum(step_s):.3f} steps/s"
-                      f"; median step {float(np.median(step_s)) * 1e3:.4f} "
-                      f"ms")
+                print(f"    through the previous kernel: Flock rate, "
+                      f"{n // 1000}K boids = {BOIDS_STEPS / sum(step_s):.3f} "
+                      f"steps/s; median step "
+                      f"{float(np.median(step_s)) * 1e3:.4f} ms")
                 del flock
         finally:
             bo.boids_window_accumulate = kernel_fn
@@ -2966,6 +3453,34 @@ def main() -> int:
     sharded_launches, haloed_launches = sharded_paths(dev, kernels)
     done(t0)
 
+    # ---- 21. compact emission, the port bench, 10M, the estimate ---------
+    t0 = phase("21. compact emission at 1M, the port bench's full suite, "
+               "10M bodies (the bench's 10m config), record --estimate")
+    print("  (a) compact and compact-mm emission on the card")
+    compact_launches = compact_on_card(dev, kernels)
+    print("  (b) python -m spatialsim_tpu_torch.tools.bench")
+    torch.cuda.empty_cache()
+    bench_values, bench_launches = run_bench()
+    print(f"    beside this run: phase 4's 1M window engine "
+          f"{STEPS / sum(step_s_1m):.3f} steps/s over {STEPS} synchronised "
+          f"steps (the bench: "
+          f"{bench_values['nbody_steps_per_sec_1000k_theta0.8']} over 96 in "
+          f"dispatches of 48)")
+    print("  (c) 10M: NBodySimulation at the bench's 10m config")
+    launches_10m = ten_million(dev, kernels)
+    print("  (d) python -m spatialsim_tpu_torch.tools.record --estimate")
+    estimate_anchors(bench_values["nbody_steps_per_sec_1000k_theta0.8"],
+                     kernels["allpairs"]["ms"])
+    estimates({
+        "tiny_galaxy": (f"the 8K recorder's {frame8k_ms:.3f} ms a frame "
+                        f"(phase 6, its write included) and the all-pairs "
+                        f"engine's {ap_step_ms[10_000]:.3f} ms a step at "
+                        f"10,000 (phase 4)"),
+        "bar_galaxy": (f"{frame_step_ms:.3f} ms for a frame's {rsub} steps "
+                       f"at 1M (phase 6)"),
+        PRESET_50M: f"the 50M median step {step50_ms:.3f} ms (phase 13)"})
+    done(t0)
+
     print(f"\ntotal seconds: {time.perf_counter() - wall0:.3f}")
     src = "spatialsim_tpu_torch/csrc"
     summary = {"kernels": [
@@ -2975,8 +3490,13 @@ def main() -> int:
         dict(name="window_eval_pool", route="cuda",
              source=f"{src}/window_eval_pool.cu",
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:313",
-             launches=launches["window_eval_pool"] + refresh_launches,
+             launches=(launches["window_eval_pool"] + refresh_launches
+                       + compact_launches),
              **kernels["window_eval_pool"]),
+        dict(name="window_eval_pool_10m", route="cuda",
+             source=f"{src}/window_eval_pool.cu",
+             replaces="spatialsim_tpu/ops/bh_eval_kernel.py:313",
+             launches=launches_10m, **kernels["window_eval_pool_10m"]),
         dict(name="boids_window", route="cuda",
              source=f"{src}/boids_window.cu",
              replaces="spatialsim_tpu/ops/boids_window_kernel.py:45",
@@ -3006,6 +3526,13 @@ def main() -> int:
     ]}
     for rec in summary["kernels"]:
         rec["host_enqueue_us"] = ENQUEUE_US.get(rec["name"])
+        # Launches in the port bench's processes (phase 21 (b)): the 10M
+        # kernel-2 entry counts the 10m metric's, the others the rest.
+        ten = rec["name"] == "window_eval_pool_10m"
+        key = "window_eval_pool" if ten else rec["name"]
+        rec["bench_launches"] = sum(
+            bench_launches.get(job, {}).get(key, 0)
+            for job in (("10m",) if ten else ("boids", "boids500k", "1m")))
     for name, (script, line) in PROBE_KERNELS.items():
         rec = dict(probes[name])
         label = rec.pop("label")

@@ -11,6 +11,7 @@ into the port's eval, which holds eval parity apart from build parity.
     dense = dense_lists_from_numpy(jl.order, jl.inv_order, jl.far,
                                    jl.far_n, jl.far_range, jl.near,
                                    jl.ref_pos, int(jl.steps_since))
+    emits = compact_emits_from_numpy(je.ent, je.cnt)
     state = boids_window_state_from_numpy(*jax_boids_window_state)
     rank_state = sharded_window_state_from_numpy(
         st.pos, st.vel, st.mass, jl.order, jl.inv_order, jl.far, jl.far_n,
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 
 from spatialsim_tpu_torch.models.boids import BoidsWindowState
-from spatialsim_tpu_torch.ops.bh_window import BHLists, WindowBHState
+from spatialsim_tpu_torch.ops.bh_window import (BHLists, CompactEmits,
+                                                WindowBHState)
 
 
 def _t(arr, dtype, device):
@@ -68,6 +70,13 @@ def dense_lists_from_numpy(order, inv_order, far, far_n, far_range, near,
         near=near_t,
         steps_since=int(steps_since),
         steps_build=int(steps_since if steps_build is None else steps_build))
+
+
+def compact_emits_from_numpy(ent, cnt, *, device="cpu") -> CompactEmits:
+    """:class:`CompactEmits` (int64) from the JAX package's compact
+    traversal emissions: ``ent`` (2, sum E_l), ``cnt`` (n_levels, ng)."""
+    return CompactEmits(ent=_t(ent, torch.int64, device),
+                        cnt=_t(cnt, torch.int64, device))
 
 
 def window_state_from_numpy(pos, vel, mass, lists: BHLists, acc=None, *,

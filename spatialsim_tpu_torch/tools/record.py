@@ -9,10 +9,14 @@ byte-compatible with the JAX recordings, so the JAX package's playback and
 export read them as they are.  As in the JAX recorder, frame i is copied
 and written while frame i+1 computes (:class:`FrameOverlap`).
 ``--device`` (default ``cuda``) picks the torch device; there is no silent
-CPU fallback.
+CPU fallback.  ``--estimate`` prints the wall-clock estimate
+(:func:`estimate_recording_time`, anchored on the port's own H100
+measurements) and exits without stepping.
 
     python -m spatialsim_tpu_torch.tools.record --preset bar_galaxy \\
         --bodies 1m --frames 10 --name demo
+    python -m spatialsim_tpu_torch.tools.record --preset bar_galaxy \\
+        --estimate
 """
 
 from __future__ import annotations
@@ -32,6 +36,52 @@ from spatialsim_tpu_torch.io import (
 from spatialsim_tpu_torch.io.session import STATE_INTERVAL
 
 RECORD_MAX_SPEED_COLOR = 15.0
+
+# Throughput anchors of the wall-clock estimate: the port's own numbers on
+# an NVIDIA H100 80GB HBM3, 700.00 W (nvidia-smi's name and power limit),
+# sustained, list rebuilds included.  The estimate follows the engine the
+# model picks (models/nbody.resolve_engine): all-pairs up to the
+# threshold, the window engine (n log n from the 1M rate) above it.  The
+# JAX recorder also scans the repo's committed bench records for its 1M
+# anchor; those are TPU runs, so this one reads no file and keeps to these
+# constants.
+#
+# Each anchor is one reading of chip_smoke.py's phase 21 in the same run
+# on NVIDIA H100 80GB HBM3, 700.00 W; the smoke prints this file's
+# constants beside its own readings in phase 21 (d).
+#
+# 1M window anchor: the port bench's nbody_steps_per_sec_1000k_theta0.8
+# (python -m spatialsim_tpu_torch.tools.bench, phase 21 (b); 96 steps in
+# dispatches of 48, rebuilds included): 318.67 steps/s.
+_EST_ANCHOR_N = 1_000_000
+_EST_ANCHOR_THETA = 0.8
+_EST_ANCHOR_STEP_S = 1.0 / 318.67
+# Per-step floor (any engine, small N): the port bench at 10,000 bodies
+# (--only 1m --bodies 10000 --engine allpairs, phase 21 (d)):
+# 10066.581 steps/s.
+_EST_STEP_FLOOR_S = 1.0 / 10066.581
+# All-pairs pair rate: kernel 1 at N = 32,768 (phase 2), 0.7250 ms a call.
+_EST_ALLPAIRS_PAIRS_PER_S = 32_768 ** 2 / 0.7250e-3
+ESTIMATE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+
+
+def estimate_recording_time(config: dict) -> float:
+    """Engine-aware wall-clock estimate (seconds) of a preset's recording
+    on the card the anchors were measured on (:data:`ESTIMATE_CARD`)."""
+    import math
+    n = int(config["num_bodies"])
+    theta = float(config.get("theta", 0.8))
+    steps = int(config["total_frames"]) * int(config.get("substeps", 1))
+    if n <= NBodyConfig().allpairs_threshold:
+        # All-pairs kernel: the n^2 pair rate, with the step floor.
+        step_s = max(_EST_STEP_FLOOR_S, n * n / _EST_ALLPAIRS_PAIRS_PER_S)
+    else:
+        scale = (n * math.log(max(n, 2))) / (
+            _EST_ANCHOR_N * math.log(_EST_ANCHOR_N))
+        theta_scale = (_EST_ANCHOR_THETA / theta) ** 2
+        step_s = max(_EST_STEP_FLOOR_S,
+                     _EST_ANCHOR_STEP_S * scale * theta_scale)
+    return steps * step_s
 
 
 def config_from_preset(preset: dict) -> NBodyConfig:
@@ -291,10 +341,10 @@ def select_preset_interactive(input_fn=input) -> Optional[dict]:
     Mirrors the reference's interactive flow
     (the reference's ``tools/record.py:1020-1113``): select by index,
     show the config, prompt for bodies/frames/theta overrides (Enter
-    keeps the preset value; theta clamped to 0.1-2.0), confirm before
-    returning (no wall-clock estimate: the JAX recorder's anchors are
-    not this port's).  ``input_fn`` is injectable for
-    tests.  Returns None on quit/EOF.
+    keeps the preset value; theta clamped to 0.1-2.0), show the
+    wall-clock estimate of the final configuration and confirm before
+    returning.  ``input_fn`` is injectable for tests.  Returns None on
+    quit/EOF.
     """
     presets_lib.print_preset_menu()
     max_idx = len(presets_lib.get_preset_list()) - 1
@@ -357,10 +407,12 @@ def select_preset_interactive(input_fn=input) -> Optional[dict]:
         except (EOFError, KeyboardInterrupt):
             print("\n  Cancelled.")
             return None
+        est = estimate_recording_time(config)
         print("\n  --- Final Configuration ---")
         print(f"  Bodies: {config['num_bodies']:,}")
         print(f"  Frames: {config['total_frames']}")
         print(f"  Theta: {config['theta']}")
+        print(f"  Estimated time: ~{format_time(est)} ({ESTIMATE_CARD})")
         try:
             confirm = input_fn("\n  Start recording? [Y/n]: ").strip().lower()
         except (EOFError, KeyboardInterrupt):
@@ -414,6 +466,8 @@ def main(argv=None) -> int:
                    help="alias for --status")
     p.add_argument("--list-presets", action="store_true")
     p.add_argument("--list-distributions", action="store_true")
+    p.add_argument("--estimate", action="store_true",
+                   help="print the wall-clock estimate and exit")
     p.add_argument("--bodies", type=str, help="override body count (k/m ok)")
     p.add_argument("--frames", type=int, help="override total frames")
     p.add_argument("--theta", type=float, help="override Barnes-Hut theta")
@@ -424,6 +478,13 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device for the simulation (default cuda)")
     args = p.parse_args(argv)
+    if args.estimate:
+        import torch
+        if (torch.device(args.device).type == "cuda"
+                and not torch.cuda.is_available()):
+            print(f"[Record] device {args.device!r} requested but "
+                  f"torch.cuda.is_available() is False; pass --device cpu")
+            return 1
 
     if args.status or args.list_:
         print_status()
@@ -485,6 +546,14 @@ def main(argv=None) -> int:
         config["seed"] = args.seed
     if args.name:
         config["session_name"] = args.name
+
+    est = estimate_recording_time(config)
+    print(f"[Record] Estimated compute: ~{format_time(est)} "
+          f"({config['num_bodies']:,} bodies x "
+          f"{config['total_frames']} frames; {est:.3f} s on "
+          f"{ESTIMATE_CARD})")
+    if args.estimate:
+        return 0
 
     record(config, resume=False, device=args.device)
     return 0

@@ -77,15 +77,12 @@ def test_build_lists_pool_cap_fold_matches_jax():
 
 
 def test_build_lists_unported_options_raise():
-    """Only compact emission is left out (ROADMAP Queue 1 item 10); near
-    groups and the pooled ranges and values finishes build."""
+    """Every option builds (compact emission has its own tests,
+    ``tests/test_torch_compact.py``): near groups and the pooled ranges
+    and values finishes."""
     pos, vel, mass = (torch.from_numpy(a) for a in _cluster(600, 1))
     kw = dict(theta=0.8, softening=2.0, max_depth=5, group_size=64,
               window_groups=2, list_cap=128)
-    for mode in ("compact", "compact-mm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbw.build_lists(pos, vel, mass, pool_tile=64, emit_mode=mode,
-                            **kw)
     near = tbw.build_lists(pos, vel, mass, pool_tile=0, near_groups=2, **kw)
     assert near.near.shape == (10, 2) and near.far is not None
     for mode in ("ranges", "values"):

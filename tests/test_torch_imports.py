@@ -73,6 +73,26 @@ def test_scan_covers_the_parallel_port():
     assert "spatialsim_tpu_torch/tools/eval_digest.py" in names
 
 
+_ROOT_BENCH = re.compile(r"^\s*(import\s+bench\b|from\s+bench(\s|\.))", re.M)
+
+
+def test_scan_covers_the_bench_and_nothing_imports_root_bench():
+    """The port's bench is among the scanned sources, and neither the port
+    nor the smoke run imports the root ``bench.py`` (only tests do)."""
+    names = {str(f.relative_to(ROOT))
+             for f in (ROOT / "spatialsim_tpu_torch").rglob("*.py")}
+    assert "spatialsim_tpu_torch/tools/bench.py" in names
+    files = sorted((ROOT / "spatialsim_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = [str(f.relative_to(ROOT)) for f in files
+           if _ROOT_BENCH.search(f.read_text())]
+    assert not bad, bad
+    assert _ROOT_BENCH.search("import bench")
+    assert _ROOT_BENCH.search("    from bench import main")
+    assert not _ROOT_BENCH.search("from spatialsim_tpu_torch.tools import "
+                                  "bench")
+
+
 _JAX_OR_SCRIPTS = re.compile(
     r"^\s*(import\s+(jax|scripts)\b|from\s+(jax|scripts)(\s|\.))", re.M)
 
