@@ -8,9 +8,11 @@ Run from the root of a checkout.  It needs one CUDA card and raises
 without one: there is no CPU fallback, no phase's error is caught, and any
 failure exits non-zero.  Phases, each printed with its seconds:
 
-Kernels are numbered as in ``PERF.md``: 1 all-pairs, 2 pooled window
-eval, 3 dense window eval (3b, 3c its column and matrix forms), 4 boids
-Morton window, 5a-6d the traversal probes.
+Kernels are numbered as in ``PERF.md``: 1 all-pairs (with its
+targets-and-sources mode, the direct-sum oracle of every accuracy check
+below: ``tools/oracle.py``), 2 pooled window eval, 3 dense window eval
+(3b, 3c its column and matrix forms), 4 boids Morton window, 5a-6d the
+traversal probes.
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    a fresh nvcc build of every kernel in ``spatialsim_tpu_torch/csrc``
@@ -46,7 +48,9 @@ Morton window, 5a-6d the traversal probes.
    of the per-body relative error |da|/|a| (the statistic of the JAX
    package's accuracy table), under that table's protocol (5 warm-up
    steps, then lists frozen to tau = 23; limits 5% fresh, 8% at tau=23),
-   and for the main path's own last interval (reported);
+   and for the main path's own last interval (reported); once, the fresh
+   lists' rms through the plain chunked oracle and through the kernel
+   (at most 1e-4 apart);
 6. the recorder: the bar_galaxy preset at 1M in this process (a frame's
    steps timed, then a plain frame and a rebuild frame, steps and capture,
    under ``torch.cuda.set_sync_debug_mode("warn")``: a plain frame may not
@@ -140,8 +144,8 @@ Morton window, 5a-6d the traversal probes.
     and HMMA a pair;
 18. the exact engine: ``NBodySimulation(num_bodies=1_000_000,
     config=NBODY.replace(engine="exact"))``, 5 steps, and its force error
-    on 4,096 bodies against the all-pairs kernel's direct sum, beside the
-    window engine's on the same state;
+    on 4,096 bodies against the oracle's direct sum, beside the window
+    engine's on the same state;
 19. the traversal-primitive probes of ``scripts/decide15.py`` and
     ``decide18.py`` through ``tools/decide15.py`` and ``tools/decide18.py``
     (launches counted from zero over their runs; their CUDA-event times
@@ -177,7 +181,8 @@ Morton window, 5a-6d the traversal probes.
     48 steps timed beside the unsharded dense step (kernel 3's launches
     counted from zero: the sharded main path), the drift max-reduction's
     cost, and 20 steps of each under the profiler; (d) the ring at 32,768
-    against the all-pairs kernel, the exact engine against itself (equal
+    against the all-pairs kernel (each hop one launch of kernel 1's
+    targets-and-sources mode), the exact engine against itself (equal
     bit for bit, required) and sharded Barnes-Hut at 1,048,576 against it,
     all without deterministic algorithms; (e) the sharded boids step
     through NCCL at world size 1, 500,224 boids, the default config:
@@ -208,7 +213,26 @@ Morton window, 5a-6d the traversal probes.
     its constants (the 1M bench line, the bench at 10,000 bodies with the
     all-pairs engine, kernel 1 at 32,768), then ``record --estimate`` for
     ``tiny_galaxy`` at 8K, ``bar_galaxy`` at 1M and the 50M preset beside
-    the times this run measured there (printed, not gated).
+    the times this run measured there (printed, not gated);
+22. (a) kernel 1's targets-and-sources mode (``allpairs_accel_at``)
+    against its plain version at the main path's shapes, 4,096 targets
+    x 1,048,576, 10M and 5e7 sources (float32 plain on every target up
+    to 2M sources, on 64 above; float64 plain on 64; within 1e-5 of
+    max|a|), two calls equal
+    bit for bit, CUDA-event ms beside the plain chunked oracle's and the
+    bound, and the ring's hop sums at 32,768 bodies on one card (D 1 and
+    2, plain chunks against the mode); (b) a short call of every
+    measurement tool on the card: ``tools/staleness_scan.py`` at 262,144
+    bodies (taus 0 and 32; at tau 0 the stale rms within 5% of the
+    fresh), ``nbody_error``, ``nbody_error_scan`` and ``quad_scan`` at
+    65,536, ``extreme_run`` at 1M (10 steps), ``prof_parts`` at 262,144,
+    and ``verify_drive`` (the recorder CLI at 8K ``tiny_galaxy``: 30
+    frames, SIGINT at 10 frames on disk when it comes in time, status,
+    resume, extend by 10, frame 39 decoded); the mode's main-path
+    launches are the ring's (phase 20 (d)) and the tools' (22 (b)), each
+    counted from zero just before its run and required above 0; the
+    oracle's in the accuracy checks of phases 5-21 and 22 (a)'s
+    comparisons are printed apart as reference launches.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -400,22 +424,6 @@ def galaxy(n, seed, device):
             torch.as_tensor(np.ascontiguousarray(v.T, np.float32),
                             device=device),
             torch.as_tensor(m.astype(np.float32), device=device))
-
-
-def direct_accel(targets, pos, mass, G, softening, chunk=64):
-    """Plain O(N*k) direct sum at ``targets`` (3, k) over all sources."""
-    import torch
-    soft_sq = float(softening) ** 2
-    out = []
-    for i0 in range(0, targets.shape[1], chunk):
-        t = targets[:, i0:i0 + chunk]
-        d = pos[:, None, :] - t[:, :, None]                # (3, c, N)
-        r2 = (d * d).sum(0) + soft_sq
-        inv = torch.rsqrt(r2)
-        w = torch.where(r2 > soft_sq, mass[None, :] * inv * inv * inv,
-                        torch.zeros_like(r2))
-        out.append((w[None] * d).sum(2, dtype=torch.float64) * G)
-    return torch.cat(out, 1)
 
 
 def rebuilt_lists(bw, st, config, acc):
@@ -847,6 +855,11 @@ def launch_split(x, calls):
     return res
 
 
+def indented(line, **kw):
+    """``print`` for a tool's report lines inside a phase."""
+    print("    " + line, **kw)
+
+
 def timed_steps(step, steps, dt):
     """Host seconds of each of ``steps`` calls of ``step(dt)``, each ended
     by a device synchronise."""
@@ -915,19 +928,12 @@ def force_errors(approx, exact):
     """(rms, median) of the per-body relative error |da_i| / |a_i| -- the
     statistic of the JAX package's accuracy table -- and the ratio
     rms|da| / rms|a| over the sample."""
+    exact = exact.double()
     err = (approx.double() - exact).norm(dim=0)
     mag = exact.norm(dim=0)
     rel = err / mag.clamp(min=1e-12)
     return (float(rel.pow(2).mean().sqrt()), float(rel.median()),
             float(err.pow(2).mean().sqrt() / mag.pow(2).mean().sqrt()))
-
-
-def warmed_state(bw, pos, vel, mass, config, n=N_MAIN):
-    """Phase 5's protocol start: 5 warm-up steps at rebuild interval 4,
-    so the lists carry real cell accelerations (lists 1 step old)."""
-    st = bw.init_window_state(pos, vel, mass, config)
-    return bw.make_window_step(config.replace(rebuild_interval=4), n,
-                               substeps=5)(st, DT)
 
 
 def original_order(st):
@@ -1079,14 +1085,18 @@ def sharded_paths(dev, kernels):
     step through NCCL at world size 1 against the unsharded step (c),
     make_sharded_step's ring and Barnes-Hut (d), and the sharded boids step
     (e, :func:`sharded_boids`).  Returns kernel 3's launches in (c)'s timed
-    run and kernel 4's in (e)'s, the sharded main paths."""
+    run and kernel 4's in (e)'s, the sharded main paths, the ring's
+    launches of kernel 1's targets-and-sources mode in (d), counted from
+    zero, and that mode's launches before them (the oracle's in the
+    accuracy checks)."""
     import numpy as np
     import torch
     from spatialsim_tpu_torch.config.nbody import NBODY, resolve_config
     from spatialsim_tpu_torch.models.nbody import NBodyState, make_step_fn
     from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
     from spatialsim_tpu_torch.ops import bh_window as bw
-    from spatialsim_tpu_torch.ops.allpairs import allpairs_accel
+    from spatialsim_tpu_torch.ops.allpairs import (allpairs_accel,
+                                                   allpairs_accel_at)
     from spatialsim_tpu_torch.ops.barnes_hut import barnes_hut_accel
     from spatialsim_tpu_torch.parallel import (
         make_mesh, make_sharded_step, make_sharded_window_step,
@@ -1302,12 +1312,21 @@ def sharded_paths(dev, kernels):
 
     # (d) make_sharded_step: the ring and sharded Barnes-Hut.
     rpos, rvel, rmass = galaxy(N_RING, 0, dev)
+    # The mode's launches so far are the oracle's in the accuracy checks
+    # (reference launches); the ring's are counted from zero.
+    reference_at = allpairs_accel_at.launches
+    allpairs_accel_at.launches = 0
     ring = ring_allpairs_accel(rpos, rmass, mesh, NBODY.G, NBODY.softening)
+    ring_launches = allpairs_accel_at.launches
+    allpairs_accel_at.launches = 0
     ap = allpairs_accel(rpos, rmass, NBODY.G, NBODY.softening)
     torch.cuda.synchronize()
     d = float((ring - ap).abs().max())
     print(f"    (d) ring at {N_RING:,} against the all-pairs kernel: "
-          f"max|da| {d:.3e}, {d / float(ap.abs().max()):.3e} of max|a|")
+          f"max|da| {d:.3e}, {d / float(ap.abs().max()):.3e} of max|a|; "
+          f"its hops launched kernel 1's targets-and-sources mode "
+          f"{ring_launches} times")
+    require(ring_launches == mesh.size, f"ring hops {ring_launches}")
     require(bool(torch.allclose(ring, ap, rtol=2e-4, atol=2e-5)), "ring")
     rcfg = resolve_config(NBODY.replace(num_bodies=N_RING), N_RING)
     a = make_sharded_step(rcfg, N_RING, mesh, engine="allpairs")(
@@ -1349,7 +1368,7 @@ def sharded_paths(dev, kernels):
     boids_launches = sharded_boids(dev, mesh, kernels)
     torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
-    return sharded_launches, boids_launches
+    return sharded_launches, boids_launches, ring_launches, reference_at
 
 
 def sharded_boids(dev, mesh, kernels):
@@ -1662,75 +1681,6 @@ def run_bench():
     return values, launches
 
 
-def list_health(st, c, label):
-    """The list line of the JAX package's ``scripts/extreme_run.py``: far_n
-    mean, p99 and max, groups at the list cap, groups folded whole
-    (far_n <= 1), and the pool tiles in use."""
-    import numpy as np
-    fn = st.lists.far_n.cpu().numpy()
-    ps = st.lists.pstart.cpu().numpy()
-    used = int(ps[-1] + -(-int(fn[-1]) // c.pool_tile))
-    print(f"    {label} lists: far_n mean={fn.mean():.0f} "
-          f"p99={np.percentile(fn, 99):.0f} max={fn.max()} "
-          f"at_cap={(fn >= c.list_capacity - 1).sum()} "
-          f"folded={(fn <= 1).sum()}/{fn.shape[0]} | pool tiles "
-          f"{used}/{st.lists.pool.shape[0]}")
-
-
-def demand_against_caps(st, c, label):
-    """``build_diagnostics`` on the state: each level's pre-clamp worklist
-    demand beside its cap (a demand above its cap folds cells coarsely
-    at that level)."""
-    from spatialsim_tpu_torch.ops import bh_window as bw
-    pos_o, vel_o, mass_o = original_order(st)
-    d = bw.build_diagnostics(pos_o, vel_o, mass_o, c)
-    over = [li for li, (dm, cap) in enumerate(zip(d["wl_demand"],
-                                                  d["wl_caps"]))
-            if dm > cap]
-    print(f"    {label} worklists, level: demand / cap: "
-          + ", ".join(f"{li}: {int(dm)} / {cap}" for li, (dm, cap) in
-                      enumerate(zip(d["wl_demand"], d["wl_caps"])))
-          + f"; levels over their cap: {over}; groups at the list cap "
-          f"{d['groups_at_cap']}; residual share of the mass "
-          f"{d['residual_mass_frac']:.3e}")
-
-
-def fresh_sample_errors(st, c, label):
-    """The force error of ``scripts/extreme_run.py`` on the first build's
-    lists (tau 0): |da|/|a| against a direct sum over all bodies, on the
-    1,024 bodies its ``default_rng(1)`` draws and on the 4,096 that phase
-    5's protocol draws from the same seed."""
-    import numpy as np
-    import torch
-    from spatialsim_tpu_torch.ops import bh_window as bw
-    n = st.pos.shape[1]
-    acc = bw.eval_accel_sorted(st.lists, st.pos, st.mass, 0.0,
-                               **bw._eval_kw(c))
-    inv = st.lists.inv_order.long()
-    for k in (1024, N_SAMPLE):
-        idx = np.sort(np.random.default_rng(1).choice(n, k, replace=False))
-        slots = inv[torch.as_tensor(idx, device=inv.device)]
-        exact = direct_accel(st.pos[:, slots], st.pos, st.mass, c.G,
-                             c.softening, chunk=16)
-        a = acc[:, slots].double()
-        err = ((a - exact).norm(dim=0)
-               / exact.norm(dim=0).clamp(min=1e-12)).cpu().numpy()
-        print(f"    {label}, force error (fresh lists, {k} samples): "
-              f"median={np.median(err):.4f} "
-              f"p99={np.percentile(err, 99):.4f} "
-              f"rms={np.sqrt((err ** 2).mean()):.4f}")
-
-
-def extreme_run_config(n):
-    """``scripts/extreme_run.py``'s config at ``n`` bodies and theta 0.8
-    (the JAX package's calibrated 10M error log)."""
-    from spatialsim_tpu_torch.config.nbody import NBodyConfig, resolve_config
-    return resolve_config(NBodyConfig(
-        num_bodies=n, theta=0.8, G=0.08, softening=3.0, damping=1.0,
-        spawn_radius=700.0, distribution="cluster", engine="window",
-        rebuild_drift_mode="off"), n)
-
-
 def ten_million(dev, kernels):
     """Phase 21 (c): the bench's 10m config through NBodySimulation in this
     process: set-up, peak memory, per-group mass, phase 5's protocol on
@@ -1747,6 +1697,11 @@ def ten_million(dev, kernels):
         tile_targets, window_eval_pool, window_eval_pool_reference)
     from spatialsim_tpu_torch.models.nbody import NBodySimulation
     from spatialsim_tpu_torch.tools import bench
+    from spatialsim_tpu_torch.tools.extreme_run import (
+        demand_against_caps, extreme_run_config, fresh_sample_errors,
+        list_health)
+    from spatialsim_tpu_torch.tools.oracle import exact_accel_at
+    from spatialsim_tpu_torch.tools.staleness_scan import warmed_state
     args = bench.parser().parse_args(["--only", "10m"])
     kw = bench.job_kwargs("10m", args)
     cfg = bench.nbody_config(**{k: kw[k] for k in (
@@ -1774,9 +1729,9 @@ def ten_million(dev, kernels):
     require(c.max_depth == 9 and c.group_size == 1024
             and c.list_capacity == 8192 and c.pool_tile > 0, c)
     require_pool_mass_conserved(sim.state, c, "10M first build")
-    list_health(sim.state, c, "10M (bench config)")
-    demand_against_caps(sim.state, c, "10M (bench config)")
-    fresh_sample_errors(sim.state, c, "10M (bench config)")
+    list_health(sim.state, c, "10M (bench config)", indented)
+    demand_against_caps(sim.state, c, "10M (bench config)", indented)
+    fresh_sample_errors(sim.state, c, "10M (bench config)", out=indented)
 
     # Phase 5's protocol: 5 warm-up steps at interval 4, then the lists
     # frozen to tau = 23; a sample of 4,096 against a direct sum.
@@ -1786,8 +1741,8 @@ def ten_million(dev, kernels):
 
     def errors(st, tag, fresh):
         pos_o, vel_o, mass_o = original_order(st)
-        exact = direct_accel(pos_o[:, idx], pos_o, mass_o, c.G,
-                             c.softening, chunk=16)
+        exact = exact_accel_at(pos_o[:, idx], pos_o, mass_o, c.G,
+                               c.softening)
         got = force_errors(bw.eval_accel(st.lists, pos_o, mass_o, DT,
                                          **ekw)[:, idx], exact)
         print(f"    10M {tag}, lists {st.lists.steps_since} steps old: rms "
@@ -1807,7 +1762,7 @@ def ten_million(dev, kernels):
     del sim, lists
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    st = warmed_state(bw, pos0, vel0, mass0, c, n=N_10M)
+    st = warmed_state(pos0, vel0, mass0, c)
     del pos0, vel0, mass0
     e_fresh = errors(st, "protocol", True)
     frozen = bw.make_window_step(c.replace(rebuild_interval=10 ** 6), N_10M,
@@ -1881,12 +1836,103 @@ def ten_million(dev, kernels):
     print(f"    10M (extreme_run config: G {xc.G}, softening "
           f"{xc.softening}, spawn radius {xc.spawn_radius}): set-up "
           f"{time.perf_counter() - t:.3f} s; wl_caps {sim.config.wl_caps}")
-    list_health(sim.state, sim.config, "10M (extreme_run config)")
-    demand_against_caps(sim.state, sim.config, "10M (extreme_run config)")
-    fresh_sample_errors(sim.state, sim.config, "10M (extreme_run config)")
+    list_health(sim.state, sim.config, "10M (extreme_run config)",
+                indented)
+    demand_against_caps(sim.state, sim.config,
+                        "10M (extreme_run config)", indented)
+    fresh_sample_errors(sim.state, sim.config,
+                        "10M (extreme_run config)", out=indented)
     del sim
     torch.cuda.empty_cache()
     return launched
+
+
+# Phase 22: kernel 1's targets-and-sources mode at reduced sizes (source
+# counts and their sampled targets; the ring's bodies and shard counts),
+# then a short call of every tool.
+AT_SHAPES = ((1_048_576, 4096), (10_000_000, 4096), (50_000_000, 4096))
+AT_RING, AT_RING_SHARDS = 32_768, (1, 2)
+N_STALE = 262_144
+N_TOOLS = 65_536
+
+
+def tools_on_card(dev, kernels):
+    """Phase 22: (a) the targets-and-sources mode against its plain
+    version at the main path's shapes (4,096 targets x 1M, 10M and 5e7
+    sources; float32 on every target up to 2M sources and on 64 above,
+    float64 on 64),
+    two calls bit for bit, ms beside the plain oracle's and the bound;
+    the ring's hop sums at 32,768 bodies on one card (D 1 and 2); then
+    the tools on the card: ``staleness_scan`` at 262,144 bodies (taus 0
+    and 32), ``nbody_error``, ``nbody_error_scan``, ``quad_scan`` (65,536
+    bodies), ``extreme_run`` (1M, 10 steps), ``prof_parts`` (262,144) and
+    ``verify_drive`` (8K ``tiny_galaxy``, 30 frames + 10).  Returns the
+    mode's launches in (a) and in the tools' run, each counted from
+    zero."""
+    import math
+    import torch
+    from spatialsim_tpu_torch.ops.allpairs import allpairs_accel_at
+    from spatialsim_tpu_torch.tools import (
+        extreme_run, nbody_error, nbody_error_scan, oracle, prof_parts,
+        quad_scan, staleness_scan, verify_drive)
+    print("  (a) the targets-and-sources mode against its plain version")
+    allpairs_accel_at.launches = 0
+    for n, k in AT_SHAPES:
+        r = oracle.measure_mode(n, k, dev, plain_max=2e6, out=indented)
+        require(r["bit_equal"] and r["rel_err"] <= TOL_ALLPAIRS
+                and r["rel_err_f64"] <= TOL_ALLPAIRS, r)
+        record_kernel(kernels, "allpairs_at", r["max_abs_err"], r["rel_err"],
+                      r["ms"], r["plain_ms"], oracle.OPS_PER_PAIR * k * n,
+                      4 * (6 * k + 4 * n))
+    for r in oracle.ring_hops(AT_RING, dev, AT_RING_SHARDS, out=indented):
+        require(r["rel_err"] <= TOL_ALLPAIRS, r)
+    compared = allpairs_accel_at.launches
+
+    print("  (b) the tools on the card")
+    allpairs_accel_at.launches = 0
+    t = time.perf_counter()
+    recs = staleness_scan.scan(N_STALE, taus=[0, 32], device=dev,
+                               out=indented)
+    s0 = recs[0]
+    require(all(math.isfinite(r[k]["rms"]) for r in recs
+                for k in ("stale", "fresh")), recs)
+    require(abs(s0["stale"]["rms"] - s0["fresh"]["rms"])
+            <= 0.05 * s0["fresh"]["rms"] + 1e-4, s0)
+    timed = [("staleness_scan", time.perf_counter() - t)]
+    t = time.perf_counter()
+    rec = nbody_error.run(nbody_error.parser().parse_args(
+        [str(N_TOOLS), "--sample", "512"]), dev, out=indented)
+    require(math.isfinite(rec["err_rms"]), rec)
+    timed.append(("nbody_error", time.perf_counter() - t))
+    t = time.perf_counter()
+    recs = nbody_error_scan.scan(N_TOOLS, dev, out=indented)
+    require(len(recs) == 1 + len(nbody_error_scan.VARIANTS)
+            and all(math.isfinite(r["rms"]) for r in recs), recs)
+    timed.append(("nbody_error_scan", time.perf_counter() - t))
+    t = time.perf_counter()
+    recs = quad_scan.scan(N_TOOLS, dev, out=indented)
+    require(len(recs) == len(quad_scan.FRONTIER)
+            and all(math.isfinite(r["rms"]) for r in recs), recs)
+    timed.append(("quad_scan", time.perf_counter() - t))
+    t = time.perf_counter()
+    res = extreme_run.run(N_MAIN, steps=10, device=dev, out=indented)
+    require(all(math.isfinite(e[2]) for e in res["errors"].values()), res)
+    timed.append(("extreme_run", time.perf_counter() - t))
+    t = time.perf_counter()
+    ms = prof_parts.parts(N_STALE, dev, out=indented)
+    require(all(math.isfinite(v) for v in ms.values()), ms)
+    timed.append(("prof_parts", time.perf_counter() - t))
+    tools = allpairs_accel_at.launches
+    t = time.perf_counter()
+    drive = verify_drive.drive("tiny_galaxy", "8k", 30, 10, 10, dev.type,
+                               timeout=300, out=indented)
+    require(drive["total_frames"] == 40, drive)
+    timed.append(("verify_drive", time.perf_counter() - t))
+    print("    tool seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in timed)
+          + f"; the mode launched {tools} times in the tools' run")
+    require(tools > 0, "the tools launched no direct sum on the card")
+    torch.cuda.empty_cache()
+    return compared, tools
 
 
 def estimate_anchors(line_1m, allpairs_ms):
@@ -1943,8 +1989,9 @@ def main() -> int:
     from spatialsim_tpu_torch import _kernels
     from spatialsim_tpu_torch.ops.allpairs import (
         ALLPAIRS_TARGETS, ALLPAIRS_THREADS, ALLPAIRS_TILE, MAX_SLICES,
-        allpairs_accel, allpairs_accel_reference, allpairs_launch,
-        allpairs_occupancy, allpairs_plan)
+        allpairs_accel, allpairs_accel_at, allpairs_accel_reference,
+        allpairs_at_reference, allpairs_launch, allpairs_occupancy,
+        allpairs_plan)
     from spatialsim_tpu_torch.ops.bh_eval_kernel import (
         MXU_CONTRACTIONS, _tile_counts, cols_launch, cols_plan, dense_launch,
         heavy_first, mxu_launch, mxu_occupancy, mxu_plan, occupancy,
@@ -1967,6 +2014,8 @@ def main() -> int:
         boids_window_accumulate, boids_window_launch)
     from spatialsim_tpu_torch.ops import traversal_probes as tp
     from spatialsim_tpu_torch.tools import decide15, decide18
+    from spatialsim_tpu_torch.tools.oracle import exact_accel_at
+    from spatialsim_tpu_torch.tools.staleness_scan import warmed_state
     import numpy as np
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2324,8 +2373,8 @@ def main() -> int:
         """Errors of the state's own (aged) lists, and of fresh lists
         built from the same state, at ``idx`` in original body order."""
         pos_o, vel_o, mass_o = original_order(st)
-        exact = direct_accel(pos_o[:, idx], pos_o, mass_o, cal.G,
-                             cal.softening)
+        exact = exact_accel_at(pos_o[:, idx], pos_o, mass_o, cal.G,
+                               cal.softening)
         age = st.lists.steps_since
         out = {f"lists {age} steps old": force_errors(
             bw.eval_accel(st.lists, pos_o, mass_o, DT, **ekw)[:, idx],
@@ -2348,7 +2397,31 @@ def main() -> int:
     # 5 warm-up steps at interval 4 so the lists carry real cell
     # accelerations, then frozen lists aged to the end of an interval.
     pos, vel, mass = galaxy(N_MAIN, 0, dev)
-    st = warmed_state(bw, pos, vel, mass, sim.config)
+    st = warmed_state(pos, vel, mass, sim.config)
+    # Once: the fresh lists' rms through the plain chunked oracle and
+    # through the kernel (its targets-and-sources mode).
+    pos_o, vel_o, mass_o = original_order(st)
+    fl = bw.build_lists(pos_o, vel_o, mass_o, **bw._build_kw(sim.config))
+    a_fresh = bw.eval_accel(fl, pos_o, mass_o, 0.0, **ekw)[:, idx]
+    tgt = pos_o[:, idx].contiguous()
+    oracle_s = {}
+    for label, fn in (("plain", allpairs_at_reference),
+                      ("kernel", exact_accel_at)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ex = fn(tgt, pos_o, mass_o, cal.G, cal.softening)
+        torch.cuda.synchronize()
+        oracle_s[label] = (time.perf_counter() - t,
+                           force_errors(a_fresh, ex)[0])
+    (p_s, p_rms), (k_s, k_rms) = oracle_s["plain"], oracle_s["kernel"]
+    print(f"    fresh lists' rms of |da|/|a| through the plain oracle "
+          f"{p_rms:.6%} ({p_s:.3f} s) and through the kernel {k_rms:.6%} "
+          f"({k_s:.3f} s): {abs(p_rms - k_rms):.3e} apart (limit 1e-4)")
+    require(abs(p_rms - k_rms) <= 1e-4, (p_rms, k_rms))
+    del fl, a_fresh, tgt, ex, pos_o, vel_o, mass_o
+    # The oracle's launches from here on are the accuracy checks'
+    # reference launches (phase 22 prints them apart from the main path's).
+    allpairs_accel_at.launches = 0
     frozen = bw.make_window_step(sim.config.replace(rebuild_interval=10 ** 6),
                                  N_MAIN, substeps=22)
     proto = errors(st, True)
@@ -2889,9 +2962,9 @@ def main() -> int:
     # (c) Phase 5's protocol (5 warm-up steps at interval 4 so the lists
     # carry real cell accelerations), then fresh quadrupole and monopole
     # lists of the same state against a direct sum.
-    st = warmed_state(bw, pos, vel, mass, qcal)
+    st = warmed_state(pos, vel, mass, qcal)
     pos_o, vel_o, mass_o = original_order(st)
-    exact = direct_accel(pos_o[:, idx], pos_o, mass_o, cal.G, cal.softening)
+    exact = exact_accel_at(pos_o[:, idx], pos_o, mass_o, cal.G, cal.softening)
     errs = {}
     for label, c in (("quadrupole", qcal), ("monopole", cal)):
         fl = bw.build_lists(pos_o, vel_o, mass_o, **bw._build_kw(c))
@@ -2970,9 +3043,10 @@ def main() -> int:
     idx50 = torch.as_tensor(np.sort(np.random.default_rng(1).choice(
         n50, N_SAMPLE, replace=False)), device=dev)
     t = time.perf_counter()
-    exact = direct_accel(pos_o[:, idx50], pos_o, mass_o, sim50.config.G,
-                         sim50.config.softening, chunk=4)
-    print(f"    direct sum on {N_SAMPLE} bodies: "
+    exact = exact_accel_at(pos_o[:, idx50], pos_o, mass_o, sim50.config.G,
+                           sim50.config.softening)
+    torch.cuda.synchronize()
+    print(f"    direct sum on {N_SAMPLE} bodies (the oracle): "
           f"{time.perf_counter() - t:.3f} s")
     fresh = bw.build_lists(pos_o, vel_o, mass_o,
                            **bw._build_kw(sim50.config))
@@ -3060,9 +3134,9 @@ def main() -> int:
     # JAX bar, tests/test_bh_window.py:359), then each configuration's own
     # lists aged to tau=23 (reported).
     cal8 = cal.replace(near_groups=8)
-    st = warmed_state(bw, pos, vel, mass, cal)
+    st = warmed_state(pos, vel, mass, cal)
     pos_o, vel_o, mass_o = original_order(st)
-    exact = direct_accel(pos_o[:, idx], pos_o, mass_o, cal.G, cal.softening)
+    exact = exact_accel_at(pos_o[:, idx], pos_o, mass_o, cal.G, cal.softening)
     fresh = {}
     for label, c in (("K=0", cal), ("K=8", cal8)):
         kw = dict(bw._build_kw(c), pool_tile=0)
@@ -3080,12 +3154,12 @@ def main() -> int:
               f"{rms:.4%}  median {med:.4%}  rms|da|/rms|a| {ratio:.4%}")
         del fl
     for label, c in (("K=0", cal), ("K=8", cal8)):
-        st = warmed_state(bw, pos, vel, mass, c)
+        st = warmed_state(pos, vel, mass, c)
         st = bw.make_window_step(c.replace(rebuild_interval=10 ** 6), N_MAIN,
                                  substeps=22)(st, DT)
         require(st.lists.steps_since == 23, st.lists.steps_since)
         p_o, _, m_o = original_order(st)
-        ex = direct_accel(p_o[:, idx], p_o, m_o, cal.G, cal.softening)
+        ex = exact_accel_at(p_o[:, idx], p_o, m_o, cal.G, cal.softening)
         rms, med, ratio = force_errors(
             bw.eval_accel(st.lists, p_o, m_o, DT, **ekw)[:, idx], ex)
         print(f"    {label} lists 23 steps old: rms of |da|/|a| {rms:.4%}  "
@@ -3123,12 +3197,12 @@ def main() -> int:
     aged = {}
     for riv in (0, 12):
         c = cal.replace(refresh_interval=riv)
-        st = warmed_state(bw, pos, vel, mass, c)
+        st = warmed_state(pos, vel, mass, c)
         step22 = bw.make_window_step(c.replace(rebuild_interval=10 ** 6),
                                      N_MAIN, substeps=22)
         st = step22(st, DT)
         p_o, _, m_o = original_order(st)
-        ex = direct_accel(p_o[:, idx], p_o, m_o, cal.G, cal.softening)
+        ex = exact_accel_at(p_o[:, idx], p_o, m_o, cal.G, cal.softening)
         aged[riv] = force_errors(
             bw.eval_accel(st.lists, p_o, m_o, DT, **ekw)[:, idx], ex)
         rms, med, ratio = aged[riv]
@@ -3332,10 +3406,10 @@ def main() -> int:
     st = esim.state
     require(bool(torch.isfinite(st.pos).all()), "exact engine state")
     t = time.perf_counter()
-    exact = allpairs_accel(st.pos, st.mass, cal.G, cal.softening)[:, idx]
-    exact = exact.double()
+    exact = exact_accel_at(st.pos[:, idx], st.pos, st.mass, cal.G,
+                           cal.softening)
     torch.cuda.synchronize()
-    print(f"    all-pairs kernel direct sum at 1M: "
+    print(f"    the oracle's direct sum at {N_SAMPLE} of 1M bodies: "
           f"{time.perf_counter() - t:.3f} s")
     a_bh = barnes_hut_accel(st.pos, st.mass, esim.config)[:, idx]
     fl = bw.build_lists(st.pos, st.vel, st.mass, **bw._build_kw(cal))
@@ -3450,7 +3524,8 @@ def main() -> int:
                "sorted build's shards, the sharded window step (NCCL, world "
                "size 1), the ring and sharded Barnes-Hut, the sharded boids "
                "step with kernel 4's haloed mode")
-    sharded_launches, haloed_launches = sharded_paths(dev, kernels)
+    (sharded_launches, haloed_launches, ring_launches,
+     reference_at) = sharded_paths(dev, kernels)
     done(t0)
 
     # ---- 21. compact emission, the port bench, 10M, the estimate ---------
@@ -3481,12 +3556,31 @@ def main() -> int:
         PRESET_50M: f"the 50M median step {step50_ms:.3f} ms (phase 13)"})
     done(t0)
 
+    # ---- 22. kernel 1's targets-and-sources mode and the tools ----------
+    t0 = phase("22. kernel 1's targets-and-sources mode against its plain "
+               "version; staleness_scan, nbody_error, nbody_error_scan, "
+               "quad_scan, extreme_run, prof_parts and verify_drive")
+    reference_at += allpairs_accel_at.launches
+    compared, tool_launches = tools_on_card(dev, kernels)
+    print(f"    the mode's main-path launches: the ring's hops "
+          f"{ring_launches} (phase 20 (d)), the tools {tool_launches} "
+          f"(22 (b)); reference launches, not counted: the oracle of the "
+          f"accuracy checks in phases 5-21 {reference_at}, the "
+          f"comparisons of 22 (a) {compared}")
+    require(reference_at > 0 and ring_launches > 0,
+            (reference_at, ring_launches))
+    done(t0)
+
     print(f"\ntotal seconds: {time.perf_counter() - wall0:.3f}")
     src = "spatialsim_tpu_torch/csrc"
     summary = {"kernels": [
         dict(name="allpairs", route="cuda", source=f"{src}/allpairs.cu",
              replaces="spatialsim_tpu/ops/allpairs.py:56",
              launches=launches["allpairs"], **kernels["allpairs"]),
+        dict(name="allpairs_at", route="cuda", source=f"{src}/allpairs.cu",
+             replaces="spatialsim_tpu/ops/allpairs.py:56",
+             launches=ring_launches + tool_launches,
+             **kernels["allpairs_at"]),
         dict(name="window_eval_pool", route="cuda",
              source=f"{src}/window_eval_pool.cu",
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:313",

@@ -63,6 +63,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "spatialsim_allpairs": (_P, _P, _P, _I, _F, _F, _I, _I, _I, _P),
     "spatialsim_allpairs_occupancy": (_I, _I, _I, _P),
+    "spatialsim_allpairs_at": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I,
+                               _I, _P),
+    "spatialsim_allpairs_at_occupancy": (_I, _I, _P),
     "spatialsim_window_eval_pool": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "spatialsim_window_eval_pool_occupancy": (_I, _I, _P),

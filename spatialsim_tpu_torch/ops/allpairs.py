@@ -17,6 +17,11 @@ Per pair, as in the JAX package (and the reference's accept branch)::
   partial sums a cluster adds in a fixed order.
   :func:`allpairs_sources` and :func:`allpairs_split_reference` model the
   kernel's split and summation order in plain float32 for the tests.
+* :func:`allpairs_accel_at` -- the targets-and-sources mode: the same sum
+  at ``k`` targets from ``N`` other sources (the direct-sum oracle of
+  ``tools/oracle.py`` and a ring hop of ``parallel/sharded.py``), through
+  the same source; :func:`allpairs_at_reference` is its plain version and
+  :func:`allpairs_at_plan` its instance.
 """
 
 from __future__ import annotations
@@ -35,25 +40,17 @@ ALLPAIRS_THREADS = (64, 128)
 MAX_SLICES = 8
 # SMs of an H100 SXM: the plan's yardstick for filling the card.
 _SMS = 132
+# The targets-and-sources mode's grid: about 8 waves of 12 resident
+# blocks an SM (128 threads, T=2), so the last wave's tail stays small.
+_AT_BLOCKS = 8 * 12 * _SMS
 _FAR = 1e18            # position of a padding source (zero mass)
 
 
 def allpairs_accel_reference(pos: torch.Tensor, mass: torch.Tensor, G: float,
                              softening: float) -> torch.Tensor:
-    """O(N^2) accelerations, ``(3, N)`` float32, in plain tensor ops."""
-    soft_sq = float(softening) * float(softening)
-    n = pos.shape[1]
-    out = torch.empty_like(pos)
-    rows = max(1, _PAIRS_PER_CHUNK // max(n, 1))
-    for i0 in range(0, n, rows):
-        tgt = pos[:, i0:i0 + rows]
-        d = pos[:, None, :] - tgt[:, :, None]              # (3, c, N)
-        dist_sq = (d * d).sum(dim=0) + soft_sq
-        inv_d3 = torch.rsqrt(dist_sq) / dist_sq
-        w = torch.where(dist_sq > soft_sq, G * mass[None, :] * inv_d3,
-                        torch.zeros_like(dist_sq))
-        out[:, i0:i0 + rows] = (w[None] * d).sum(dim=2)
-    return out
+    """O(N^2) accelerations, ``(3, N)`` float32, in plain tensor ops: the
+    targets-and-sources sum with the bodies as both."""
+    return allpairs_at_reference(pos, pos, mass, G, softening)
 
 
 def _check(name, t, shape, dtype):
@@ -190,4 +187,120 @@ def allpairs_occupancy(threads, targets, slices):
     err = _kernels.entry.spatialsim_allpairs_occupancy(
         int(threads), int(targets), int(slices), ctypes.addressof(out))
     _kernels.check(err, "allpairs occupancy")
+    return tuple(out)
+
+
+def allpairs_at_reference(targets: torch.Tensor, pos: torch.Tensor,
+                          mass: torch.Tensor, G: float,
+                          softening: float) -> torch.Tensor:
+    """Direct-sum accelerations at ``targets`` ``(3, k)`` from the sources
+    ``pos`` ``(3, N)``, ``mass`` ``(N,)``, in plain tensor ops and the
+    inputs' dtype: ``G m d / r^3``, ``r^2 = |d|^2 + eps^2``, a pair dropped
+    where ``r^2 <= eps^2`` (the JAX scripts' ``exact_accel_at`` and the
+    ring's hop sum), in chunks of targets so that no ``(3, k, N)`` tensor
+    is whole."""
+    soft_sq = float(softening) * float(softening)
+    k, n = targets.shape[1], pos.shape[1]
+    out = torch.empty_like(targets)
+    rows = max(1, _PAIRS_PER_CHUNK // max(n, 1))
+    gm = (G * mass)[None, :]
+    for i0 in range(0, k, rows):
+        d = pos[:, None, :] - targets[:, i0:i0 + rows, None]  # (3, c, N)
+        dist_sq = (d * d).sum(0) + soft_sq
+        inv = torch.rsqrt(dist_sq)
+        w = torch.where(dist_sq > soft_sq, gm * inv * inv * inv,
+                        torch.zeros_like(dist_sq))
+        out[:, i0:i0 + rows] = (w[None] * d).sum(2)
+    return out
+
+
+def allpairs_at_plan(k: int, n: int) -> tuple:
+    """``(threads, T, tiles a slice)`` of the targets-and-sources mode for
+    ``k`` targets and ``n`` sources: 128 threads of 2 targets, and the
+    source tiles cut into slices of the fewest tiles that give the grid
+    about ``_AT_BLOCKS`` blocks."""
+    threads, T = 128, 2
+    tblocks = -(-k // (threads * T))
+    tiles = -(-n // ALLPAIRS_TILE)
+    return threads, T, max(1, -(-tiles * tblocks // _AT_BLOCKS))
+
+
+def allpairs_at_slices(n: int, tiles_per_slice: int) -> int:
+    """Slices of the source axis (the partials the mode's first pass
+    writes) for ``n`` sources cut into slices of ``tiles_per_slice``
+    tiles."""
+    return -(-(-(-n // ALLPAIRS_TILE)) // tiles_per_slice)
+
+
+def allpairs_accel_at(targets: torch.Tensor, pos: torch.Tensor,
+                      mass: torch.Tensor, G: float,
+                      softening: float) -> torch.Tensor:
+    """Accelerations at ``targets`` from the sources ``pos``, ``mass``.
+
+    Args:
+      targets: ``(3, k)`` float32, contiguous.
+      pos: ``(3, N)`` float32, contiguous; mass: ``(N,)`` float32.
+    Returns:
+      ``(3, k)`` float32 on ``targets.device``.
+
+    CPU tensors take :func:`allpairs_at_reference`.  CUDA tensors launch
+    ``csrc/allpairs.cu``'s targets-and-sources mode (the instance
+    :func:`allpairs_at_plan` picks; two launches, the second adding the
+    slices' partials in a fixed order) on the current stream without
+    synchronising, and add one to ``allpairs_accel_at.launches``.
+    """
+    if targets.device.type == "cpu":
+        return allpairs_at_reference(targets, pos, mass, G, softening)
+    threads, T, per = allpairs_at_plan(targets.shape[1], pos.shape[1])
+    return allpairs_at_launch(targets, pos, mass, G, softening,
+                              threads=threads, targets_per_thread=T,
+                              tiles_per_slice=per)
+
+
+def allpairs_at_launch(targets, pos, mass, G, softening, *, threads,
+                       targets_per_thread, tiles_per_slice):
+    """Launch the targets-and-sources mode with ``threads`` threads a
+    block of ``targets_per_thread`` (T) targets each and the source tiles
+    cut into slices of ``tiles_per_slice``, on checked CUDA inputs; adds
+    one to ``allpairs_accel_at.launches``."""
+    dev = targets.device
+    if dev.type != "cuda" or pos.device != dev or mass.device != dev:
+        raise ValueError(f"allpairs_accel_at: unsupported devices "
+                         f"{dev}/{pos.device}/{mass.device}")
+    k, n = targets.shape[1], pos.shape[1]
+    _check("targets", targets, (3, k), torch.float32)
+    _check("pos", pos, (3, n), torch.float32)
+    _check("mass", mass, (n,), torch.float32)
+    if k == 0 or n == 0:
+        raise ValueError("allpairs_accel_at: no targets or no sources")
+    if (threads not in ALLPAIRS_THREADS
+            or targets_per_thread not in ALLPAIRS_TARGETS
+            or tiles_per_slice < 1):
+        raise ValueError(f"allpairs_accel_at: no instance threads={threads} "
+                         f"T={targets_per_thread} tiles a slice "
+                         f"{tiles_per_slice}")
+    part = torch.empty((allpairs_at_slices(n, tiles_per_slice), 3, k),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty_like(targets)
+    err = _kernels.entry.spatialsim_allpairs_at(
+        targets.data_ptr(), pos.data_ptr(), mass.data_ptr(), part.data_ptr(),
+        out.data_ptr(), k, n, float(G), float(softening) ** 2, int(threads),
+        int(targets_per_thread), int(tiles_per_slice), _kernels.stream(pos))
+    if err:
+        _kernels.fail(err, "allpairs_at")
+    allpairs_accel_at.launches += 1
+    return out
+
+
+allpairs_accel_at.launches = 0
+
+
+def allpairs_at_occupancy(threads, targets):
+    """(resident blocks per SM, registers a thread, threads a block) of
+    the targets-and-sources mode's first pass."""
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    err = _kernels.entry.spatialsim_allpairs_at_occupancy(
+        int(threads), int(targets), ctypes.addressof(out))
+    _kernels.check(err, "allpairs_at occupancy")
     return tuple(out)

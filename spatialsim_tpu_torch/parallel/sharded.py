@@ -13,7 +13,7 @@ is decided from values that are equal on all ranks.
   targets and passes the source block round the ring (D hops),
   accumulating the partial sums in hop order: the blockwise pattern of the
   reference's tiled all-pairs, lifted from shared-memory tiles to
-  neighbouring ranks.
+  neighbouring ranks; each hop is kernel 1's targets-and-sources mode.
 * :func:`sharded_barnes_hut_accel`: the exact engine.  Every rank gathers
   the bodies, builds the same sorted octree and walks only its own slice
   of Morton groups; one gather of the sorted accelerations gives each rank
@@ -37,16 +37,13 @@ from typing import Optional
 
 import torch
 
+from spatialsim_tpu_torch.ops.allpairs import allpairs_accel_at
 from spatialsim_tpu_torch.ops.bounds import compute_bounds
 from spatialsim_tpu_torch.ops.integrator import integrate
 from spatialsim_tpu_torch.ops.morton import morton_encode
 from spatialsim_tpu_torch.parallel import distsort
 from spatialsim_tpu_torch.parallel.collectives import (
     all_gather, pmax, ring_shift, shift)
-
-# Targets a chunk of the ring's pair sums: the (3, chunk, nj) differences
-# stay near 2^24 elements a component.
-_RING_PAIRS = 1 << 24
 
 
 def _local(a, mesh):
@@ -63,25 +60,6 @@ def shard_state(state, mesh):
     return type(state)(*(_local(a, mesh) for a in state))
 
 
-def _partial_accel(pos_i, pos_j, mass_j, G, soft_sq):
-    """Forces of one source block on the local targets, ``(3, ni)`` x
-    ``(3, nj)``: ``G m d / r^3``, ``r^2 = |d|^2 + eps^2``, gated on ``r^2 >
-    eps^2``, plain PyTorch ops as JAX computes it outside any kernel, in
-    chunks of targets so that no ``(3, ni, nj)`` tensor is whole."""
-    ni, nj = pos_i.shape[1], pos_j.shape[1]
-    chunk = max(1, _RING_PAIRS // max(nj, 1))
-    out = torch.empty_like(pos_i)
-    gm = (G * mass_j)[None, :]
-    for i0 in range(0, ni, chunk):
-        d = pos_j[:, None, :] - pos_i[:, i0:i0 + chunk, None]
-        dist_sq = (d * d).sum(0) + soft_sq
-        inv = torch.rsqrt(dist_sq)
-        w = torch.where(dist_sq > soft_sq, gm * inv * inv * inv,
-                        torch.zeros_like(dist_sq))
-        out[:, i0:i0 + chunk] = (w[None] * d).sum(2)
-    return out
-
-
 def ring_allpairs_accel(pos, mass, mesh, G, softening):
     """All-pairs accelerations of this rank's bodies over the ring.
 
@@ -90,13 +68,16 @@ def ring_allpairs_accel(pos, mass, mesh, G, softening):
     Returns:
       ``(3, n/D)`` accelerations of the same bodies.  Hop h adds the block
       of rank ``rank - h``; the four rows (pos, mass) travel together.
+      A hop's sum is :func:`allpairs_accel_at` (the local block as
+      targets, the visiting block as sources): kernel 1's
+      targets-and-sources mode on a card, plain chunks on the CPU.
     """
-    G = float(G)
-    soft_sq = float(softening) ** 2
     acc = torch.zeros_like(pos)
+    pos = pos.contiguous()
     pm = torch.cat([pos, mass[None, :]])
     for hop in range(mesh.size):
-        acc = acc + _partial_accel(pos, pm[0:3], pm[3], G, soft_sq)
+        acc = acc + allpairs_accel_at(pos, pm[0:3], pm[3], float(G),
+                                      float(softening))
         if hop + 1 < mesh.size:
             pm = ring_shift(pm, mesh)
     return acc

@@ -292,11 +292,14 @@ def boids_sass(lib_path, previous: bool = False) -> dict:
 def instance(name: str, previous: bool = False) -> str | None:
     """A label for a kernel's mangled name (``pool T=4``, ``dense R=8
     T=4``, ``cols R=10 T=2``, ``mxu R=10 fma T=2``, ``mxu R=10 mma M=4``,
-    ``allpairs T=4``, ``boids T=2 cull on pass 1``; of the previous
-    kernels ``pool (previous)``, ``dense R=8 (previous, <=1024
-    threads)``, ``cols R=10 (previous, <=256 threads)``, ``mxu R=10
-    (previous, <=256 threads)``, ``allpairs (previous)``, ``boids
+    ``allpairs T=4``, ``allpairs_at T=2``, ``boids T=2 cull on pass 1``;
+    of the previous kernels ``pool (previous)``, ``dense R=8 (previous,
+    <=1024 threads)``, ``cols R=10 (previous, <=256 threads)``, ``mxu
+    R=10 (previous, <=256 threads)``, ``allpairs (previous)``, ``boids
     (previous)``), None for other kernels."""
+    if "allpairs_at_kernel" in name:
+        m = re.search(r"allpairs_at_kernelILi(\d+)EE", name)
+        return None if previous or not m else f"allpairs_at T={m.group(1)}"
     if "allpairs_kernel" in name:
         m = re.search(r"allpairs_kernelILi(\d+)EE", name)
         return ("allpairs (previous)" if previous or not m

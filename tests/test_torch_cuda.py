@@ -149,6 +149,76 @@ def test_allpairs_every_instance_matches_plain(cuda, n):
                         slices=MAX_SLICES + 1)
 
 
+@pytest.mark.parametrize("k,n", [(1, 1), (100, 257), (4096, 3000),
+                                 (1000, 65_536), (33, 200_001)])
+def test_allpairs_at_every_instance_matches_plain(cuda, k, n):
+    """Kernel 1's targets-and-sources mode: the plan's instance and every
+    (threads, T, tiles a slice) against the plain version (1e-5 of
+    max|a|), a quarter of the targets on sources (dropped pairs), ragged
+    k and n; two calls equal bit for bit (the fixed-order second pass)."""
+    from spatialsim_tpu_torch.ops.allpairs import (
+        ALLPAIRS_TARGETS, ALLPAIRS_THREADS, allpairs_accel_at,
+        allpairs_at_launch, allpairs_at_reference)
+    pos, _, mass = _galaxy(n, 7, cuda)
+    tgt = _galaxy(k, 8, cuda)[0]
+    on = min(k // 4, n)
+    tgt[:, :on] = pos[:, :on]
+    tgt = tgt.contiguous()
+    want = allpairs_at_reference(tgt, pos, mass, 0.1, 2.0)
+    scale = max(float(want.abs().max()), 1e-30)
+    before = allpairs_accel_at.launches
+    got = allpairs_accel_at(tgt, pos, mass, 0.1, 2.0)
+    torch.cuda.synchronize()
+    assert allpairs_accel_at.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    for threads in ALLPAIRS_THREADS:
+        for T in ALLPAIRS_TARGETS:
+            for per in (1, 3, 1 << 20):
+                kw = dict(threads=threads, targets_per_thread=T,
+                          tiles_per_slice=per)
+                got = allpairs_at_launch(tgt, pos, mass, 0.1, 2.0, **kw)
+                again = allpairs_at_launch(tgt, pos, mass, 0.1, 2.0, **kw)
+                torch.cuda.synchronize()
+                assert bool(torch.isfinite(got).all()), kw
+                assert float((got - want).abs().max()) <= 1e-5 * scale, kw
+                assert torch.equal(got, again), kw
+
+
+def test_allpairs_at_softening_zero_and_float64_oracle(cuda):
+    """Softening 0: the gate alone drops coincident pairs; the float32
+    mode within 1e-6 of max|a| of a float64 plain sum."""
+    from spatialsim_tpu_torch.ops.allpairs import (
+        allpairs_accel_at, allpairs_at_reference)
+    pos, _, mass = _galaxy(50_000, 9, cuda)
+    tgt = pos[:, ::97].contiguous()
+    got = allpairs_accel_at(tgt, pos, mass, 0.1, 0.0)
+    want = allpairs_at_reference(tgt.double(), pos.double(), mass.double(),
+                                 0.1, 0.0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got.double() - want).abs().max()
+                 / want.abs().max()) <= 1e-6
+
+
+def test_ring_hops_run_the_mode(cuda):
+    """The ring at world size 1: one hop, one launch of the mode, equal
+    to the all-pairs kernel within 1e-5 of max|a|."""
+    from spatialsim_tpu_torch.ops.allpairs import (
+        allpairs_accel, allpairs_accel_at)
+    from spatialsim_tpu_torch.parallel import make_mesh, ring_allpairs_accel
+    pos, _, mass = _galaxy(8192, 10, cuda)
+    mesh = make_mesh(device="cuda")
+    try:
+        before = allpairs_accel_at.launches
+        ring = ring_allpairs_accel(pos, mass, mesh, 0.1, 2.0)
+        assert allpairs_accel_at.launches == before + mesh.size
+        ap = allpairs_accel(pos, mass, 0.1, 2.0)
+        torch.cuda.synchronize()
+        assert float((ring - ap).abs().max() / ap.abs().max()) <= 1e-5
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def test_allpairs_softening_zero_coincident_bodies(cuda):
     """With softening 0 the gate alone drops self and coincident pairs;
     zero-mass padding at 1e18 adds nothing."""

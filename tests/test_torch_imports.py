@@ -215,3 +215,15 @@ def test_recorder_helpers_match_jax(capsys):
     assert got == want and got["num_bodies"] == 3000
     assert record.select_preset_interactive(answers("q")) is None
     capsys.readouterr()
+
+
+def test_scan_covers_the_measurement_tools():
+    """The ports of the ``scripts/`` measurement tools are among the
+    scanned sources (the scans above walk the whole package), so none
+    imports jax, ``scripts`` or the JAX package."""
+    names = {str(f.relative_to(ROOT))
+             for f in (ROOT / "spatialsim_tpu_torch").rglob("*.py")}
+    assert {f"spatialsim_tpu_torch/tools/{m}.py"
+            for m in ("oracle", "nbody_error", "nbody_error_scan",
+                      "staleness_scan", "quad_scan", "extreme_run",
+                      "prof_parts", "verify_drive")} <= names
