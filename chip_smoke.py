@@ -232,7 +232,20 @@ traversal probes.
     launches are the ring's (phase 20 (d)) and the tools' (22 (b)), each
     counted from zero just before its run and required above 0; the
     oracle's in the accuracy checks of phases 5-21 and 22 (a)'s
-    comparisons are printed apart as reference launches.
+    comparisons are printed apart as reference launches;
+23. (a) kernel 3's stage-ablation instances (``window_eval(...,
+    dbg=...)``) on phase 11's 1M dense R=10 lists at steps_since 23: every
+    row of ``tools/decide7.py`` (the far lists kept or zeroed; ``nowin``,
+    ``nostage``, ``notgt``, ``nouttr``) at every T (1, 2, 4) in the
+    heavy-first order, each within 1e-4 of max|a| of its plain version
+    (for ``nouttr`` of the largest block sum), CUDA-event ms and the
+    bound of each row at the plan's T; the default instance equal bit for
+    bit to phase 11's output; (b) a short call of every rebuild and eval
+    tool's ``main`` on the card: ``decide7`` at 1M (the ablation
+    instances' main path: their launches counted from zero over it and
+    required above 0), ``prof_rebuild``, ``eval_bench`` (its first
+    variant), ``diag10m``, ``decide29``, ``decide_1m`` and
+    ``quick_metrics`` at 262,144 bodies.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -1935,6 +1948,116 @@ def tools_on_card(dev, kernels):
     return compared, tools
 
 
+# Phase 23: the rebuild and eval tools' bodies (decide7 runs at N_MAIN).
+N_REBUILD_TOOLS = 262_144
+# Phase 23 (a)'s rows beyond decide7's: notgt and nowin with the far lists
+# kept, so that each flag meets a plain answer that is not zero (decide7
+# sets notgt only where nothing is summed).
+ABLATION_CHECK_ROWS = (("far_notgt", True, "notgt"),
+                       ("far_now", True, "nowin"))
+
+
+def ablation_on_card(dev, kernels, kept):
+    """Phase 23 (a): the ablation instances against their plain version on
+    phase 11's 1M dense R=10 lists (``kept``: its inputs and output on the
+    host), every ``tools/decide7.py`` row and ``ABLATION_CHECK_ROWS`` at
+    every T in the heavy-first order, each row that sums pairs against a
+    plain answer that is not zero; the default instance against phase
+    11's output bit for bit.
+    Returns the launches made here (comparisons: not main-path)."""
+    import torch
+    from spatialsim_tpu_torch.ops.bh_eval_kernel import (
+        dense_launch, heavy_first, tile_targets, window_eval,
+        window_eval_reference)
+    from spatialsim_tpu_torch.tools import decide7
+    kw = kept["ekw"]
+    s_pos, s_mass, far, far_n = (kept[k].to(dev) for k in (
+        "s_pos", "s_mass", "far", "far_n"))
+    ss = kept["steps_since"]
+    gsz, wg = kw["group_size"], kw["window_groups"]
+    got = window_eval(s_pos, s_mass, far, far_n, None, ss, DT, **kw)
+    require(torch.equal(got.cpu(), kept["out"]),
+            "the default instance differs from phase 11's output")
+    print(f"    default instance: equal bit for bit to phase 11's output "
+          f"({tuple(got.shape)})")
+    window_eval.dbg_launches = 0
+    plan = tile_targets(gsz, far.shape[1])
+    order = heavy_first(far_n, None, gsz)
+    zero = torch.zeros_like(far_n)
+    rows = []
+    for tag, keep, dbg in decide7.ROWS + ABLATION_CHECK_ROWS:
+        args = (s_pos, s_mass, far, far_n if keep else zero, None, ss, DT)
+        want = window_eval_reference(*args, dbg=dbg, **kw)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        require(scale > 0 or not keep and "nowin" in dbg,
+                f"ablation {tag} ({dbg!r}): sums pairs, but the plain "
+                f"answer is all zero")
+        errs = {}
+        for T in (1, 2, 4):
+            out = dense_launch(*args, targets=T, order=order, dbg=dbg, **kw)
+            torch.cuda.synchronize()
+            errs[T] = float((out - want).abs().max())
+            require(errs[T] <= TOL_WINDOW * scale if scale
+                    else errs[T] == 0,
+                    f"ablation {tag} ({dbg!r}) T={T}: {errs[T]} of {scale}")
+        ms = cuda_ms(lambda: window_eval(*args, dbg=dbg, **kw), 5)
+        plain_ms = cuda_ms(lambda: window_eval_reference(*args, dbg=dbg,
+                                                         **kw), 1)
+        pairs, ops, nbytes = decide7.row_work(far_n, far.shape[1], gsz, wg,
+                                              keep, dbg)
+        b_ms, b_by = bound(ops, nbytes)
+        print(f"    {tag:10s} dbg={dbg!r}: max|da| " + ", ".join(
+            f"T={T} {e:.3e}" for T, e in errs.items())
+            + f" of max|a| {scale:.4e} (tol {TOL_WINDOW}); plan T={plan} "
+            f"{ms:.4f} ms, {pairs:.4e} pairs, bound {b_ms:.4f} ms "
+            f"({b_by}, {b_ms / ms:.1%}); plain {plain_ms:.4f} ms")
+        if dbg:
+            rows.append((tag, max(errs.values()),
+                         max(errs.values()) / scale if scale else 0.0, ms,
+                         plain_ms, ops, nbytes))
+    # The summary's timing is base_uttr's (the whole work, the block sums
+    # in place of the output's layout); the errors are every row's.
+    for row in sorted(rows, key=lambda r: r[0] != "base_uttr"):
+        record_kernel(kernels, "window_eval_dbg", *row[1:])
+    del s_pos, s_mass, far, far_n, zero
+    torch.cuda.empty_cache()
+    return window_eval.dbg_launches
+
+
+def rebuild_tools_on_card():
+    """Phase 23 (b): each rebuild and eval tool's ``main`` on the card, run
+    short; decide7 first, with the ablation instances' launches counted
+    from zero over its run.  Returns those launches."""
+    import torch
+    from spatialsim_tpu_torch.ops.bh_eval_kernel import window_eval
+    from spatialsim_tpu_torch.tools import (
+        decide7, decide29, decide_1m, diag10m, eval_bench, prof_rebuild,
+        quick_metrics)
+    n = str(N_REBUILD_TOOLS)
+    timed = []
+    window_eval.dbg_launches = 0
+    for name, main, argv in (
+            ("decide7", decide7.main, [str(N_MAIN)]),
+            ("prof_rebuild", prof_rebuild.main, [n]),
+            ("eval_bench", eval_bench.main, [n]),
+            ("diag10m", diag10m.main, [n]),
+            ("decide29", decide29.main, [n]),
+            ("decide_1m", decide_1m.main, [n]),
+            ("quick_metrics", quick_metrics.main, [n])):
+        t = time.perf_counter()
+        require(main(argv + ["--device", "cuda"]) == 0, name)
+        timed.append((name, time.perf_counter() - t))
+        if name == "decide7":
+            launches = window_eval.dbg_launches
+        torch.cuda.empty_cache()
+    print("    tool seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in timed)
+          + f"; the ablation instances launched {launches} times in "
+          f"decide7's run")
+    require(launches > 0, "decide7 launched no ablation instance")
+    return launches
+
+
 def estimate_anchors(line_1m, allpairs_ms):
     """Phase 21 (d): the readings behind ``tools/record.py``'s estimate
     anchors, taken in this run beside the constants: the 1M bench line
@@ -2851,6 +2974,13 @@ def main() -> int:
     s_pos, s_mass = eval_ab.sorted_inputs(dlists, pos, mass)
     check_dense(kernels, "1M dense R=10, steps_since=23", dlists, s_pos,
                 s_mass, None, 23, ekw, tiles=tiles)
+    # Phase 23 (a) holds the ablation instances to these lists and the
+    # default instance to this output, kept on the host until then.
+    kept_11 = dict(
+        ekw=ekw, steps_since=23, s_pos=s_pos.cpu(), s_mass=s_mass.cpu(),
+        far=dlists.far.cpu(), far_n=dlists.far_n.cpu(),
+        out=window_eval(s_pos, s_mass, dlists.far, dlists.far_n, None, 23,
+                        DT, **ekw).cpu())
 
     # (3) The same lists with a seeded near table: K = 4 ids outside each
     # window, ~10% of slots empty (-1).
@@ -3571,6 +3701,17 @@ def main() -> int:
             (reference_at, ring_launches))
     done(t0)
 
+    # ---- 23. kernel 3's ablation instances and the rebuild tools -------
+    t0 = phase("23. kernel 3's stage-ablation instances against their plain "
+               "version; decide7, prof_rebuild, eval_bench, diag10m, "
+               "decide29, decide_1m and quick_metrics")
+    print("  (a) the ablation instances on phase 11's 1M dense R=10 lists")
+    ablation_on_card(dev, kernels, kept_11)
+    del kept_11
+    print("  (b) the rebuild and eval tools on the card")
+    dbg_launches = rebuild_tools_on_card()
+    done(t0)
+
     print(f"\ntotal seconds: {time.perf_counter() - wall0:.3f}")
     src = "spatialsim_tpu_torch/csrc"
     summary = {"kernels": [
@@ -3607,6 +3748,10 @@ def main() -> int:
                        + ab_launches.get("window_eval", 0)
                        + sharded_launches),
              **kernels["window_eval"]),
+        dict(name="window_eval_dbg", route="cuda",
+             source=f"{src}/window_eval.cu",
+             replaces="spatialsim_tpu/ops/bh_eval_kernel.py:432",
+             launches=dbg_launches, **kernels["window_eval_dbg"]),
         dict(name="window_eval_cols", route="cuda",
              source=f"{src}/window_eval_cols.cu",
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:182",

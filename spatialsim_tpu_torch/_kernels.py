@@ -70,7 +70,7 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "spatialsim_window_eval_pool_occupancy": (_I, _I, _P),
     "spatialsim_window_eval": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
+                               _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     "spatialsim_window_eval_occupancy": (_I, _I, _I, _I, _I, _P),
     "spatialsim_window_eval_cols": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,

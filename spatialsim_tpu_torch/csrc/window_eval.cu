@@ -47,6 +47,19 @@
 // indexed by g, and the output is (3, ng * gsz).  The whole state is g0 = 0,
 // ngs = ng; a haloed shard g0 = wg, ngs = ng + 2 wg; a local slice g0 =
 // its first group of the global state.  The modes take no near groups.
+//
+// Stage ablation (pallas_window_eval's `dbg`, read by _eval_kernel only):
+// the kAblate instances read a flags word that the default instances
+// never see, so those compile as before.  kNoWin drops the window groups
+// from the block's source list (the near groups and the far list stay);
+// kNoTgt reads no target and sets every one to (0, 0, 0.5); kNoUttr
+// writes, for each block of `iblk` targets of a group (the TPU kernel's
+// default: the group, or 256 above 512), G times the block's sum of
+// ax + ay + az into all three rows of every target in the block.  The
+// TPU kernel's `nostage` skips a copy into a scratch only its window
+// loop reads; here window sources are staged by the same batches as far
+// entries, so it has no stage of its own (the wrapper takes it only with
+// `nowin`).
 
 #include <cuda_runtime.h>
 
@@ -69,13 +82,23 @@ size_t smem_bytes(int R, int nthr, int wg, int K) {
   return 2 * round_up8(nthr) * per + (2 * wg + 2 + K) * sizeof(int);
 }
 
-template <int R, int T>
+// The ablation flags (spatialsim_window_eval's `flags`).
+constexpr int kNoWin = 1;
+constexpr int kNoTgt = 2;
+constexpr int kNoUttr = 4;
+
+// The TPU kernel's default target block of the `nouttr` sums.
+__host__ __device__ constexpr int ablate_block(int gsz) {
+  return gsz <= 512 ? gsz : 256;
+}
+
+template <int R, int T, bool kAblate>
 __global__ void __launch_bounds__(1024 / T) window_eval_kernel(
     const float* __restrict__ pos, const float* __restrict__ mass,
     const float* __restrict__ far, const int* __restrict__ far_n,
     const int* __restrict__ near, const int* __restrict__ order,
     float* __restrict__ out, int ng, int g0, int ngs, int wg, int K, int L,
-    float soft_sq, float G, float tau, float coef2) {
+    float soft_sq, float G, float tau, float coef2, int flags) {
   constexpr bool kQuad = quad_rows(R);
   constexpr int kAcc = (R == 10) ? 7 : (R == 16) ? 13 : -1;
   constexpr int kRaw = 7 + (kQuad ? 6 : 0) + (kAcc >= 0 ? 3 : 0);
@@ -102,7 +125,9 @@ __global__ void __launch_bounds__(1024 / T) window_eval_kernel(
   // The window groups in range, then the valid near ids.
   if (tid == 0) {
     int c = 0;
-    for (int h = max(gs - wg, 0); h <= min(gs + wg, ngs - 1); ++h) {
+    bool win = true;
+    if constexpr (kAblate) win = !(flags & kNoWin);
+    for (int h = max(gs - wg, 0); win && h <= min(gs + wg, ngs - 1); ++h) {
       groups[1 + c++] = h;
     }
     for (int k = 0; k < K; ++k) {
@@ -113,7 +138,20 @@ __global__ void __launch_bounds__(1024 / T) window_eval_kernel(
   }
 
   Targets<T> t;
-  t.load(pos, npad, static_cast<size_t>(gs) * gsz + tid, nthr);
+  bool tgt = true;
+  if constexpr (kAblate) tgt = !(flags & kNoTgt);
+  if (tgt) {
+    t.load(pos, npad, static_cast<size_t>(gs) * gsz + tid, nthr);
+  } else {
+    // kNoTgt: the targets are not read.
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      t.x[j] = 0.f;
+      t.y[j] = 0.f;
+      t.z[j] = 0.5f;
+      t.ax[j] = t.ay[j] = t.az[j] = 0.f;
+    }
+  }
   const int n = min(max(far_n[g], 0), L);
   const float* fg = far + static_cast<size_t>(g) * R * L;
   __syncthreads();
@@ -180,27 +218,63 @@ __global__ void __launch_bounds__(1024 / T) window_eval_kernel(
     if (more) stage(b + 1, (b + 1) & 1);
     __syncthreads();
   }
+  if constexpr (kAblate) {
+    if (flags & kNoUttr) {
+      // The staging buffers (8 * stride >= gsz floats) are free after the
+      // last barrier: target i's ax + ay + az goes to buf[i], each block
+      // of iblk is summed by a fixed tree, and its sum lands in the
+      // block's first slot.
+      float* buf = reinterpret_cast<float*>(sh4);
+      const int iblk = ablate_block(gsz);
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+        buf[tid + j * nthr] = t.ax[j] + t.ay[j] + t.az[j];
+      }
+      __syncthreads();
+      int w = 1;
+      while (w < iblk) w <<= 1;
+      for (w >>= 1; w >= 1; w >>= 1) {
+        for (int p = tid; p < gsz; p += nthr) {
+          if (p % iblk < w && p % iblk + w < iblk && p + w < gsz) {
+            buf[p] += buf[p + w];
+          }
+        }
+        __syncthreads();
+      }
+      const size_t nout = static_cast<size_t>(ng) * gsz;
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+        const int i = tid + j * nthr;
+        const float v = buf[i / iblk * iblk] * G;
+        const size_t b = static_cast<size_t>(g) * gsz + i;
+        out[b] = v;
+        out[nout + b] = v;
+        out[2 * nout + b] = v;
+      }
+      return;
+    }
+  }
   t.store(out, static_cast<size_t>(ng) * gsz,
           static_cast<size_t>(g) * gsz + tid, nthr, G);
 }
 
 // Dispatch on T at a fixed R; `op` is called with the kernel instance.
-template <int R, typename Op>
+template <int R, bool kAblate, typename Op>
 cudaError_t with_t(int T, Op op) {
   switch (T) {
-    case 1: return op(window_eval_kernel<R, 1>);
-    case 2: return op(window_eval_kernel<R, 2>);
-    default: return op(window_eval_kernel<R, 4>);
+    case 1: return op(window_eval_kernel<R, 1, kAblate>);
+    case 2: return op(window_eval_kernel<R, 2, kAblate>);
+    default: return op(window_eval_kernel<R, 4, kAblate>);
   }
 }
 
-template <typename Op>
+template <bool kAblate = false, typename Op>
 cudaError_t with_rt(int R, int T, Op op) {
   switch (R) {
-    case 8: return with_t<8>(T, op);
-    case 10: return with_t<10>(T, op);
-    case 13: return with_t<13>(T, op);
-    case 16: return with_t<16>(T, op);
+    case 8: return with_t<8, kAblate>(T, op);
+    case 10: return with_t<10, kAblate>(T, op);
+    case 13: return with_t<13, kAblate>(T, op);
+    case 16: return with_t<16, kAblate>(T, op);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -211,13 +285,13 @@ bool valid(int gsz, int T, int wg, int K) {
          && (T == 1 || T == 2 || T == 4) && gsz % T == 0;
 }
 
-}  // namespace
-
-extern "C" int spatialsim_window_eval(
-    const float* pos, const float* mass, const float* far, const int* far_n,
-    const int* near, const int* order, float* out, int ng, int g0, int ngs,
-    int gsz, int T, int wg, int K, int R, int L, float soft_sq, float G,
-    float tau, float coef2, void* stream) {
+// The launch of either instance set; `flags` reaches only kAblate's.
+template <bool kAblate>
+int launch(const float* pos, const float* mass, const float* far,
+           const int* far_n, const int* near, const int* order, float* out,
+           int ng, int g0, int ngs, int gsz, int T, int wg, int K, int R,
+           int L, float soft_sq, float G, float tau, float coef2, int flags,
+           void* stream) {
   if (!valid(gsz, T, wg, K) || (K > 0 && near == nullptr)
       || !window_tile::valid_range(ng, g0, ngs)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -225,14 +299,34 @@ extern "C" int spatialsim_window_eval(
   const int nthr = gsz / T;
   const size_t smem = smem_bytes(R, nthr, wg, K);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_rt(R, T, [&](auto kernel) {
+  return static_cast<int>(with_rt<kAblate>(R, T, [&](auto kernel) {
     const cudaError_t err = window_tile::allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<ng, nthr, smem, s>>>(pos, mass, far, far_n, near, order, out,
                                   ng, g0, ngs, wg, K, L, soft_sq, G, tau,
-                                  coef2);
+                                  coef2, flags);
     return cudaGetLastError();
   }));
+}
+
+}  // namespace
+
+// `flags` is a set of kNoWin, kNoTgt and kNoUttr: 0 launches the default
+// instances, any other set the stage-ablation instances.
+extern "C" int spatialsim_window_eval(
+    const float* pos, const float* mass, const float* far, const int* far_n,
+    const int* near, const int* order, float* out, int ng, int g0, int ngs,
+    int gsz, int T, int wg, int K, int R, int L, float soft_sq, float G,
+    float tau, float coef2, int flags, void* stream) {
+  if (flags & ~(kNoWin | kNoTgt | kNoUttr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return flags == 0
+      ? launch<false>(pos, mass, far, far_n, near, order, out, ng, g0, ngs,
+                      gsz, T, wg, K, R, L, soft_sq, G, tau, coef2, 0, stream)
+      : launch<true>(pos, mass, far, far_n, near, order, out, ng, g0, ngs,
+                     gsz, T, wg, K, R, L, soft_sq, G, tau, coef2, flags,
+                     stream);
 }
 
 // Resident blocks per SM, registers a thread and threads of a launch at

@@ -31,6 +31,12 @@ d/r^7``.  G multiplies once at the end.  Two far layouts:
     tensor cores; :func:`mxu_plan` picks one, :func:`mxu_launch` takes it
     explicitly.
 
+The row form also takes the JAX package's stage ablation, ``dbg``
+(:func:`dbg_flags`): the window loop, the targets or the output's
+layout switched off one at a time, for measuring where a kernel's time
+goes (``tools/decide7.py``); the CUDA kernel runs it in instances of its
+own, counted in ``window_eval.dbg_launches``.
+
 The dense forms take the JAX package's call modes (:func:`eval_mode`):
 ``haloed`` (the source carries ``window_groups`` halo groups on each side
 of the evaluated shard) and ``local_slice=(group_offset, n_groups)`` (one
@@ -426,10 +432,64 @@ def _far_sources(far, g, n_use, n_slots, tau, coef2):
     return fp, fm, q6
 
 
+# The stage-ablation flags of the row form (``_eval_kernel``'s ``dbg``),
+# and the bit each sets in the CUDA kernel's flags word (``nostage`` has no
+# stage of its own on the card: :func:`dbg_flags`).
+DBG_BITS = {"nowin": 1, "nostage": 0, "notgt": 2, "nouttr": 4}
+
+
+def dbg_flags(dbg: str) -> frozenset:
+    """The set of stage-ablation flags in ``dbg``, comma-separated:
+
+    * ``nowin``: the group's own Morton window is not summed (the near
+      groups and the far list are);
+    * ``nostage``: the TPU kernel does not copy the window into the
+      scratch that only its window loop reads, so it is defined only with
+      ``nowin`` (alone it reads an unwritten scratch) and then changes
+      nothing: alone it raises ``ValueError``;
+    * ``notgt``: every target is (0, 0, 0.5);
+    * ``nouttr``: each block of :func:`ablate_block` targets of a group
+      gets ``G * sum(ax + ay + az)`` over the block in all three rows.
+
+    An unknown flag raises ``ValueError``."""
+    flags = frozenset(f.strip() for f in dbg.split(",") if f.strip())
+    unknown = flags - set(DBG_BITS)
+    if unknown:
+        raise ValueError(f"dbg: unknown flags {sorted(unknown)}; the "
+                         f"flags are {sorted(DBG_BITS)}")
+    if "nostage" in flags and "nowin" not in flags:
+        raise ValueError("dbg: 'nostage' needs 'nowin': it skips the copy "
+                         "of the window into a scratch that only the window "
+                         "loop reads, so without 'nowin' the TPU kernel "
+                         "sums an unwritten scratch")
+    return flags
+
+
+def ablate_block(group_size: int) -> int:
+    """Targets a ``nouttr`` sum covers: the TPU kernel's default target
+    block, the whole group up to 512, else 256."""
+    return int(group_size) if group_size <= 512 else 256
+
+
+def _block_sums(acc, gsz, G):
+    """``nouttr``'s output from the accumulators ``acc`` (three ``(C,
+    gsz)``, without G): ``G * sum(ax + ay + az)`` over each block of
+    :func:`ablate_block` targets, in all three rows of the block's
+    targets; ``(3, C * gsz)``."""
+    v = (acc[0] + acc[1]) + acc[2]
+    iblk = ablate_block(gsz)
+    nb = -(-gsz // iblk)
+    v = torch.nn.functional.pad(v, (0, nb * iblk - gsz))
+    s = v.reshape(v.shape[0], nb, iblk).sum(2) * G
+    s = s.repeat_interleave(iblk, dim=1)[:, :gsz].reshape(-1)
+    return torch.stack([s, s, s])
+
+
 def window_eval_reference(s_pos, s_mass, far, far_n, near=None,
                           steps_since=0, dt=0.0, *, G, softening,
                           group_size=256, window_groups=2, tau_clamp=24.0,
-                          groups=None, haloed=False, local_slice=None):
+                          groups=None, haloed=False, local_slice=None,
+                          dbg=""):
     """Plain-tensor window + near groups + dense far-list accelerations:
     the row form, ``_eval_kernel``.
 
@@ -443,13 +503,16 @@ def window_eval_reference(s_pos, s_mass, far, far_n, near=None,
       haloed, local_slice: the JAX package's call modes (:func:`eval_mode`);
         then ``far``, ``far_n`` and ``groups`` cover the ``ng`` evaluated
         groups.
+      dbg: stage-ablation flags (:func:`dbg_flags`); "" is the function.
     Returns:
       ``(3, ng * group_size)`` f32 accelerations in sorted order (``ng``
       the evaluated groups: all of them without a mode), or ``(3,
       len(groups) * group_size)`` for ``groups``, group by group.
     """
+    flags = dbg_flags(dbg)
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     gsz = group_size
+    n_win = (2 * window_groups + 1) * gsz
     g0, ng, _ = eval_mode(s_pos.shape[1], gsz, window_groups, near, haloed,
                           local_slice)
     L = far.shape[2]
@@ -461,14 +524,20 @@ def window_eval_reference(s_pos, s_mass, far, far_n, near=None,
     out = []
     for _, g, t, src in _dense_chunks(s_pos, s_mass, near, Lm, gsz,
                                       window_groups, groups, g0, ng):
+        if "notgt" in flags:
+            t = torch.tensor([0.0, 0.0, 0.5], dtype=t.dtype,
+                             device=t.device)[:, None, None].expand_as(t)
+        if "nowin" in flags:
+            src = src[:, :, n_win:]
         acc = _mono_sum(t[0], t[1], t[2], src[0], src[1], src[2], src[3],
                         soft_sq)
         fp, fm, q6 = _far_sources(far, g, n_use, Lm, tau, coef2)
         fa = (_quad_sum(t[0], t[1], t[2], *fp, fm, q6, soft_sq)
               if q6 is not None else
               _mono_sum(t[0], t[1], t[2], *fp, fm, soft_sq))
-        out.append(torch.stack([(a + b) * G for a, b in zip(acc, fa)])
-                   .reshape(3, -1))
+        acc = [a + b for a, b in zip(acc, fa)]
+        out.append(_block_sums(acc, gsz, G) if "nouttr" in flags else
+                   torch.stack([a * G for a in acc]).reshape(3, -1))
     return torch.cat(out, dim=1)
 
 
@@ -637,7 +706,7 @@ def _dense_args(name, s_pos, s_mass, far, far_n, near, group_size, rows,
 def window_eval(s_pos, s_mass, far, far_n, near=None, steps_since=0, dt=0.0,
                 *, G, softening, group_size=256, window_groups=2,
                 tau_clamp=24.0, use_cols=False, use_mxu=False, far_tile=512,
-                haloed=False, local_slice=None):
+                haloed=False, local_slice=None, dbg=""):
     """Window + near groups + dense far-list accelerations through a CUDA
     kernel.
 
@@ -646,13 +715,16 @@ def window_eval(s_pos, s_mass, far, far_n, near=None, steps_since=0, dt=0.0,
     package's selection, part of this function's definition (not a
     fallback): the matrix form (:func:`window_eval_mxu`) when ``use_mxu``
     and R is 8 or 10; else the column form (:func:`window_eval_cols`) when
-    ``use_cols`` and R is not 13 or 16; else the row form.  CPU tensors
-    take the form's plain version.  CUDA tensors launch the row form's
-    ``csrc/window_eval.cu`` -- one block of ``group_size / T`` threads per
-    group, T targets a thread (:func:`tile_targets`), heavy groups first
-    (:func:`heavy_first`, sorted once per lists) -- on the current stream
-    without synchronising, and add one to ``window_eval.launches``; a
-    kernel that does not build or launch raises.
+    ``use_cols`` and R is not 13 or 16; else the row form.  Only the row
+    form reads ``dbg`` (:func:`dbg_flags`), as in the JAX package.  CPU
+    tensors take the form's plain version.  CUDA tensors launch the row
+    form's ``csrc/window_eval.cu`` -- one block of ``group_size / T``
+    threads per group, T targets a thread (:func:`tile_targets`), heavy
+    groups first (:func:`heavy_first`, sorted once per lists) -- on the
+    current stream without synchronising, and add one to
+    ``window_eval.launches`` (with ablation flags: its ablation instances,
+    and ``window_eval.dbg_launches``); a kernel that does not build or
+    launch raises.
     """
     kw = dict(G=G, softening=softening, group_size=group_size,
               window_groups=window_groups, tau_clamp=tau_clamp,
@@ -666,11 +738,11 @@ def window_eval(s_pos, s_mass, far, far_n, near=None, steps_since=0, dt=0.0,
                                 steps_since, dt, far_tile=far_tile, **kw)
     if s_pos.device.type == "cpu":
         return window_eval_reference(s_pos, s_mass, far, far_n, near,
-                                     steps_since, dt, **kw)
+                                     steps_since, dt, dbg=dbg, **kw)
     return dense_launch(s_pos, s_mass, far, far_n, near, steps_since, dt,
                         targets=tile_targets(group_size, R),
                         order=_dense_order(far_n, near, int(group_size)),
-                        **kw)
+                        dbg=dbg, **kw)
 
 
 _dense_order = _OrderCache()
@@ -678,12 +750,16 @@ _dense_order = _OrderCache()
 
 def dense_launch(s_pos, s_mass, far, far_n, near, steps_since, dt, *, G,
                  softening, group_size, window_groups, tau_clamp, targets,
-                 order=None, haloed=False, local_slice=None):
+                 order=None, haloed=False, local_slice=None, dbg=""):
     """Launch ``csrc/window_eval.cu`` (the row form) with ``targets`` (T)
     targets a thread and blocks in ``order`` (int32 group ids; None: group
     i is block i) on checked CUDA inputs, in the call mode ``haloed`` /
     ``local_slice`` (:func:`eval_mode`); adds one to
-    ``window_eval.launches``."""
+    ``window_eval.launches``.  With ablation flags (``dbg``,
+    :func:`dbg_flags`) it launches the kernel's ablation instance (a
+    nonzero ``flags`` word) and adds one to
+    ``window_eval.dbg_launches`` instead."""
+    flags = dbg_flags(dbg)
     npad, ng, gsz, K, R, L, g0, ngs = _dense_args(
         "window_eval", s_pos, s_mass, far, far_n, near, group_size,
         DENSE_ROWS, window_groups, haloed, local_slice)
@@ -691,19 +767,24 @@ def dense_launch(s_pos, s_mass, far, far_n, near, steps_since, dt, *, G,
         _check("order", order, (ng,), torch.int32, s_pos.device)
     tau, coef2 = advance_coefs(steps_since, dt, tau_clamp)
     out = s_pos.new_empty((3, ng * gsz))
+    args = (s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
+            far_n.data_ptr(), near.data_ptr() if K else None,
+            None if order is None else order.data_ptr(), out.data_ptr(), ng,
+            g0, ngs, gsz, int(targets), int(window_groups), K, R, L,
+            float(softening) ** 2, float(G), tau, coef2)
     err = _kernels.entry.spatialsim_window_eval(
-        s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
-        far_n.data_ptr(), near.data_ptr() if K else None,
-        None if order is None else order.data_ptr(), out.data_ptr(), ng,
-        g0, ngs, gsz, int(targets), int(window_groups), K, R, L,
-        float(softening) ** 2, float(G), tau, coef2, _kernels.stream(s_pos))
+        *args, sum(DBG_BITS[f] for f in flags), _kernels.stream(s_pos))
     if err:
         _kernels.fail(err, "window_eval")
-    window_eval.launches += 1
+    if flags:
+        window_eval.dbg_launches += 1
+    else:
+        window_eval.launches += 1
     return out
 
 
 window_eval.launches = 0
+window_eval.dbg_launches = 0
 
 
 def window_eval_cols(s_pos, s_mass, far, far_n, near=None, steps_since=0,

@@ -291,7 +291,8 @@ def boids_sass(lib_path, previous: bool = False) -> dict:
 
 def instance(name: str, previous: bool = False) -> str | None:
     """A label for a kernel's mangled name (``pool T=4``, ``dense R=8
-    T=4``, ``cols R=10 T=2``, ``mxu R=10 fma T=2``, ``mxu R=10 mma M=4``,
+    T=4``, its ablation instance ``dense R=8 T=4 dbg``, ``cols R=10
+    T=2``, ``mxu R=10 fma T=2``, ``mxu R=10 mma M=4``,
     ``allpairs T=4``, ``allpairs_at T=2``, ``boids T=2 cull on pass 1``;
     of the previous kernels ``pool (previous)``, ``dense R=8 (previous,
     <=1024 threads)``, ``cols R=10 (previous, <=256 threads)``, ``mxu
@@ -334,11 +335,14 @@ def instance(name: str, previous: bool = False) -> str | None:
         m = re.search(r"window_eval_pool_kernelILi(\d+)EE", name)
         return ("pool (previous)" if previous or not m
                 else f"pool T={m.group(1)}")
-    m = re.search(r"window_eval_kernelILi(\d+)ELi(\d+)EE", name)
+    m = re.search(r"window_eval_kernelILi(\d+)ELi(\d+)E(?:Lb([01])E)?E",
+                  name)
     if m is None:
         return None
-    return (f"dense R={m.group(1)} (previous, <={m.group(2)} threads)"
-            if previous else f"dense R={m.group(1)} T={m.group(2)}")
+    if previous:
+        return f"dense R={m.group(1)} (previous, <={m.group(2)} threads)"
+    dbg = " dbg" if m.group(3) == "1" else ""
+    return f"dense R={m.group(1)} T={m.group(2)}{dbg}"
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")

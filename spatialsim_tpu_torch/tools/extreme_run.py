@@ -84,17 +84,19 @@ def memory_stats(device) -> str:
 
 
 def list_health(st, c, label, out=print):
-    """The script's list line: far_n mean, p99 and max, groups at the list
-    cap, groups folded whole (far_n <= 1), and the pool tiles in use."""
-    fn = st.lists.far_n.cpu().numpy()
+    """The script's list line of a window state's lists (or of ``st``, a
+    ``BHLists``): far_n mean, p99 and max, groups at the list cap, groups
+    folded whole (far_n <= 1), and the pool tiles in use."""
+    lists = getattr(st, "lists", st)
+    fn = lists.far_n.cpu().numpy()
     line = (f"{label} lists: far_n mean={fn.mean():.0f} "
             f"p99={np.percentile(fn, 99):.0f} max={fn.max()} "
             f"at_cap={(fn >= c.list_capacity - 1).sum()} "
             f"folded={(fn <= 1).sum()}/{fn.shape[0]}")
-    if st.lists.pool is not None:
-        ps = st.lists.pstart.cpu().numpy()
-        used = int(ps[-1] + -(-int(fn[-1]) // c.pool_tile))
-        line += f" | pool tiles {used}/{st.lists.pool.shape[0]}"
+    if lists.pool is not None:
+        ps = lists.pstart.cpu().numpy()
+        used = int(ps[-1] + -(-int(fn[-1]) // lists.pool.shape[2]))
+        line += f" | pool tiles {used}/{lists.pool.shape[0]}"
     out(line, flush=True)
 
 

@@ -21,7 +21,8 @@ on the device.
 
 The helpers the other tools share live here too: :func:`device_of` (the
 card unless ``--device cpu``; without a card a tool exits 1),
-:func:`initial_conditions` and :func:`sample_ids`.
+:func:`initial_conditions`, :func:`sample_ids` and
+:func:`add_bodies`.
 """
 
 from __future__ import annotations
@@ -58,6 +59,19 @@ def device_of(name: str, tool: str) -> torch.device:
               file=sys.stderr)
         raise SystemExit(1)
     return dev
+
+
+def add_bodies(ap, default: int) -> None:
+    """The body count of a tool: the positional ``n`` (the script's), or
+    ``--bodies``, which wins; read it with :func:`bodies_of`."""
+    ap.add_argument("n", type=lambda x: int(float(x)), nargs="?",
+                    default=default)
+    ap.add_argument("--bodies", type=lambda x: int(float(x)), default=None,
+                    help=f"body count (default {default:,}; as n)")
+
+
+def bodies_of(args) -> int:
+    return args.n if args.bodies is None else args.bodies
 
 
 def initial_conditions(distribution, n, radius, G, device, seed=0):

@@ -628,6 +628,95 @@ def test_dense_kernel_every_tile_matches_plain(cuda, R, K, gsz):
         assert bool(torch.isfinite(got).all())
 
 
+# The stage-ablation rows of tools/decide7.py: (far lists kept, dbg).
+ABLATION_ROWS = ((True, ""), (False, ""), (False, "nowin"),
+                 (False, "nowin,nostage"), (False, "nowin,nostage,notgt"),
+                 (False, "nowin,nostage,notgt,nouttr"), (False, "nouttr"),
+                 (True, "nouttr"), (True, "notgt"), (True, "nowin"))
+
+
+@pytest.mark.parametrize("gsz", [64, 256, 512, 1024])
+@pytest.mark.parametrize("K", [0, 4])
+@pytest.mark.parametrize("R", [10, 16])
+def test_dense_kernel_ablation_matches_plain(cuda, R, K, gsz):
+    """The ablation instances (``dbg``) at every T and every ablation row,
+    against the plain version within 1e-4 of max|a| (of the largest block
+    sum for ``nouttr``: blocks of 256 at group 1,024); heavy-first order
+    equal bit for bit; launches counted apart from the default
+    instance's."""
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    ng, L = 24, 256
+    kw = dict(G=0.1, softening=2.0, group_size=gsz, window_groups=2,
+              tau_clamp=24.0)
+    for T in (1, 2, 4):
+        args = _dense_inputs(ng, gsz, R, K, L, R * 10 + K + T, cuda,
+                             _edge_far_n(ng, gsz // T, L, T))
+        zero = torch.zeros_like(args[3])
+        order = ek.heavy_first(args[3], args[4], gsz)
+        for keep, dbg in ABLATION_ROWS:
+            a = args[:3] + ((args[3] if keep else zero),) + args[4:] + (
+                7, 0.02)
+            before = (ek.window_eval.launches, ek.window_eval.dbg_launches)
+            got = ek.dense_launch(*a, targets=T, dbg=dbg, **kw)
+            ordered = ek.dense_launch(*a, targets=T, order=order, dbg=dbg,
+                                      **kw)
+            torch.cuda.synchronize()
+            want = ek.window_eval_reference(*a, dbg=dbg, **kw)
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            assert (err <= 1e-4 * scale if scale else err == 0), \
+                (T, dbg, keep, err, scale)
+            assert torch.equal(ordered, got), (T, dbg)
+            assert bool(torch.isfinite(got).all())
+            assert (ek.window_eval.launches, ek.window_eval.dbg_launches) \
+                == ((before[0], before[1] + 2) if dbg else
+                    (before[0] + 2, before[1]))
+
+
+def test_dense_kernel_ablation_refusals(cuda):
+    """``nostage`` without ``nowin`` and unknown flags raise before a
+    launch; the C entry point refuses flags it does not know."""
+    from spatialsim_tpu_torch import _kernels
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    args = _dense_inputs(8, 64, 10, 0, 64, 1, cuda) + (0, 0.02)
+    kw = dict(G=0.1, softening=2.0, group_size=64, window_groups=2,
+              tau_clamp=24.0)
+    before = ek.window_eval.dbg_launches
+    for dbg in ("nostage", "notgt,nostage", "nowin,bogus"):
+        with pytest.raises(ValueError):
+            ek.window_eval(*args, dbg=dbg, **kw)
+    assert ek.window_eval.dbg_launches == before
+    s_pos, s_mass, far, far_n = args[:4]
+    out = torch.empty_like(s_pos)
+    err = _kernels.entry.spatialsim_window_eval(
+        s_pos.data_ptr(), s_mass.data_ptr(), far.data_ptr(),
+        far_n.data_ptr(), None, None, out.data_ptr(), 8, 0, 8, 64, 1, 2, 0,
+        10, 64, 4.0, 0.1, 0.0, 0.0, 8, _kernels.stream(s_pos))
+    assert err != 0
+
+
+def test_eval_bench_plain_step_launches_no_kernel(cuda):
+    """``tools/eval_bench.py``'s ``xla_fallback`` chain on the card: no
+    kernel launched, the accelerations within 1e-4 of max|a| of the
+    production step's (the dense kernel) on the same state."""
+    from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
+    from spatialsim_tpu_torch.ops import bh_window as bw
+    from spatialsim_tpu_torch.tools import eval_bench
+    n = 32768
+    cfg = eval_bench.base_config(n).replace(use_pallas_eval=False)
+    st = bw.init_window_state(*_galaxy(n, 3, cuda), cfg)
+    assert st.lists.pool is None
+    before = ek.window_eval.launches
+    got = eval_bench.plain_step(cfg, n, 2)(st, 0.02)
+    torch.cuda.synchronize()
+    assert ek.window_eval.launches == before
+    want = bw.make_window_step(cfg, n, substeps=2)(st, 0.02)
+    torch.cuda.synchronize()
+    assert ek.window_eval.launches == before + 2
+    assert _rel(got.acc, want.acc) < 1e-4
+    assert bool(torch.isfinite(got.pos).all())
+
+
 @pytest.mark.parametrize("gsz", [64, 256])
 @pytest.mark.parametrize("K", [0, 4])
 @pytest.mark.parametrize("R", [8, 10])
