@@ -245,7 +245,22 @@ traversal probes.
     instances' main path: their launches counted from zero over it and
     required above 0), ``prof_rebuild``, ``eval_bench`` (its first
     variant), ``diag10m``, ``decide29``, ``decide_1m`` and
-    ``quick_metrics`` at 262,144 bodies.
+    ``quick_metrics`` at 262,144 bodies;
+24. (a) the rebuild's phase ablations on phase 3's 1M state: the default
+    build again, equal bit for bit to phase 3's lists; the ranges
+    traversal (``_traverse_global``) with each of "gather_cell",
+    "gather_group", "emit", "sliver", "expand" and ("emit", "sliver"),
+    and the calibrated build (``build_lists``) with each of them and with
+    "finish", on the card and on the CPU: every integer output (far_n,
+    sl_n, the worklist fills and demands, the ranges; order, inv_order,
+    pstart and the pool's range rows) equal bit for bit; (b) a short call
+    of every decomposition tool's ``main`` on the card: ``decide21``,
+    ``decide27``, ``decide25``, ``decide26``, ``decide23`` and ``decide13``
+    at 262,144 bodies, ``decide24``, ``decide22`` and ``gather_bench`` at
+    reduced shapes, ``decide16``, ``decide12`` and ``boids_capture`` at
+    100,000 boids, with each tool's seconds and its launches of kernels 1
+    (the targets-and-sources mode), 2 and 4, counted from zero; (c)
+    kernel 4's launches in decide12's run, required above 0.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -2058,6 +2073,145 @@ def rebuild_tools_on_card():
     return launches
 
 
+# Phase 24: the ablation sets of (a), the N-body tools' bodies and the
+# boids tools' flock of (b).
+ABLATION_SETS = (("gather_cell",), ("gather_group",), ("emit",),
+                 ("sliver",), ("expand",), ("emit", "sliver"))
+N_BOIDS_TOOLS = 100_000
+
+
+def _host_ints(out):
+    """The integer tensors of an output tuple, on the host."""
+    return [t.cpu() for t in out
+            if t is not None and not t.dtype.is_floating_point]
+
+
+def ablations_on_card(dev, kept):
+    """Phase 24 (a): on phase 3's 1M lists inputs (``kept``, on the host),
+    the default build equal to phase 3's lists bit for bit; then the
+    ranges traversal (``_traverse_global``) with each set of
+    ``ABLATION_SETS`` and the calibrated build (``build_lists``) with each
+    and with "finish", on the card and on the CPU: their integer outputs
+    (far_n, sl_n, the worklist fills and demands, the ranges or the
+    pool's range rows, order, inv_order, pstart) equal bit for bit."""
+    import torch
+    from spatialsim_tpu_torch.ops import bh_window as bw
+    from spatialsim_tpu_torch.tools.chain import presort, traversal_inputs
+    kw = kept["kw"]
+    host = kept["state"]
+    card = [t.to(dev) for t in host]
+    again = bw._resort_state(*card[:3], kept["order"].to(dev),
+                             kept["inv"].to(dev), kw, acc=card[3])[3]
+    differ = [f for f, t in kept["lists"].items()
+              if not torch.equal(getattr(again, f).cpu(), t)]
+    print(f"    the default build of phase 3's state: every field equal "
+          f"bit for bit to phase 3's lists: {not differ} {differ}")
+    require(not differ, f"the default build differs in {differ}")
+    del again
+
+    trav = {}
+    for where, tensors in (("card", card), ("cpu", host)):
+        t = time.perf_counter()
+        tree, bmin, bmax, ng, tkw, _ = traversal_inputs(
+            kw, presort(*tensors, kw), kw["tree_caps"])
+        for abl in ABLATION_SETS:
+            # far, far_range, far_n, sl_start, sl_end, sl_n, res, wl
+            out = bw._traverse_global(tree, bmin, bmax, ng, **tkw,
+                                      ablate=abl)
+            trav[where, abl] = _host_ints(out[1:6] + out[7:])
+        del tree
+        print(f"    traversals on the {where}: "
+              f"{time.perf_counter() - t:.3f} s")
+    for abl in ABLATION_SETS:
+        same = all(torch.equal(a, b) for a, b in
+                   zip(trav["card", abl], trav["cpu", abl]))
+        print(f"    _traverse_global ablate={abl}: integer outputs equal "
+              f"to the CPU's: {same}; far_n sum "
+              f"{int(trav['card', abl][1].sum())}, fills and demands "
+              f"{trav['card', abl][-1].tolist()}")
+        require(same, f"ablate={abl}: the card's traversal differs")
+    del trav
+
+    def ints(lists):
+        return [lists.order.cpu(), lists.inv_order.cpu(), lists.far_n.cpu(),
+                lists.pstart.cpu(), lists.pool[:, 10:14].cpu()]
+    for abl in ABLATION_SETS + (("finish",),):
+        t = time.perf_counter()
+        a = ints(bw.build_lists(*card, **kw, ablate=abl))
+        t_card = time.perf_counter() - t
+        t = time.perf_counter()
+        b = ints(bw.build_lists(*host, **kw, ablate=abl))
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        print(f"    build_lists ablate={abl}: order, inv_order, far_n, "
+              f"pstart and the pool's range rows equal to the CPU's: "
+              f"{same}; far_n sum {int(a[2].long().sum())}; card "
+              f"{t_card:.3f} s, CPU {time.perf_counter() - t:.3f} s")
+        require(same, f"ablate={abl}: the card's build differs")
+    del card
+    torch.cuda.empty_cache()
+
+
+def decomposition_tools_on_card():
+    """Phase 24 (b) and (c): each decomposition tool's ``main`` on the
+    card, run short (the N-body tools at ``N_REBUILD_TOOLS``, the boids
+    tools at ``N_BOIDS_TOOLS``, the primitives at reduced shapes), its
+    seconds, and the launches of kernels 1 (targets-and-sources), 2 and 4
+    in each tool's run, counted from zero; kernel 4's in decide12's run
+    must be above 0.  Returns ``{kernel: launches}`` over the tools."""
+    import torch
+    from spatialsim_tpu_torch.ops.allpairs import allpairs_accel_at
+    from spatialsim_tpu_torch.ops.bh_eval_kernel import window_eval_pool
+    from spatialsim_tpu_torch.ops.boids_window_kernel import (
+        boids_window_accumulate)
+    from spatialsim_tpu_torch.tools import (
+        boids_capture, decide12, decide13, decide16, decide21, decide22,
+        decide23, decide24, decide25, decide26, decide27, gather_bench)
+    counters = {"allpairs_at": allpairs_accel_at,
+                "window_eval_pool": window_eval_pool,
+                "boids_window": boids_window_accumulate}
+    n, b = str(N_REBUILD_TOOLS), str(N_BOIDS_TOOLS)
+    total = dict.fromkeys(counters, 0)
+    timed = []
+    for name, main, argv in (
+            ("decide21", decide21.main, [n]),
+            ("decide27", decide27.main, [n]),
+            ("decide25", decide25.main, [n]),
+            ("decide26", decide26.main, [n]),
+            ("decide23", decide23.main, [n]),
+            ("decide24", decide24.main, ["--W", "1048576"]),
+            ("decide13", decide13.main, [n]),
+            ("decide22", decide22.main, [
+                "--C", "65536", "--CP", "16384", "--G", "1024", "--L",
+                "1024", "--emit", "1000000", "--pool-idx", "1000000",
+                "--widths", "1048576", "--seg-width", "1048576",
+                "--slices", "8192"]),
+            ("gather_bench", gather_bench.main, ["--W", "1000000"]),
+            ("decide16", decide16.main, ["--boids", b]),
+            ("decide12", decide12.main, ["--boids", b]),
+            ("boids_capture", boids_capture.main, ["--boids", b,
+                                                   "--sample", "1000"])):
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        require(main(argv + ["--device", "cuda"]) == 0, name)
+        got = {k: fn.launches for k, fn in counters.items()}
+        timed.append((name, time.perf_counter() - t,
+                      {k: v for k, v in got.items() if v}))
+        for k, v in got.items():
+            total[k] += v
+        if name == "decide12":
+            boids_ab = got["boids_window"]
+        torch.cuda.empty_cache()
+    print("    tool seconds and kernel launches: " + "; ".join(
+        f"{k} {v:.3f} s {c or ''}" for k, v, c in timed))
+    print(f"  (c) kernel 4 launched {boids_ab} times in decide12's run "
+          f"(counted from zero)")
+    require(boids_ab > 0, "decide12 launched no boids window kernel")
+    require(total["window_eval_pool"] > 0 and total["allpairs_at"] > 0,
+            f"decide13 launched no kernel 2 or no direct sum: {total}")
+    return total
+
+
 def estimate_anchors(line_1m, allpairs_ms):
     """Phase 21 (d): the readings behind ``tools/record.py``'s estimate
     anchors, taken in this run beside the constants: the 1M bench line
@@ -2399,6 +2553,14 @@ def main() -> int:
         want, (1, 2, 4), t3, pairs, bound(18.0 * pairs, nbytes)[0], ng,
         lambda T: occupancy(gsz, T), sass.get(f"pool T={t3}"),
         sass_old.get("pool (previous)"), order=heavy_first(lists.far_n))
+    # Phase 24 (a) builds these lists again with each ablation: their
+    # inputs, the previous order and the lists themselves on the host.
+    kept_3 = dict(
+        state=[t.cpu() for t in (st.pos, st.vel, st.mass, acc)],
+        order=st.lists.order.cpu(), inv=st.lists.inv_order.cpu(),
+        kw=bw._build_kw(cal),
+        lists={f: t.cpu() for f, t in lists._asdict().items()
+               if isinstance(t, torch.Tensor)})
     del st, lists, acc, s_pos, s_mass, got, want
     done(t0)
 
@@ -3712,6 +3874,18 @@ def main() -> int:
     dbg_launches = rebuild_tools_on_card()
     done(t0)
 
+    # ---- 24. the rebuild's phase ablations and the decomposition tools --
+    t0 = phase("24. the rebuild's phase ablations on phase 3's 1M state, "
+               "card against CPU; decide21, 27, 25, 26, 23, 24, 13, 22, "
+               "gather_bench, decide16, decide12 and boids_capture")
+    print("  (a) the ablations, the card's integer outputs against the "
+          "CPU's")
+    ablations_on_card(dev, kept_3)
+    del kept_3
+    print("  (b) the decomposition tools on the card")
+    decomp_launches = decomposition_tools_on_card()
+    done(t0)
+
     print(f"\ntotal seconds: {time.perf_counter() - wall0:.3f}")
     src = "spatialsim_tpu_torch/csrc"
     summary = {"kernels": [
@@ -3720,13 +3894,15 @@ def main() -> int:
              launches=launches["allpairs"], **kernels["allpairs"]),
         dict(name="allpairs_at", route="cuda", source=f"{src}/allpairs.cu",
              replaces="spatialsim_tpu/ops/allpairs.py:56",
-             launches=ring_launches + tool_launches,
+             launches=(ring_launches + tool_launches
+                       + decomp_launches["allpairs_at"]),
              **kernels["allpairs_at"]),
         dict(name="window_eval_pool", route="cuda",
              source=f"{src}/window_eval_pool.cu",
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:313",
              launches=(launches["window_eval_pool"] + refresh_launches
-                       + compact_launches),
+                       + compact_launches
+                       + decomp_launches["window_eval_pool"]),
              **kernels["window_eval_pool"]),
         dict(name="window_eval_pool_10m", route="cuda",
              source=f"{src}/window_eval_pool.cu",
@@ -3735,7 +3911,8 @@ def main() -> int:
         dict(name="boids_window", route="cuda",
              source=f"{src}/boids_window.cu",
              replaces="spatialsim_tpu/ops/boids_window_kernel.py:45",
-             launches=launches["boids_window"],
+             launches=(launches["boids_window"]
+                       + decomp_launches["boids_window"]),
              **kernels["boids_window"]),
         dict(name="boids_window_haloed", route="cuda",
              source=f"{src}/boids_window.cu",

@@ -45,6 +45,31 @@ def resolve_engine(config: NBodyConfig, n: int) -> str:
     return "allpairs" if n <= config.allpairs_threshold else "window"
 
 
+def make_accel_fn(config: NBodyConfig, n: int,
+                  engine: Optional[str] = None):
+    """``accel(state) -> (3, N)`` accelerations of a stateless engine:
+    "allpairs" (kernel 1) or "exact" (the per-step group traversal).  The
+    window engine keeps lists between steps: ``ValueError``, use
+    :func:`make_step_fn`."""
+    config = resolve_config(config, n)
+    engine = engine or resolve_engine(config, n)
+    if engine == "window":
+        raise ValueError("the window engine is stateful; use "
+                         "make_window_step (models handle this)")
+    if engine == "allpairs":
+        def accel(state: NBodyState):
+            return allpairs_accel(state.pos, state.mass, config.G,
+                                  config.softening)
+        return accel
+    if engine != "exact":
+        raise ValueError(f"unknown engine {engine!r}")
+    from spatialsim_tpu_torch.ops.barnes_hut import barnes_hut_accel
+
+    def accel(state: NBodyState):
+        return barnes_hut_accel(state.pos, state.mass, config)
+    return accel
+
+
 def make_step_fn(config: NBodyConfig, n: int, substeps: int = 1,
                  engine: Optional[str] = None):
     """Multi-substep step: ``step(state, dt) -> state``.
@@ -58,21 +83,12 @@ def make_step_fn(config: NBodyConfig, n: int, substeps: int = 1,
     if engine == "window":
         from spatialsim_tpu_torch.ops.bh_window import make_window_step
         return make_window_step(config, n, substeps)
-    if engine == "allpairs":
-        def accel(pos, mass):
-            return allpairs_accel(pos, mass, config.G, config.softening)
-    elif engine == "exact":
-        from spatialsim_tpu_torch.ops.barnes_hut import barnes_hut_accel
-
-        def accel(pos, mass):
-            return barnes_hut_accel(pos, mass, config)
-    else:
-        raise ValueError(f"unknown engine {engine!r}")
+    accel = make_accel_fn(config, n, engine)
     damping = config.damping
 
     def step(state: NBodyState, dt: float) -> NBodyState:
         for _ in range(substeps):
-            acc = accel(state.pos, state.mass)
+            acc = accel(state)
             pos, vel = integrate(state.pos, state.vel, acc, float(dt),
                                  damping)
             state = NBodyState(pos, vel, state.mass)

@@ -87,6 +87,11 @@ SL_COMPACT_PER_GROUP = 16
 _POOL_ASM_CHUNK = 8192
 # Flat segment-sum gathers above this width run in chunks.
 _COMP_SEG_CHUNK = 1 << 22
+# The traversal phases ``ablate`` may replace (measurement only), and the
+# build's one beyond them.
+TRAVERSAL_PHASES = ("gather_cell", "gather_group", "emit", "sliver",
+                    "expand")
+BUILD_PHASES = TRAVERSAL_PHASES + ("finish",)
 
 
 class BHLists(NamedTuple):
@@ -123,6 +128,13 @@ class BHLists(NamedTuple):
 def _excl(x):
     """Exclusive cumulative sum (int64)."""
     return torch.cumsum(x, 0) - x
+
+
+def _check_ablate(ablate, allowed):
+    unknown = set(ablate) - set(allowed)
+    if unknown:
+        raise ValueError(f"ablate: unknown phases {sorted(unknown)}; "
+                         f"known: {allowed}")
 
 
 def _spare(size, fill, dtype, device):
@@ -405,14 +417,31 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
     within tiles (:func:`_tile_compact`) and assembles them into dense
     rows (:func:`_tile_assemble`) instead of scattering them into slots;
     ``far_range`` is then a :class:`CompactEmits`.
-    ``ablate=("emit", "sliver")`` replaces both phases with counts only
-    (the cheap demand probe).
+    ``ablate`` (measurement only: ``tools/decide21.py``) replaces each
+    named phase of :data:`TRAVERSAL_PHASES` with the JAX package's
+    stand-in, every array at its capacity: "gather_cell" reads cell 0's
+    column of the packed tables for every slot (the geometry table, and in
+    values mode the moment table too), "gather_group" group 0's bounds and
+    intervals, "emit" and "sliver" only count their entries into
+    ``far_n``/``sl_n`` (``("emit", "sliver")`` is the cheap demand probe),
+    and "expand" fills the next level's worklist with the synthetic
+    ``wl_c = (slot + dep) % cells``, ``wl_g = (slot * ng) // W_next``
+    (``dep = min(sum of the open cells' children, 0)``).  The ablated
+    outputs, ``wl`` included, equal the JAX package's; they are not forces.
+    The JAX package forms ``slot * ng`` in int32, which wraps once it
+    passes 2^31 (at 1M bodies: 4.2M slots x 3,907 groups) and leaves its
+    ``wl_g`` unsorted, so that the segment search that follows has no
+    defined answer; the port forms it in int64, equal to JAX's wherever
+    JAX's does not wrap.  Eager PyTorch drops no dead work, so the
+    stand-ins keep nothing alive: they exist for the outputs.
 
     Returns (far | None, far_range, far_n, sl_start, sl_end, sl_n, res,
     wl) with ``wl`` the stacked [fills | pre-clamp demands] per level.
     """
+    _check_ablate(ablate, TRAVERSAL_PHASES)
     levels = tree.levels
     dev = bbox_min.device
+    gather_cell = "gather_cell" in ablate
     geo_levels = _pack_levels_geo(tree)
     mv_levels = [torch.stack([lv.mass, lv.vel[0], lv.vel[1], lv.vel[2]]
                              + ([lv.acc[0], lv.acc[1], lv.acc[2]]
@@ -482,7 +511,10 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
         cidx = wl_c.clamp(0, lv.code.shape[0] - 1)
         gidx = wl_g.clamp(0, ng - 1)
 
-        G = geo_levels[li][:, cidx]                      # (10, W) f32
+        if gather_cell:
+            G = geo_levels[li][:, :1].expand(-1, W)
+        else:
+            G = geo_levels[li][:, cidx]                  # (10, W) f32
         ccom = G[0:3]
         zero_i = torch.zeros_like(cidx)
         ccount = torch.where(active, _unhl(G[3], G[4]), zero_i)
@@ -491,8 +523,12 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
         child_count = G[9].to(_I64)
         cend = cstart + ccount
 
-        B = bounds[:, gidx]                              # (6, W)
-        iv = iv_pack[:, gidx]                            # (2M, W)
+        if "gather_group" in ablate:
+            B = bounds[:, :1].expand(-1, W)
+            iv = iv_pack[:, :1].expand(-1, W)
+        else:
+            B = bounds[:, gidx]                          # (6, W)
+            iv = iv_pack[:, gidx]                        # (2M, W)
         gmin = B[0:3]
         gmax = B[3:6]
 
@@ -569,7 +605,8 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
                     fr_s[flat] = cstart
                     fr_e[flat] = cend
                 if emit_values:
-                    A = val_levels[li][:, cidx]            # (n_cols, W)
+                    A = (val_levels[li][:, :1].expand(-1, W) if gather_cell
+                         else val_levels[li][:, cidx])     # (n_cols, W)
                     for r, fc in enumerate(far_cols):
                         fc[flat] = A[r]
                 counts = torch.zeros((ng,), dtype=_I64, device=dev)
@@ -577,7 +614,11 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
             if bool(over.any()):
                 # Entries past the per-group cap fold into the residual.
                 fold = torch.nonzero(over).squeeze(1)
-                MV = mv_levels[li][:, cidx[fold]]
+                # Values mode folds the gathered moments (cell 0's under
+                # "gather_cell"); the geometry table's modes re-gather them.
+                MV = mv_levels[li][:, (torch.zeros_like(fold)
+                                       if gather_cell and emit_values
+                                       else cidx[fold])]
                 w = MV[0]
                 fc = ccom[:, fold]
                 contribs = [w, fc[0] * w, fc[1] * w, fc[2] * w,
@@ -596,7 +637,14 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
             sl_n = _emit_slivers(emit_sl, cstart, cend, gidx, intervals, ng,
                                  M, sl_start, sl_end, sl_n)
 
-        if not last:
+        if not last and "expand" in ablate:
+            slot = torch.arange(W_next, dtype=_I64, device=dev)
+            dep = torch.clamp(cc0.sum(), max=0)
+            wl_c = (slot + dep) % levels[li + 1].code.shape[0]
+            wl_g = slot * ng // W_next
+            wl_n = torch.tensor(W_next, dtype=_I64, device=dev)
+            wl_sizes.append(wl_n)
+        elif not last:
             # Child expansion by run reconstruction: one run descriptor
             # per open parent, then a cumsum + gathers over W_next.
             cc = torch.where(ovf, zero_i, cc0)
@@ -623,8 +671,9 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
             wl_sizes.append(wl_n)
 
     if emit_compact:
-        far_range = CompactEmits(ent=torch.cat(ent_parts, dim=1),
-                                 cnt=torch.stack(cnt_parts))
+        far_range = (CompactEmits(ent=torch.cat(ent_parts, dim=1),
+                                  cnt=torch.stack(cnt_parts))
+                     if ent_parts else None)
     elif cellid:
         far_range = fr_id[:ng * L].reshape(ng, L)
     else:
@@ -799,7 +848,8 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
                 max_depth=10, group_size=256, window_groups=3,
                 list_cap=2048, worklist_budget=0, quadrupole=False,
                 near_groups=0, with_ranges=True, pool_tile=0, pool_cap=0,
-                emit_mode="auto", wl_caps=(), tree_caps=()) -> BHLists:
+                emit_mode="auto", wl_caps=(), tree_caps=(),
+                ablate=()) -> BHLists:
     """Morton sort + octree + global-worklist traversal + finish.
 
     ``pos``/``vel``/``acc``: ``(3, n)`` f32; ``mass``: ``(n,)`` f32, all on
@@ -824,6 +874,12 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
     ``with_ranges=False`` drops the dense ``far_range`` (no refresh).
     A pooled quadrupole raises ``ValueError`` (the pool is monopole-only,
     as in the JAX package).
+
+    ``ablate`` (measurement only: ``tools/decide27.py``) names phases of
+    :data:`BUILD_PHASES`: the traversal's go to :func:`_traverse_global`;
+    "finish" returns the JAX package's stand-in for the pooled finish
+    (:func:`_finish_ablated`), only for a pooled ranges or cell-id build
+    (else ``ValueError``).
     """
     half, order, order_pad, s_codes, s_pos, s_vel, s_mass, s_acc = \
         _sort_state(pos, vel, mass, acc, max_depth, group_size)
@@ -835,7 +891,7 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
         worklist_budget=worklist_budget, quadrupole=quadrupole,
         near_groups=near_groups, with_ranges=with_ranges,
         pool_tile=pool_tile, pool_cap=pool_cap, emit_mode=emit_mode,
-        wl_caps=wl_caps, tree_caps=tree_caps)
+        wl_caps=wl_caps, tree_caps=tree_caps, ablate=ablate)
 
 
 def build_lists_sorted(s_pos, s_vel, s_mass, s_acc=None, *, order, theta,
@@ -882,7 +938,7 @@ def _build_from_sorted(s_codes, s_pos, s_vel, s_mass, s_acc, order,
                        max_depth, group_size, window_groups, list_cap,
                        worklist_budget, quadrupole, near_groups, with_ranges,
                        pool_tile, pool_cap, emit_mode, wl_caps, tree_caps,
-                       group_offset=0, n_groups=None) -> BHLists:
+                       group_offset=0, n_groups=None, ablate=()) -> BHLists:
     """Octree, traversal and finish over a sorted, group-padded state, for
     the groups ``group_offset .. group_offset + n_groups`` (all by
     default); the emission mode and finish as :func:`build_lists` says."""
@@ -898,6 +954,12 @@ def _build_from_sorted(s_codes, s_pos, s_vel, s_mass, s_acc, order,
               and not quadrupole and pooled)
     emit_ranges = (with_ranges and not quadrupole
                    and (emit_mode == "ranges" or cellid or compact))
+    _check_ablate(ablate, BUILD_PHASES)
+    finish_off = "finish" in ablate
+    if finish_off and not (pooled and emit_ranges and not compact):
+        raise ValueError("ablate 'finish' stands in for the pooled ranges "
+                         "or cell-id finish only (pool_tile > 0, monopole, "
+                         "not compact)")
     gsz = group_size
     npad = s_pos.shape[1]
 
@@ -948,10 +1010,15 @@ def _build_from_sorted(s_codes, s_pos, s_vel, s_mass, s_acc, order,
         wl_caps=wl_caps, with_acc=s_acc is not None, quadrupole=quadrupole,
         emit_values=not emit_ranges,
         emit_compact=compact,
-        level_offsets=level_offs)
+        level_offsets=level_offs,
+        ablate=tuple(a for a in ablate if a != "finish"))
     cap = pooled and (pool_cap or pool_cap_tiles(
         budget, ng, pool_tile, npad,
         caps_total=sum(wl_caps) if explicit_caps else 0))
+    if finish_off:
+        return _finish_ablated(far_range, far_n, sl_start, sl_end, sl_n, res,
+                               order_pad, pos, n, tile=pool_tile,
+                               cap_tiles=cap, near=near)
     if cellid:
         return _finish_pool_cellid(
             tree, level_offs, far_range, far_n, sl_start, sl_end, sl_n, res,
@@ -980,6 +1047,31 @@ def _build_from_sorted(s_codes, s_pos, s_vel, s_mass, s_acc, order,
         lists = lists._replace(pool=pool, pstart=pstart, far_n=far_n2,
                                far=None, far_range=None)
     return lists
+
+
+def _finish_ablated(far_range, far_n, sl_start, sl_end, sl_n, res,
+                    order_pad, pos, n, *, tile, cap_tiles, near=None):
+    """The JAX package's stand-in for the pooled finish (measurement only):
+    the pooled lists' structure at their capacities with none of the
+    finish's work.  Every pool slot holds one float32 probe summing every
+    traversal output (``far_n``'s sum, the rest scaled by 1e-30), ``pstart``
+    is ``arange(ng)`` and ``inv_order`` zeros.  In the JAX package the
+    probe keeps the traversal alive; eager PyTorch drops no dead work, so
+    here it exists only for the outputs to equal the JAX package's."""
+    dev = far_n.device
+    ng = far_n.shape[0]
+    probe = (far_range.to(_F32).sum() * 1e-30
+             + far_n.sum().to(_F32)
+             + (sl_start + sl_end).sum().to(_F32) * 1e-30
+             + sl_n.sum().to(_F32) * 1e-30
+             + res.sum() * 1e-30)
+    pool = torch.zeros((cap_tiles, POOL_ROWS, tile), dtype=_F32,
+                       device=dev) + probe
+    return BHLists(order=order_pad.to(_I32),
+                   inv_order=torch.zeros((n,), dtype=_I32, device=dev),
+                   far_n=far_n.to(_I32), ref_pos=pos, pool=pool,
+                   pstart=torch.arange(ng, dtype=_I32, device=dev),
+                   steps_since=0, steps_build=0, near=near)
 
 
 def _finish_lists(far, far_range, far_n, sl_start, sl_end, sl_n, res,

@@ -39,3 +39,26 @@ def morton_encode(pos: torch.Tensor, half, depth: int) -> torch.Tensor:
     q = torch.floor((pos + half) * scale).to(torch.int32)
     q = q.clamp(0, 2 ** depth - 1)
     return _spread3(q[0]) | (_spread3(q[1]) << 1) | (_spread3(q[2]) << 2)
+
+
+def cell_center(code: torch.Tensor, level: int, depth: int, half
+                ) -> torch.Tensor:
+    """Geometric centre of the cell ``code >> 3*(depth-level)`` at
+    ``level``: ``(3, N)`` float32, the inverse of :func:`morton_encode` at
+    coarser levels (tests and diagnostics; the traversal needs only
+    centres of mass)."""
+    c = code >> (3 * (depth - level))
+    side = 2.0 * half / (2 ** level)
+
+    def compact(x):
+        # Inverse of _spread3 on the low 3*level bits.
+        x = x & 0x09249249
+        x = (x | (x >> 2)) & 0x030C30C3
+        x = (x | (x >> 4)) & 0x0300F00F
+        x = (x | (x >> 8)) & 0x030000FF
+        x = (x | (x >> 16)) & 0x3FF
+        return x
+
+    grid = torch.stack([compact(c), compact(c >> 1),
+                        compact(c >> 2)]).to(torch.float32)
+    return -half + (grid + 0.5) * side

@@ -99,13 +99,19 @@ _JAX_OR_SCRIPTS = re.compile(
 
 def test_port_sources_import_neither_jax_nor_scripts():
     """The traversal-probe modules port ``scripts/decide15.py`` and
-    ``decide18.py`` without importing them; no port module imports jax."""
+    ``decide18.py``, and the decomposition tools the rebuild and boids
+    scripts, without importing them; no port module imports jax."""
     files = sorted((ROOT / "spatialsim_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"spatialsim_tpu_torch/ops/traversal_probes.py",
             "spatialsim_tpu_torch/tools/decide15.py",
             "spatialsim_tpu_torch/tools/decide18.py"} <= names
+    # The rebuild and boids decomposition tools (ports of scripts/).
+    assert {f"spatialsim_tpu_torch/tools/{t}.py" for t in (
+        "chain", "decide12", "decide13", "decide16", "decide21", "decide22",
+        "decide23", "decide24", "decide25", "decide26", "decide27",
+        "gather_bench", "boids_capture")} <= names
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _JAX_OR_SCRIPTS.finditer(f.read_text())]
     assert not bad, bad
