@@ -255,12 +255,23 @@ traversal probes.
     sl_n, the worklist fills and demands, the ranges; order, inv_order,
     pstart and the pool's range rows) equal bit for bit; (b) a short call
     of every decomposition tool's ``main`` on the card: ``decide21``,
-    ``decide27``, ``decide25``, ``decide26``, ``decide23`` and ``decide13``
-    at 262,144 bodies, ``decide24``, ``decide22`` and ``gather_bench`` at
-    reduced shapes, ``decide16``, ``decide12`` and ``boids_capture`` at
-    100,000 boids, with each tool's seconds and its launches of kernels 1
-    (the targets-and-sources mode), 2 and 4, counted from zero; (c)
-    kernel 4's launches in decide12's run, required above 0.
+    ``decide27``, ``decide25``, ``decide26`` and ``decide23`` at 262,144
+    bodies, ``decide24``, ``decide22`` and ``gather_bench`` at reduced
+    shapes, ``decide16``, ``decide12`` and ``boids_capture`` at 100,000
+    boids, with each tool's seconds and its launches of kernels 1 (the
+    targets-and-sources mode), 2, 3 and 4, counted from zero, as in phase
+    25 (``decide13`` runs there); (c) kernel 4's launches in decide12's
+    run, required above 0;
+25. the last tools of ``scripts/`` on the card, each ``main`` run short:
+    ``decide20``, ``decide14``, ``seam_analysis``, ``nbody_scan2``,
+    ``decide2``-``decide6``, ``decide8``-``decide11`` and the repaired
+    ``decide13`` (its fold counts and dense line) at 262,144 bodies,
+    the boids rows of ``decide5`` and ``decide6`` at 100,000 boids,
+    ``decide19`` at reduced widths and ``distsort_bench`` at world size 1
+    (NCCL); a tool's nonzero exit or a ``FAILED`` line in its output fails
+    the run; each tool's seconds and its launches of kernels 1 (the
+    targets-and-sources mode), 2, 3 (its default and ablation instances)
+    and 4, counted from zero just before its run.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -2151,64 +2162,139 @@ def ablations_on_card(dev, kept):
     torch.cuda.empty_cache()
 
 
-def decomposition_tools_on_card():
-    """Phase 24 (b) and (c): each decomposition tool's ``main`` on the
-    card, run short (the N-body tools at ``N_REBUILD_TOOLS``, the boids
-    tools at ``N_BOIDS_TOOLS``, the primitives at reduced shapes), its
-    seconds, and the launches of kernels 1 (targets-and-sources), 2 and 4
-    in each tool's run, counted from zero; kernel 4's in decide12's run
-    must be above 0.  Returns ``{kernel: launches}`` over the tools."""
-    import torch
+def _tool_counters():
+    """The kernels the tools launch: ``{kernel: (wrapper, counter)}``."""
     from spatialsim_tpu_torch.ops.allpairs import allpairs_accel_at
-    from spatialsim_tpu_torch.ops.bh_eval_kernel import window_eval_pool
+    from spatialsim_tpu_torch.ops.bh_eval_kernel import (
+        window_eval, window_eval_pool)
     from spatialsim_tpu_torch.ops.boids_window_kernel import (
         boids_window_accumulate)
-    from spatialsim_tpu_torch.tools import (
-        boids_capture, decide12, decide13, decide16, decide21, decide22,
-        decide23, decide24, decide25, decide26, decide27, gather_bench)
-    counters = {"allpairs_at": allpairs_accel_at,
-                "window_eval_pool": window_eval_pool,
-                "boids_window": boids_window_accumulate}
-    n, b = str(N_REBUILD_TOOLS), str(N_BOIDS_TOOLS)
+    return {"allpairs_at": (allpairs_accel_at, "launches"),
+            "window_eval_pool": (window_eval_pool, "launches"),
+            "window_eval": (window_eval, "launches"),
+            "window_eval_dbg": (window_eval, "dbg_launches"),
+            "boids_window": (boids_window_accumulate, "launches")}
+
+
+class _Tee:
+    """A text stream that writes to every stream it was given."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def _run_tools(tools, check_failed):
+    """Each ``(name, main, argv)`` of ``tools``: its ``main`` on the card
+    (``--device cuda``), a nonzero exit failing the run (and, with
+    ``check_failed``, a ``FAILED`` line), the launches of
+    :func:`_tool_counters`' kernels counted from zero just before it; its
+    seconds and launches printed.  Returns ``({kernel: launches over the
+    tools}, {name: {kernel: launches}})``."""
+    import contextlib
+    import io
+    import torch
+    counters = _tool_counters()
     total = dict.fromkeys(counters, 0)
-    timed = []
-    for name, main, argv in (
-            ("decide21", decide21.main, [n]),
-            ("decide27", decide27.main, [n]),
-            ("decide25", decide25.main, [n]),
-            ("decide26", decide26.main, [n]),
-            ("decide23", decide23.main, [n]),
-            ("decide24", decide24.main, ["--W", "1048576"]),
-            ("decide13", decide13.main, [n]),
-            ("decide22", decide22.main, [
-                "--C", "65536", "--CP", "16384", "--G", "1024", "--L",
-                "1024", "--emit", "1000000", "--pool-idx", "1000000",
-                "--widths", "1048576", "--seg-width", "1048576",
-                "--slices", "8192"]),
-            ("gather_bench", gather_bench.main, ["--W", "1000000"]),
-            ("decide16", decide16.main, ["--boids", b]),
-            ("decide12", decide12.main, ["--boids", b]),
-            ("boids_capture", boids_capture.main, ["--boids", b,
-                                                   "--sample", "1000"])):
-        for fn in counters.values():
-            fn.launches = 0
+    per_tool, timed = {}, []
+    for name, main, argv in tools:
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        buf = io.StringIO()
         t = time.perf_counter()
-        require(main(argv + ["--device", "cuda"]) == 0, name)
-        got = {k: fn.launches for k, fn in counters.items()}
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            rc = main(argv + ["--device", "cuda"])
+        require(rc == 0, f"{name} exited {rc}")
+        require(not check_failed or "FAILED" not in buf.getvalue(),
+                f"{name} printed FAILED")
+        got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        per_tool[name] = got
         timed.append((name, time.perf_counter() - t,
                       {k: v for k, v in got.items() if v}))
         for k, v in got.items():
             total[k] += v
-        if name == "decide12":
-            boids_ab = got["boids_window"]
         torch.cuda.empty_cache()
     print("    tool seconds and kernel launches: " + "; ".join(
         f"{k} {v:.3f} s {c or ''}" for k, v, c in timed))
+    return total, per_tool
+
+
+def decomposition_tools_on_card():
+    """Phase 24 (b) and (c): each decomposition tool's ``main`` on the
+    card, run short (the N-body tools at ``N_REBUILD_TOOLS``, the boids
+    tools at ``N_BOIDS_TOOLS``, the primitives at reduced shapes;
+    ``decide13`` runs in phase 25), its seconds, and the launches of the
+    tools' kernels in each tool's run, counted from zero; kernel 4's in
+    decide12's run must be above 0.  Returns ``{kernel: launches}`` over
+    the tools."""
+    from spatialsim_tpu_torch.tools import (
+        boids_capture, decide12, decide16, decide21, decide22, decide23,
+        decide24, decide25, decide26, decide27, gather_bench)
+    n, b = str(N_REBUILD_TOOLS), str(N_BOIDS_TOOLS)
+    total, per_tool = _run_tools((
+        ("decide21", decide21.main, [n]),
+        ("decide27", decide27.main, [n]),
+        ("decide25", decide25.main, [n]),
+        ("decide26", decide26.main, [n]),
+        ("decide23", decide23.main, [n]),
+        ("decide24", decide24.main, ["--W", "1048576"]),
+        ("decide22", decide22.main, [
+            "--C", "65536", "--CP", "16384", "--G", "1024", "--L",
+            "1024", "--emit", "1000000", "--pool-idx", "1000000",
+            "--widths", "1048576", "--seg-width", "1048576",
+            "--slices", "8192"]),
+        ("gather_bench", gather_bench.main, ["--W", "1000000"]),
+        ("decide16", decide16.main, ["--boids", b]),
+        ("decide12", decide12.main, ["--boids", b]),
+        ("boids_capture", boids_capture.main, ["--boids", b,
+                                               "--sample", "1000"])),
+        check_failed=False)
+    boids_ab = per_tool["decide12"]["boids_window"]
     print(f"  (c) kernel 4 launched {boids_ab} times in decide12's run "
           f"(counted from zero)")
     require(boids_ab > 0, "decide12 launched no boids window kernel")
-    require(total["window_eval_pool"] > 0 and total["allpairs_at"] > 0,
-            f"decide13 launched no kernel 2 or no direct sum: {total}")
+    return total
+
+
+def final_tools_on_card():
+    """Phase 25: each of the last tools' ``main`` on the card, run short
+    (the N-body tools at ``N_REBUILD_TOOLS``, the boids rows at
+    ``N_BOIDS_TOOLS``, ``decide19`` at reduced widths, ``distsort_bench``
+    at world size 1); a tool's nonzero exit or a ``FAILED`` line fails the
+    run.  Returns ``{kernel: launches}`` over the tools, each counted from
+    zero just before its tool's run."""
+    from spatialsim_tpu_torch.tools import (
+        decide2, decide3, decide4, decide5, decide6, decide8, decide9,
+        decide10, decide11, decide13, decide14, decide19, decide20,
+        distsort_bench, nbody_scan2, seam_analysis)
+    n, b = str(N_REBUILD_TOOLS), str(N_BOIDS_TOOLS)
+    total, _ = _run_tools((
+        ("decide13", decide13.main, [n]),
+        ("decide20", decide20.main, [n]),
+        ("decide14", decide14.main, [n]),
+        ("distsort_bench", distsort_bench.main, [n]),
+        ("seam_analysis", seam_analysis.main, [n]),
+        ("nbody_scan2", nbody_scan2.main, [n]),
+        ("decide2", decide2.main, [n]),
+        ("decide3", decide3.main, [n]),
+        ("decide4", decide4.main, [n]),
+        ("decide5", decide5.main, [n, "--boids", b]),
+        ("decide6", decide6.main, [n, "--boids", b]),
+        ("decide19", decide19.main, ["--n", "200000", "--W", "400000"]),
+        ("decide8", decide8.main, [n]),
+        ("decide9", decide9.main, [n]),
+        ("decide10", decide10.main, [n]),
+        ("decide11", decide11.main, [n])), check_failed=True)
+    require(all(total.values()),
+            f"phase 25 launched no kernel of some kind: {total}")
     return total
 
 
@@ -3876,7 +3962,7 @@ def main() -> int:
 
     # ---- 24. the rebuild's phase ablations and the decomposition tools --
     t0 = phase("24. the rebuild's phase ablations on phase 3's 1M state, "
-               "card against CPU; decide21, 27, 25, 26, 23, 24, 13, 22, "
+               "card against CPU; decide21, 27, 25, 26, 23, 24, 22, "
                "gather_bench, decide16, decide12 and boids_capture")
     print("  (a) the ablations, the card's integer outputs against the "
           "CPU's")
@@ -3884,6 +3970,13 @@ def main() -> int:
     del kept_3
     print("  (b) the decomposition tools on the card")
     decomp_launches = decomposition_tools_on_card()
+    done(t0)
+
+    # ---- 25. the last tools of scripts/ ---------------------------------
+    t0 = phase("25. decide13 (its fold counts and dense line), decide20, "
+               "decide14, distsort_bench, seam_analysis, nbody_scan2, "
+               "decide2-6, decide19 and decide8-11")
+    final_launches = final_tools_on_card()
     done(t0)
 
     print(f"\ntotal seconds: {time.perf_counter() - wall0:.3f}")
@@ -3895,14 +3988,16 @@ def main() -> int:
         dict(name="allpairs_at", route="cuda", source=f"{src}/allpairs.cu",
              replaces="spatialsim_tpu/ops/allpairs.py:56",
              launches=(ring_launches + tool_launches
-                       + decomp_launches["allpairs_at"]),
+                       + decomp_launches["allpairs_at"]
+                       + final_launches["allpairs_at"]),
              **kernels["allpairs_at"]),
         dict(name="window_eval_pool", route="cuda",
              source=f"{src}/window_eval_pool.cu",
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:313",
              launches=(launches["window_eval_pool"] + refresh_launches
                        + compact_launches
-                       + decomp_launches["window_eval_pool"]),
+                       + decomp_launches["window_eval_pool"]
+                       + final_launches["window_eval_pool"]),
              **kernels["window_eval_pool"]),
         dict(name="window_eval_pool_10m", route="cuda",
              source=f"{src}/window_eval_pool.cu",
@@ -3912,7 +4007,8 @@ def main() -> int:
              source=f"{src}/boids_window.cu",
              replaces="spatialsim_tpu/ops/boids_window_kernel.py:45",
              launches=(launches["boids_window"]
-                       + decomp_launches["boids_window"]),
+                       + decomp_launches["boids_window"]
+                       + final_launches["boids_window"]),
              **kernels["boids_window"]),
         dict(name="boids_window_haloed", route="cuda",
              source=f"{src}/boids_window.cu",
@@ -3923,12 +4019,15 @@ def main() -> int:
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:432",
              launches=(quad_launches + launches_50m + near_launches
                        + ab_launches.get("window_eval", 0)
-                       + sharded_launches),
+                       + sharded_launches + decomp_launches["window_eval"]
+                       + final_launches["window_eval"]),
              **kernels["window_eval"]),
         dict(name="window_eval_dbg", route="cuda",
              source=f"{src}/window_eval.cu",
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:432",
-             launches=dbg_launches, **kernels["window_eval_dbg"]),
+             launches=(dbg_launches + decomp_launches["window_eval_dbg"]
+                       + final_launches["window_eval_dbg"]),
+             **kernels["window_eval_dbg"]),
         dict(name="window_eval_cols", route="cuda",
              source=f"{src}/window_eval_cols.cu",
              replaces="spatialsim_tpu/ops/bh_eval_kernel.py:182",

@@ -39,9 +39,10 @@ ROWS = (("xla", window_accumulate_reference,
          "ops/boids_window_kernel.boids_window_accumulate, kernel 4"))
 
 
-def boids_part(n, device="cuda", out=print):
-    """One flock size; returns ``{tag: Marginal}``."""
-    device = torch.device(device)
+def padded_flock(n, device, out=print):
+    """The uniform flock of ``n`` boids sorted into the window state and
+    padded to whole groups (positions at 1e9), and its header line:
+    ``(ppos, pvel, pcol, kw)``, ``kw`` the accumulation's arguments."""
     cfg, pos, vel, col = flock(n, device)
     st = init_boids_window_state(pos, vel, col, cfg)
     gsz, wg = cfg.group_size, cfg.window_groups
@@ -53,6 +54,13 @@ def boids_part(n, device="cuda", out=print):
     out(f"boids n={n:,} gsz={gsz} wg={wg} npad={npad}", flush=True)
     kw = dict(gsz=gsz, wg=wg, perception_sq=float(cfg.perception_radius ** 2),
               separation_sq=float(cfg.separation_radius ** 2))
+    return ppos, pvel, pcol, kw
+
+
+def boids_part(n, device="cuda", out=print):
+    """One flock size; returns ``{tag: Marginal}``."""
+    device = torch.device(device)
+    ppos, pvel, pcol, kw = padded_flock(n, device, out)
     res = {}
     for tag, fn, what in ROWS:
         carry = [ppos]

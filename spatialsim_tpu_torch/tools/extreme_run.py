@@ -83,6 +83,12 @@ def memory_stats(device) -> str:
             f"{gb[2]:.1f} GB")
 
 
+def folded_groups(far_n) -> int:
+    """The groups whose far list the pool folded whole into one residual
+    entry (far_n <= 1), of a host array of far_n."""
+    return int((far_n <= 1).sum())
+
+
 def list_health(st, c, label, out=print):
     """The script's list line of a window state's lists (or of ``st``, a
     ``BHLists``): far_n mean, p99 and max, groups at the list cap, groups
@@ -92,7 +98,7 @@ def list_health(st, c, label, out=print):
     line = (f"{label} lists: far_n mean={fn.mean():.0f} "
             f"p99={np.percentile(fn, 99):.0f} max={fn.max()} "
             f"at_cap={(fn >= c.list_capacity - 1).sum()} "
-            f"folded={(fn <= 1).sum()}/{fn.shape[0]}")
+            f"folded={folded_groups(fn)}/{fn.shape[0]}")
     if lists.pool is not None:
         ps = lists.pstart.cpu().numpy()
         used = int(ps[-1] + -(-int(fn[-1]) // lists.pool.shape[2]))

@@ -125,9 +125,10 @@ def err_stats(acc, exact, idx):
             round(float(np.sqrt((err ** 2).mean())), 5))
 
 
-def report(tag, acc_idx, exact, t_build=None, out=print):
+def report(tag, acc_idx, exact, t_build=None, out=print, **more):
     """Print (and return) ``scripts/nbody_error_scan.py``'s JSON line:
-    median, p99 and rms of |da|/|a|, and the build's ms when given."""
+    median, p99 and rms of |da|/|a|, and the build's ms when given; then
+    the keys of ``more``."""
     err = relative_errors(acc_idx, exact)
     rec = {"cfg": tag,
            "median": round(float(np.median(err)), 5),
@@ -135,6 +136,7 @@ def report(tag, acc_idx, exact, t_build=None, out=print):
            "rms": round(float(np.sqrt((err ** 2).mean())), 5)}
     if t_build is not None:
         rec["build_ms"] = round(t_build * 1000)
+    rec.update(more)
     out(json.dumps(rec), flush=True)
     return rec
 

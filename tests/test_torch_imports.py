@@ -93,6 +93,18 @@ def test_scan_covers_the_bench_and_nothing_imports_root_bench():
                                   "bench")
 
 
+def test_every_script_has_its_port():
+    """Each Python script of ``scripts/`` has a tool of the same name in
+    the port (its shell queues are the TPU's job runners, which
+    ``chip_smoke.py`` and ``tools/verify_drive.py`` replace)."""
+    scripts = {f.stem for f in (ROOT / "scripts").glob("*.py")} - {
+        "__init__"}
+    tools = {f.stem for f in (ROOT / "spatialsim_tpu_torch" / "tools").glob(
+        "*.py")}
+    assert len(scripts) == 43
+    assert not scripts - tools, sorted(scripts - tools)
+
+
 _JAX_OR_SCRIPTS = re.compile(
     r"^\s*(import\s+(jax|scripts)\b|from\s+(jax|scripts)(\s|\.))", re.M)
 
@@ -112,6 +124,12 @@ def test_port_sources_import_neither_jax_nor_scripts():
         "chain", "decide12", "decide13", "decide16", "decide21", "decide22",
         "decide23", "decide24", "decide25", "decide26", "decide27",
         "gather_bench", "boids_capture")} <= names
+    # The last sweeps and decompositions (ports of scripts/).
+    assert {f"spatialsim_tpu_torch/tools/{t}.py" for t in (
+        "round3", "decide2", "decide3", "decide4", "decide5", "decide6",
+        "decide8", "decide9", "decide10", "decide11", "decide14", "decide19",
+        "decide20", "distsort_bench", "seam_analysis", "nbody_scan2")
+    } <= names
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _JAX_OR_SCRIPTS.finditer(f.read_text())]
     assert not bad, bad

@@ -258,7 +258,8 @@ def test_decide13_matches_the_script():
     """The script computes its first variant (group 256, window 1, the
     auto budget); the others get a build that raises, which the script
     reports as FAILED.  At 2,048 bodies no budget binds, so the port's
-    rows at group 256 and window 1 must equal its auto row."""
+    rows at group 256 and window 1 must equal its auto row; no pool folds
+    a group, and the port's dense line reads the auto row's far_n."""
     build = jax_decide13.build_lists
 
     def first_only(*args, worklist_budget=0, **kw):
@@ -278,7 +279,8 @@ def test_decide13_matches_the_script():
     assert len(fg) == len(decide13.VARIANTS)
     assert set(fw) == {"gsz=256 W1 B=auto"}
     for g in fg.values():
-        assert set(g) == {"med", "p99", "rms", "mean", "max"}
+        assert set(g) == {"med", "p99", "rms", "mean", "max", "folded"}
+        assert g["folded"] == 0
     for label, w in fw.items():
         g = fg[label]
         for k in ("med", "p99", "rms"):
@@ -287,6 +289,9 @@ def test_decide13_matches_the_script():
     auto = fg["gsz=256 W1 B=auto"]
     for b in ("3000000", "2000000", "1500000"):
         assert fg[f"gsz=256 W1 B={b}"] == auto
+    # The dense line (the port's own; no pool folds at this size either).
+    dense = fg["gsz=256 W1 B=auto dense"]
+    assert (dense["mean"], dense["max"]) == (auto["mean"], auto["max"])
 
 
 # ---------------------------------------------------------------------------

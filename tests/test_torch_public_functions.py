@@ -6,6 +6,9 @@ its stateless engines, "allpairs" and "exact", on 2,048 bodies, and its
 ``ValueError`` for the stateful window engine.  Centres must be equal bit
 for bit; accelerations within 1e-5 of max|a| ("allpairs": another
 summation order; "exact": the bar of ``tests/test_torch_exact.py``).
+And the last fifteen scripts of ``scripts/``: every top-level function of
+each (its ``timeit`` aside) is a function of its port under
+``spatialsim_tpu_torch/tools/``.
 """
 
 import jax.numpy as jnp
@@ -81,3 +84,27 @@ def test_make_accel_fn_refuses_the_window_engine():
     with pytest.raises(ValueError, match="stateful"):
         nbody.make_accel_fn(cfg, N)
     assert nbody.make_accel_fn(cfg, N, engine="allpairs") is not None
+
+
+# The last fifteen scripts of scripts/ and their ports: every top-level
+# function of a script (its ``timeit`` aside: the ports time through
+# ``tools/chain.py``) is a function of the port of the same name.
+LAST_SCRIPTS = ("decide20", "decide14", "distsort_bench", "seam_analysis",
+                "nbody_scan2", "decide2", "decide3", "decide4", "decide5",
+                "decide6", "decide19", "decide8", "decide9", "decide10",
+                "decide11")
+
+
+@pytest.mark.parametrize("name", LAST_SCRIPTS)
+def test_script_functions_have_their_port(name):
+    import ast
+    import importlib
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "scripts" / f"{name}.py"
+    defs = {node.name for node in ast.parse(src.read_text()).body
+            if isinstance(node, ast.FunctionDef)} - {"timeit"}
+    assert "main" in defs
+    port = importlib.import_module(f"spatialsim_tpu_torch.tools.{name}")
+    missing = [d for d in sorted(defs) if not callable(getattr(port, d,
+                                                               None))]
+    assert not missing, missing
