@@ -152,13 +152,22 @@ traversal probes.
     are the kernels' times), plus the Hopper placements (chained reads,
     a shared-memory table, a table of the 1M octree's occupied cells,
     counted by the tool's ``octree_diagnostics``) and the iteration core
-    where decisions fire; ``where="shared"`` at 256 KB raises before any
-    launch; then each probe against its plain version on the same inputs,
-    bit for bit (the row write's and row store's whole scratch tables
-    too), every output not 0 but where the probe's own inputs give 0,
-    with its bound and the time of one PyTorch call that computes the
-    same function where there is one (``embedding_bag`` for the row,
-    block and column-5 reads, ``torch.roll``); then the roll probe,
+    where decisions fire, and beside each row and block read its
+    card-wide instance (``spread="card"``: the reads cut into slices, one
+    warp each, over every SM), then the tool's sweep of the card-wide row
+    reads over slices x warps a block (each output equal bit for bit to
+    the plain version of its slice count); ``where="shared"`` at 256 KB
+    raises before any launch; then each probe against its plain version
+    on the same inputs, bit for bit (the row write's and row store's whole
+    scratch tables too; each card-wide instance also to a second call of
+    itself), every output not 0 but where the probe's own inputs give 0,
+    with its bound, the card-wide instances' share of it and their launch
+    floor (an empty launch of the same grid), and the time of one PyTorch
+    call that computes the same function where there is one
+    (``embedding_bag`` for the row, block and column-5 reads,
+    ``torch.roll``); the traversal's fetch estimate (the card-wide chained
+    ns a read on the octree's table times the worklist slots of a 1M
+    build); then the roll probe,
     ``torch.roll`` and the roll probe through the previous launch path
     (``PreviousRollPath``) on equal terms, in 8 rounds of alternating
     order (medians compared): CUDA events over 100 back-to-back calls and
@@ -324,6 +333,7 @@ PEAK_BYTES = 3.35e12
 # the TPU kernel's pallas_call it replaces.
 PROBE_KERNELS = {
     "row_reads": ("decide15", 64), "block_read": ("decide15", 101),
+    "row_reads_card": ("decide15", 64), "block_read_card": ("decide15", 101),
     "reduce_roundtrip": ("decide15", 143), "row_write": ("decide15", 177),
     "roll": ("decide15", 206), "scalar_load_dynsub": ("decide15", 239),
     "scalar_load_dyn_dyn": ("decide15", 272), "extract8": ("decide15", 325),
@@ -677,15 +687,21 @@ def report_tiles(label, launch, previous, want, ts, chosen, pairs, b_ms,
 def check_probes(entries, probes):
     """Each probe of phase 19 against its plain version on the same inputs,
     bit for bit: the plain versions keep the probes' order of float32 adds
-    and int32 steps.  Those of the serial chains run on the host CPU; plain
-    ms is one call on a host clock.  A probe that returns ``(out, scr)``
-    is held to it on both, the whole scratch table included.  An output
-    of zeros passes only where the entry expects it (the probe's own
-    inputs give 0).  ``probes`` keeps, per kernel, the worst error and the
-    first entry's times and bound."""
+    and int32 steps (the card-wide instances' plain versions their slices'
+    order).  Those of the serial chains run on the host CPU; plain ms is
+    one call on a host clock.  A probe that returns ``(out, scr)`` is held
+    to it on both, the whole scratch table included.  A card-wide instance
+    is also held to a second call of itself, bit for bit.  An output of
+    zeros passes only where the entry expects it (the probe's own inputs
+    give 0).  ``probes`` keeps, per kernel and instance (the entry's
+    ``key``), the worst error and the first entry's times and bound."""
     import torch
     for e in entries:
         got = e["call"]()
+        if e["grid"]:
+            again = e["call"]()
+            require(torch.equal(again.cpu(), got.cpu()),
+                    (e["label"], "two calls differ"))
         torch.cuda.synchronize()
         t = time.perf_counter()
         want = e["plain"]()
@@ -707,10 +723,15 @@ def check_probes(entries, probes):
         table = "".join(f"; table {tuple(g.shape)}: "
                         f"{int((g != 0).any(1).sum())} rows written"
                         for g in got[1:])
+        floor = e.get("floor_ms")
+        card = ("" if not e["grid"] else
+                f" ({b_ms / e['ms']:.3%} of it; launch floor "
+                + ("not measured" if floor is None else f"{floor:.4f} ms")
+                + "; two calls equal)")
         print(f"    {e['label']}: out {float(got[0].double().ravel()[0]):.9g}"
               f"{table}, max|d| {abs_err:.3e} (limit 0); kernel "
               f"{e['ms']:.4f} ms ({e['ns']:.2f} ns/{e['unit']}); bound "
-              f"{b_ms:.6f} ms ({b_by}); plain {plain_ms:.3f} ms{lib}")
+              f"{b_ms:.6f} ms ({b_by}){card}; plain {plain_ms:.3f} ms{lib}")
         require(all(torch.equal(g, w) and bool(torch.isfinite(
             g.double()).all()) for g, w in zip(got, want)),
             (e["label"], abs_err))
@@ -718,7 +739,7 @@ def check_probes(entries, probes):
         require(zero == e["expect_zero"],
                 (e["label"], "zero output" if zero else "nonzero output",
                  "expected", e["expect_zero"]))
-        rec = probes.setdefault(e["kernel"].__name__, dict(
+        rec = probes.setdefault(e["key"], dict(
             max_abs_err=0.0, ms=e["ms"], plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=library_ms, label=e["label"]))
         rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
@@ -3814,15 +3835,33 @@ def main() -> int:
           f"rows; worklist slots of a build (all levels): "
           f"{sum(diag['wl_sizes']):,}")
     torch.cuda.synchronize()
+    spread = (tp.row_reads, tp.block_read)   # one-warp and card-wide
     for fn in tp.KERNELS:
         fn.launches = 0
+    for fn in spread:
+        fn.card_launches = 0
 
     def indent(s):
         print("    " + s)
     entries = (decide15.run("cuda", octree_cells=octree_cells, out=indent)
                + decide18.run("cuda", out=indent))
+    swept = decide15.sweep("cuda", octree_cells, out=indent)
+    require(all(r["equal"] for r in swept),
+            [r for r in swept if not r["equal"]])
+    for chained in (False, True):
+        for table in dict.fromkeys(r["table"] for r in swept):
+            best = min((r for r in swept if r["table"] == table
+                        and r["chained"] == chained), key=lambda r: r["ms"])
+            print(f"    sweep's fastest, row-read w1 {table}"
+                  f"{' chained' if chained else ''}: P={best['slices']}, "
+                  f"{best['warps']} warps a block, {best['ms']:.4f} ms "
+                  f"({best['ns']:.3f} ns/read)")
     probe_launches = {fn.__name__: fn.launches for fn in tp.KERNELS}
-    print(f"    launches in the probe runs: {probe_launches}")
+    for fn in spread:
+        probe_launches[fn.__name__] -= fn.card_launches
+        probe_launches[fn.__name__ + "_card"] = fn.card_launches
+    print(f"    launches in the probe runs (one-warp and card-wide "
+          f"instances apart): {probe_launches}")
     require(all(probe_launches.values()), probe_launches)
     # A table past the opt-in limit is refused before any launch.
     limit = tp.smem_optin_bytes(dev)
@@ -3837,12 +3876,26 @@ def main() -> int:
     print(f"    where='shared' at 256 KB raises before launch: {refused}")
     check_probes(entries, probes)
     print("    (latency probes: one warp or thread of one SM, so each sits "
-          "far above its bytes-or-operations bound by design)")
+          "far above its bytes-or-operations bound by design; the "
+          "card-wide instances read each row as often as the probe does, "
+          "where the bound counts each distinct row once)")
+    # The fetch part of a per-group traversal: the card-wide chained rate
+    # on the octree's table times the visits of a build.
+    slots = sum(diag["wl_sizes"])
+    (fetch,) = [e for e in entries if e["key"] == "row_reads_card"
+                and e["label"].startswith(
+                    f"row-read w1 {octree_cells} cells 204800x1 chained")]
+    net = (fetch["ms"] - fetch["no_reads_ms"]) * 1e6 / fetch["count"]
+    print(f"    traversal fetch estimate: {fetch['ns']:.3f} ns a read "
+          f"({fetch['label']}) x {slots:,} worklist slots of a 1M build = "
+          f"{fetch['ns'] * slots / 1e6:.3f} ms (512 B rows); less the call "
+          f"over no reads ({fetch['no_reads_ms']:.4f} ms): {net:.3f} ns a "
+          f"read, {net * slots / 1e6:.3f} ms")
     # Host enqueue a call of every probe wrapper at its tool shape (the
-    # first entry of each kernel).
+    # first entry of each kernel and instance).
     for e in entries:
-        if e["kernel"].__name__ not in ENQUEUE_US:
-            ENQUEUE_US[e["kernel"].__name__] = enqueue_us(e["call"], 20)
+        if e["key"] not in ENQUEUE_US:
+            ENQUEUE_US[e["key"]] = enqueue_us(e["call"], 20)
     # 5e and torch.roll on equal terms: CUDA events over 100 back-to-back
     # calls and the host's time a call on its own (enqueue, no
     # synchronise), beside the previous launch path of the same kernel, in

@@ -86,6 +86,11 @@ SIGNATURES = {
     # The traversal-primitive probes (csrc/probes_decide15.cu, 18.cu).
     "spatialsim_probe_row_reads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "spatialsim_probe_block_read": (_P, _P, _P, _I, _I, _I, _P),
+    "spatialsim_probe_row_reads_card": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _I, _I, _I, _P),
+    "spatialsim_probe_block_read_card": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _P),
+    "spatialsim_probe_empty": (_I, _I, _P),
     "spatialsim_probe_reduce_roundtrip": (_P, _P, _I, _I, _I, _P),
     "spatialsim_probe_row_write": (_P, _P, _P, _P, _I, _I, _P),
     "spatialsim_probe_roll": (_P, _I, _P, _P),

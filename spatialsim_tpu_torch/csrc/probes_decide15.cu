@@ -14,7 +14,9 @@
 // bound by design.  What bounds them on this card is the dependent-access
 // latency: L1/L2 hit latency for reads of a table that stays resident in
 // the 50 MB L2 (the TPU's 4 and 12 MB VMEM tables), device-memory latency
-// past it, and the shuffle and ALU latency of the reduce chains.
+// past it, and the shuffle and ALU latency of the reduce chains.  5a and
+// 5b also have card-wide instances (below the one-warp ones), which
+// spread the same reads over every SM.
 //
 // Layout: a table row is 128 float32 = 512 B = 32 lanes x float4, one
 // coalesced request a warp.  Lane l holds elements 4l .. 4l+3.
@@ -113,6 +115,222 @@ __global__ void __launch_bounds__(32) block_read_kernel(
   }
   out[lane] = acc;
 }
+
+// ---- Card-wide instances of 5a and 5b -----------------------------------
+//
+// The one-warp kernels time one dependent stream of reads.  A per-group
+// traversal runs one such stream a group (3,907 groups at 1M) on every SM
+// at once, so its design needs the rate at which the card serves many
+// streams.  The card-wide instances compute the probe's function over the
+// same reads, cut so:
+//
+// * the reps x used reads (used = (n_reads / W) W) form one stream, read t
+//   of row idx[t mod used], cut into P contiguous slices: slice p is
+//   [floor(p T / P), floor((p + 1) T / P)), T = reps used.  P is the
+//   caller's, not the card's, so the output does not depend on the card.
+// * warp p walks slice p with the probe's W accumulators (its j-th read
+//   into acc[j mod W]).  Each read is still one 512 B row, one coalesced
+//   float4 a lane; no row is merged or skipped, as a traversal cannot
+//   merge its visits.  CHAINED: each read waits on its accumulator's last
+//   add, so the card holds P dependent chains at once, the shape of a
+//   traversal with one warp a group.
+// * the warp writes acc[0] + acc[1] + ... to its row of a scratch table,
+//   and a second pass sums the P rows serially in warp order, a column
+//   at a time.
+//   No float atomics: two calls give the same bits, and the plain version
+//   (ops/traversal_probes.py, row_reads_card_reference) gives them too.
+// * SHARED: each block first copies the table into its shared memory by
+//   TMA bulk copies (cp.async.bulk, completing on an mbarrier); 448 rows
+//   (229,376 B) leave room for one block an SM.
+//
+// What bounds them: the L2 (or device-memory) requests the SMs keep in
+// flight, at most P W reads, and the second pass's P dependent adds.
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Copies n_bytes (a multiple of 16) from src to dst (both 16 B aligned)
+// by TMA bulk copies; every thread of the block calls it and returns once
+// the bytes have landed.
+__device__ void stage_table(float4* dst, const float4* src, unsigned n_bytes,
+                            unsigned long long* bar) {
+  constexpr unsigned kChunk = 16384;
+  const unsigned b = smem_u32(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(b), "r"(n_bytes) : "memory");
+    for (unsigned o = 0; o < n_bytes; o += kChunk) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];"
+          ::"r"(smem_u32(reinterpret_cast<char*>(dst) + o)),
+            "l"(reinterpret_cast<const char*>(src) + o),
+            "r"(min(kChunk, n_bytes - o)), "r"(b)
+          : "memory");
+    }
+  }
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(b) : "memory");
+  }
+}
+
+// Slice p of a stream of `total` reads cut into `slices`: its first read
+// and its length.
+__device__ __forceinline__ void slice_of(int p, long long total, int slices,
+                                         long long* t0, long long* n) {
+  *t0 = (long long)p * total / slices;
+  *n = (long long)(p + 1) * total / slices - *t0;
+}
+
+// 5a, card-wide: one warp a slice; blockDim.x / 32 warps a block, and the
+// grid holds exactly `slices` warps.
+template <int W, bool CHAINED, bool SHARED>
+__global__ void __launch_bounds__(1024) row_reads_card_kernel(
+    const float4* __restrict__ tree, const int* __restrict__ idx,
+    float4* __restrict__ partial, int n_cells, int used, long long total,
+    int slices) {
+  extern __shared__ float4 sm_rows[];
+  __shared__ unsigned long long bar;
+  const float4* tbl = tree;
+  if (SHARED) {
+    stage_table(sm_rows, tree, static_cast<unsigned>(n_cells) * 512u, &bar);
+    tbl = sm_rows;
+  }
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  long long t0, n;
+  slice_of(p, total, slices, &t0, &n);
+  int pos = used ? static_cast<int>(t0 % used) : 0;
+  float4 acc[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) acc[w] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const long long steps = n / W;
+  for (long long k = 0; k < steps; ++k) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      int c = __ldg(idx + pos);
+      if (++pos == used) pos = 0;
+      if (CHAINED) c += (int)(acc[w].x * 0.0f);
+      acc[w] = add4(acc[w], tbl[(size_t)c * 32 + lane]);
+    }
+  }
+  const int rem = static_cast<int>(n - steps * W);  // the slice's tail
+#pragma unroll
+  for (int w = 0; w < W - 1; ++w) {
+    if (w < rem) {
+      int c = __ldg(idx + pos);
+      if (++pos == used) pos = 0;
+      if (CHAINED) c += (int)(acc[w].x * 0.0f);
+      acc[w] = add4(acc[w], tbl[(size_t)c * 32 + lane]);
+    }
+  }
+  float4 s = acc[0];
+#pragma unroll
+  for (int w = 1; w < W; ++w) s = add4(s, acc[w]);
+  partial[(size_t)p * 32 + lane] = s;
+}
+
+// 5b, card-wide: the stream of reps x n_reads two-row reads, one warp a
+// slice, acc = (acc + tree[c]) + tree[c + 1] as the one-warp kernel.
+template <bool CHAINED>
+__global__ void __launch_bounds__(1024) block_read_card_kernel(
+    const float4* __restrict__ tree, const int* __restrict__ idx,
+    float4* __restrict__ partial, int n_reads, long long total,
+    int slices) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  long long t0, n;
+  slice_of(p, total, slices, &t0, &n);
+  int pos = n_reads ? static_cast<int>(t0 % n_reads) : 0;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (long long k = 0; k < n; ++k) {
+    int c = __ldg(idx + pos);
+    if (++pos == n_reads) pos = 0;
+    if (CHAINED) c += (int)(acc.x * 0.0f);
+    const float4 a = tree[(size_t)c * 32 + lane];
+    const float4 b = tree[(size_t)(c + 1) * 32 + lane];
+    acc = add4(add4(acc, a), b);
+  }
+  partial[(size_t)p * 32 + lane] = acc;
+}
+
+// The second pass of both: out = ((0 + partial[0]) + partial[1]) + ...,
+// element by element.  Each of the 128 elements is one serial chain of P
+// float adds, so the chains are spread instead: block b takes float4
+// column b (32 blocks on 32 SMs); its threads stage kSumChunk rows of the
+// column in shared memory, and while the next chunk's loads are in
+// flight, one thread in each of four warps adds one element's chain (four
+// schedulers, a load and an add a row each, loads kSumBatch rows ahead).
+// What bounds it: P dependent adds, ~4 cycles each.
+constexpr int kSumChunk = 512;
+constexpr int kSumBatch = 16;
+
+// s + rows[0] + rows[4] + ... (n terms, stride 4: one element of a
+// float4 column), in order; loads run a batch ahead of the adds.
+__device__ __forceinline__ float serial_column(float s, const float* rows,
+                                               int n) {
+  constexpr int B = kSumBatch;
+  int i = 0;
+  if (n >= B) {
+    float a[B], b[B];
+#pragma unroll
+    for (int k = 0; k < B; ++k) a[k] = rows[4 * k];
+    i = B;  // a holds rows [i - B, i), not yet added
+    for (; i + 2 * B <= n; i += 2 * B) {
+#pragma unroll
+      for (int k = 0; k < B; ++k) b[k] = rows[4 * (i + k)];
+#pragma unroll
+      for (int k = 0; k < B; ++k) s = __fadd_rn(s, a[k]);
+#pragma unroll
+      for (int k = 0; k < B; ++k) a[k] = rows[4 * (i + B + k)];
+#pragma unroll
+      for (int k = 0; k < B; ++k) s = __fadd_rn(s, b[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < B; ++k) s = __fadd_rn(s, a[k]);
+  }
+  for (; i < n; ++i) s = __fadd_rn(s, rows[4 * i]);
+  return s;
+}
+
+__global__ void __launch_bounds__(kSumChunk) sum_partials_kernel(
+    const float4* __restrict__ partial, float* __restrict__ out,
+    int slices) {
+  __shared__ float4 buf[kSumChunk];
+  const int t = threadIdx.x, col = blockIdx.x;
+  const int elem = t >> 5;  // lane 0 of warps 0-3 sums elements 0-3
+  const bool adder = (t & 31) == 0 && elem < 4;
+  float4 nxt = t < slices ? partial[(size_t)t * 32 + col]
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+  float s = 0.f;
+  for (int p0 = 0; p0 < slices; p0 += kSumChunk) {
+    __syncthreads();  // the adders are done with the last chunk
+    buf[t] = nxt;
+    __syncthreads();  // buf holds rows p0 ..
+    const int q = p0 + kSumChunk + t;
+    if (q < slices) nxt = partial[(size_t)q * 32 + col];  // in flight
+    if (adder)
+      s = serial_column(s, reinterpret_cast<const float*>(buf) + elem,
+                        min(kSumChunk, slices - p0));
+  }
+  if (adder) out[col * 4 + elem] = s;
+}
+
+// The launch floor phase 19 prints beside the card-wide times: a launch
+// of `blocks` x `threads` that does nothing.
+__global__ void empty_kernel() {}
 
 // 5c. Replaces decide15.py:143 bench_reduce_roundtrip (body :127): the
 //     vector-reduce -> scalar -> control-flow round trip.  Per step, BATCH
@@ -325,6 +543,52 @@ cudaError_t row_reads_w(const float4* tree, const int* idx, float4* out,
                                               n_reads, reps, shared, st);
 }
 
+template <int W, bool CHAINED>
+cudaError_t launch_row_reads_card(const float4* tree, const int* idx,
+                                  float4* partial, float4* out, int n_cells,
+                                  int used, long long total, int shared,
+                                  int slices, int warps, cudaStream_t st) {
+  const int blocks = slices / warps, threads = warps * 32;
+  if (shared) {
+    const int bytes = n_cells * 512;
+    auto k = row_reads_card_kernel<W, CHAINED, true>;
+    cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    k<<<blocks, threads, bytes, st>>>(tree, idx, partial, n_cells, used,
+                                      total, slices);
+  } else {
+    row_reads_card_kernel<W, CHAINED, false><<<blocks, threads, 0, st>>>(
+        tree, idx, partial, n_cells, used, total, slices);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  sum_partials_kernel<<<32, kSumChunk, 0, st>>>(
+      partial, reinterpret_cast<float*>(out), slices);
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t row_reads_card_w(const float4* tree, const int* idx,
+                             float4* partial, float4* out, int n_cells,
+                             int used, long long total, int chained,
+                             int shared, int slices, int warps,
+                             cudaStream_t st) {
+  return chained
+             ? launch_row_reads_card<W, true>(tree, idx, partial, out,
+                                              n_cells, used, total, shared,
+                                              slices, warps, st)
+             : launch_row_reads_card<W, false>(tree, idx, partial, out,
+                                               n_cells, used, total, shared,
+                                               slices, warps, st);
+}
+
+// The card-wide instances take 1-32 warps a block and a whole number of
+// blocks.
+bool bad_spread(int slices, int warps) {
+  return slices < 1 || warps < 1 || warps > 32 || slices % warps != 0;
+}
+
 }  // namespace
 
 extern "C" int spatialsim_probe_row_reads(const void* tree, const int* idx,
@@ -355,6 +619,58 @@ extern "C" int spatialsim_probe_block_read(const void* tree, const int* idx,
     block_read_kernel<true><<<1, 32, 0, st>>>(t, idx, o, n_reads, reps);
   else
     block_read_kernel<false><<<1, 32, 0, st>>>(t, idx, o, n_reads, reps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatialsim_probe_row_reads_card(
+    const void* tree, const int* idx, void* partial, void* out, int n_cells,
+    int n_reads, int reps, int width, int chained, int shared, int slices,
+    int warps, void* stream) {
+  if (bad_spread(slices, warps) || width < 1 || n_reads < 0 || reps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float4* t = static_cast<const float4*>(tree);
+  float4* pa = static_cast<float4*>(partial);
+  float4* o = static_cast<float4*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int used = n_reads / width * width;
+  const long long total = (long long)reps * used;
+  switch (width) {
+#define RC_CASE(W)                                                          \
+    case W:                                                                 \
+      return row_reads_card_w<W>(t, idx, pa, o, n_cells, used, total,       \
+                                 chained, shared, slices, warps, st);
+    RC_CASE(1) RC_CASE(2) RC_CASE(4) RC_CASE(8)
+#undef RC_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int spatialsim_probe_block_read_card(
+    const void* tree, const int* idx, void* partial, void* out, int n_reads,
+    int reps, int chained, int slices, int warps, void* stream) {
+  if (bad_spread(slices, warps) || n_reads < 0 || reps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* t = static_cast<const float4*>(tree);
+  float4* pa = static_cast<float4*>(partial);
+  const long long total = (long long)reps * n_reads;
+  const int blocks = slices / warps, threads = warps * 32;
+  if (chained)
+    block_read_card_kernel<true><<<blocks, threads, 0, st>>>(
+        t, idx, pa, n_reads, total, slices);
+  else
+    block_read_card_kernel<false><<<blocks, threads, 0, st>>>(
+        t, idx, pa, n_reads, total, slices);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sum_partials_kernel<<<32, kSumChunk, 0, st>>>(
+      pa, static_cast<float*>(out), slices);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatialsim_probe_empty(int blocks, int threads,
+                                      void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

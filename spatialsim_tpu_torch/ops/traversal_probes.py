@@ -23,7 +23,10 @@ Four layers, per probe:
 * the wrapper (``row_reads``, ``gated_reduce``, ...) -- takes the inputs;
   a CUDA tensor launches the kernel on the current stream (or raises) and
   adds one to the wrapper's ``launches``; a CPU tensor takes the plain
-  version.
+  version.  5a and 5b also take ``spread="card"``: the same reads cut into
+  ``slices`` contiguous slices, one warp each, ``warps`` warps a block,
+  the partial rows summed in warp order (their ``card_launches`` count
+  those calls).
 * ``*_reference`` -- the plain version, in the probe's order of
   operations, rounding in float32 and wrapping in int32 as the TPU probe
   and the kernel do, so all three agree bit for bit.  The row sums (5a,
@@ -47,6 +50,8 @@ WHERE = ("global", "shared")
 WIDTHS = (1, 2, 4, 8)     # row-read chains: decide15's widths
 BATCHES = (1, 4, 8)       # reduce round trip: decide15's batches
 K_RUNS = (1, 2, 4)        # iteration core: decide18's runs a step
+SPREADS = ("warp", "card")  # 5a, 5b: one warp, or slices over the card
+MAX_WARPS = 32            # warps a block of the card-wide instances
 
 
 # ---- inputs, made as the TPU probes make them ------------------------------
@@ -165,6 +170,60 @@ def _serial_sum(terms, reps=1) -> np.ndarray:
     return acc
 
 
+def _check_spread(fn_name, spread, slices, warps):
+    """Refuse what the one-warp and card-wide instances do not take: a
+    ``spread`` not in :data:`SPREADS`; for ``"card"`` a ``slices`` that is
+    not a positive int or ``warps`` (1-32) that does not divide it; for
+    ``"warp"`` any ``slices``."""
+    if spread not in SPREADS:
+        raise ValueError(f"{fn_name}: spread={spread!r} not in {SPREADS}")
+    if spread == "warp":
+        if slices is not None:
+            raise ValueError(f"{fn_name}: slices={slices} is for "
+                             f"spread='card' only")
+        return
+    if (not isinstance(slices, int) or isinstance(slices, bool)
+            or slices < 1 or slices > 2 ** 31 - 1):
+        raise ValueError(f"{fn_name}: spread='card' needs slices, a "
+                         f"positive int, got {slices!r}")
+    if (not isinstance(warps, int) or isinstance(warps, bool)
+            or not 1 <= warps <= MAX_WARPS or slices % warps):
+        raise ValueError(f"{fn_name}: warps={warps!r} a block must be in "
+                         f"1..{MAX_WARPS} and divide slices={slices}")
+
+
+def slice_bounds(total, slices) -> np.ndarray:
+    """Where the card-wide instances cut a stream of ``total`` reads:
+    slice p is ``[b[p], b[p + 1])``, ``b[p] = floor(p total / slices)``."""
+    return np.arange(slices + 1, dtype=np.int64) * int(total) // slices
+
+
+def _card_sum(rows, total, slices, width):
+    """The card-wide order over the stream of ``total`` reads whose rows
+    ``rows(a, b)`` gives as a host float32 array of ``(n, 128)`` rows, in
+    the order they are added (``width`` 1 where a read is several rows):
+    slice by slice, row j into accumulator ``j mod width`` (serial
+    float32), the accumulators summed left to right, then the slices'
+    partials summed serially in slice order."""
+    b = slice_bounds(total, slices)
+    parts = np.zeros((slices, ROW), np.float32)
+    for p in range(slices):
+        if b[p + 1] == b[p]:
+            continue
+        r = rows(int(b[p]), int(b[p + 1]))
+        n = r.shape[0]
+        full = n // width * width
+        acc = (_serial_sum(r[:full].reshape(-1, width, ROW)) if full
+               else np.zeros((width, ROW), np.float32))
+        for j in range(full, n):                  # the slice's tail
+            acc[j - full] = acc[j - full] + r[j]
+        s = acc[0]
+        for a in acc[1:]:
+            s = s + a
+        parts[p] = s
+    return _serial_sum(parts)
+
+
 # ---- 5a. row reads (decide15.py:64) -----------------------------------------
 
 def row_reads_reference(tree, idx, reps, width=1):
@@ -180,43 +239,80 @@ def row_reads_reference(tree, idx, reps, width=1):
     return torch.from_numpy(out[None, :]).to(tree.device)
 
 
-def row_reads(tree, idx, reps, width=1, *, chained=False, where="global"):
-    """5a through ``csrc/probes_decide15.cu`` (one warp, ``width``
-    independent accumulators; ``chained`` makes each read wait on the last
-    add; ``where="shared"`` stages the table in shared memory first and
-    raises ``ValueError`` before any launch where the card's opt-in limit
-    cannot hold it)."""
+def row_reads_card_reference(tree, idx, reps, width=1, slices=1):
+    """The card-wide order of :func:`row_reads_reference`'s sum: the
+    ``reps`` passes over the first ``(n_reads // width) * width`` indices
+    as one stream of reads, cut into ``slices`` contiguous slices
+    (:func:`slice_bounds`), each slice summed serially with ``width``
+    accumulators, the partials serially in slice order, in float32.
+    ``slices=1`` is :func:`row_reads_reference`'s order."""
+    used = idx.shape[0] // width * width
+    ids, tbl = _host(idx[:used]).astype(np.int64), _host(tree)
+    out = _card_sum(lambda a, b: tbl[ids[np.arange(a, b) % used]],
+                    reps * used, slices, width)
+    return torch.from_numpy(out[None, :]).to(tree.device)
+
+
+def row_reads(tree, idx, reps, width=1, *, chained=False, where="global",
+              spread="warp", slices=None, warps=8):
+    """5a through ``csrc/probes_decide15.cu``: ``spread="warp"``, one warp
+    with ``width`` independent accumulators (the latency instance);
+    ``spread="card"``, ``slices`` warps over the card, ``warps`` a block
+    (:func:`row_reads_card_reference`'s order).  ``chained`` makes each
+    read wait on the last add; ``where="shared"`` stages the table in
+    shared memory first (each block of the card-wide instance stages its
+    own) and raises ``ValueError`` before any launch where the card's
+    opt-in limit cannot hold it."""
     if width not in WIDTHS:
         raise ValueError(f"row_reads: width {width} not in {WIDTHS}")
     if where not in WHERE:
         raise ValueError(f"row_reads: where={where!r} not in {WHERE}")
+    _check_spread("row_reads", spread, slices, warps)
+    card = spread == "card"
     if not _on_card("row_reads", tree, idx):
+        if card:
+            return row_reads_card_reference(tree, idx, reps, width, slices)
         return row_reads_reference(tree, idx, reps, width)
     _table_args("row_reads", tree, idx)
     n_cells = tree.shape[0]
     shared = where == "shared"
-    if shared and n_cells * ROW * 4 > smem_optin_bytes(tree.device):
+    # The card-wide instance keeps its mbarrier in static shared memory.
+    need = n_cells * ROW * 4 + (16 if card else 0)
+    if shared and need > smem_optin_bytes(tree.device):
         raise ValueError(
             f"row_reads: a {n_cells}-row table ({n_cells * ROW * 4} B) "
             f"exceeds the {smem_optin_bytes(tree.device)} B of shared "
             f"memory a block can opt in to")
     out = torch.empty((1, ROW), dtype=torch.float32, device=tree.device)
-    _kernels.check(_kernels.entry.spatialsim_probe_row_reads(
-        tree.data_ptr(), idx.data_ptr(), out.data_ptr(), n_cells,
-        idx.shape[0], int(reps), int(width), int(chained), int(shared),
-        _kernels.stream(tree)), "probe_row_reads")
+    if card:
+        partial = torch.empty((slices, ROW), dtype=torch.float32,
+                              device=tree.device)
+        _kernels.check(_kernels.entry.spatialsim_probe_row_reads_card(
+            tree.data_ptr(), idx.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), n_cells, idx.shape[0], int(reps), int(width),
+            int(chained), int(shared), slices, warps,
+            _kernels.stream(tree)), "probe_row_reads_card")
+        row_reads.card_launches += 1
+    else:
+        _kernels.check(_kernels.entry.spatialsim_probe_row_reads(
+            tree.data_ptr(), idx.data_ptr(), out.data_ptr(), n_cells,
+            idx.shape[0], int(reps), int(width), int(chained), int(shared),
+            _kernels.stream(tree)), "probe_row_reads")
     row_reads.launches += 1
     return out
 
 
 row_reads.launches = 0
+row_reads.card_launches = 0
 
 
 def bench_row_reads(n_cells, n_reads, reps_in_kernel, width=1, *,
-                    chained=False, where="global", device="cuda"):
+                    chained=False, where="global", spread="warp",
+                    slices=None, warps=8, device="cuda"):
     """``decide15.bench_row_reads``'s function on this card."""
     return row_reads(*row_inputs(n_cells, n_reads, device), reps_in_kernel,
-                     width, chained=chained, where=where)
+                     width, chained=chained, where=where, spread=spread,
+                     slices=slices, warps=warps)
 
 
 # ---- 5b. block read (decide15.py:101) ---------------------------------------
@@ -229,27 +325,69 @@ def block_read_reference(tree, idx, reps):
         _serial_sum(rows, reps)[None, :]).to(tree.device)
 
 
-def block_read(tree, idx, reps, *, chained=False):
-    """5b: ``sum (tree[idx] + tree[idx + 1])``, one (2, 128) read a step."""
+def block_read_card_reference(tree, idx, reps, slices=1):
+    """The card-wide order of :func:`block_read_reference`'s sum: the
+    ``reps x n_reads`` two-row reads as one stream cut into ``slices``
+    (:func:`slice_bounds`), ``acc = (acc + tree[c]) + tree[c + 1]``
+    serially in each, the partials serially in slice order."""
+    n = idx.shape[0]
+    ids, tbl = _host(idx).astype(np.int64), _host(tree)
+
+    def rows(a, b):                     # two rows a read, interleaved
+        c = ids[np.arange(a, b) % n]
+        return tbl[np.stack([c, c + 1], 1).reshape(-1)]
+    return torch.from_numpy(_card_sum(
+        rows, reps * n, slices, 1)[None, :]).to(tree.device)
+
+
+def block_read(tree, idx, reps, *, chained=False, spread="warp",
+               slices=None, warps=8):
+    """5b: ``sum (tree[idx] + tree[idx + 1])``, one (2, 128) read a step;
+    ``spread`` as :func:`row_reads`."""
+    _check_spread("block_read", spread, slices, warps)
+    card = spread == "card"
     if not _on_card("block_read", tree, idx):
+        if card:
+            return block_read_card_reference(tree, idx, reps, slices)
         return block_read_reference(tree, idx, reps)
     _table_args("block_read", tree, idx)
     out = torch.empty((1, ROW), dtype=torch.float32, device=tree.device)
-    _kernels.check(_kernels.entry.spatialsim_probe_block_read(
-        tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-        int(reps), int(chained), _kernels.stream(tree)),
-        "probe_block_read")
+    if card:
+        partial = torch.empty((slices, ROW), dtype=torch.float32,
+                              device=tree.device)
+        _kernels.check(_kernels.entry.spatialsim_probe_block_read_card(
+            tree.data_ptr(), idx.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), idx.shape[0], int(reps), int(chained), slices,
+            warps, _kernels.stream(tree)), "probe_block_read_card")
+        block_read.card_launches += 1
+    else:
+        _kernels.check(_kernels.entry.spatialsim_probe_block_read(
+            tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+            int(reps), int(chained), _kernels.stream(tree)),
+            "probe_block_read")
     block_read.launches += 1
     return out
 
 
 block_read.launches = 0
+block_read.card_launches = 0
 
 
 def bench_block_read(n_cells, n_reads, reps_in_kernel, *, chained=False,
-                     device="cuda"):
+                     spread="warp", slices=None, warps=8, device="cuda"):
     return block_read(*block_read_inputs(n_cells, n_reads, device),
-                      reps_in_kernel, chained=chained)
+                      reps_in_kernel, chained=chained, spread=spread,
+                      slices=slices, warps=warps)
+
+
+def empty_launch(blocks, threads, like):
+    """One launch of an empty kernel of ``blocks`` x ``threads`` on the
+    current stream of the CUDA tensor ``like``'s device: the launch floor
+    beside the card-wide instances' times."""
+    if not like.is_cuda:
+        raise ValueError(f"empty_launch: {like.device} is not a CUDA device")
+    _kernels.check(_kernels.entry.spatialsim_probe_empty(
+        int(blocks), int(threads), _kernels.stream(like)), "probe_empty")
 
 
 # ---- 5c. reduce round trip (decide15.py:143) --------------------------------

@@ -14,16 +14,33 @@ rows (the occupied cells of the port's 1M-galaxy octree, past the 50 MB
 L2: by default counted on the card by ``build_diagnostics``; 0 skips
 them, as on the CPU).
 
+Beside each row-read and block-read line stands the card-wide instance
+of the same function (``spread="card"``: the reads cut into
+``CARD_SLICES`` slices, one warp each, ``CARD_WARPS`` warps a block; the
+shared-memory table one block of ``SHARED_WARPS`` an SM): its ns per read
+is the card's rate over that many chains at once, where the one-warp line
+is one chain's latency.  ``--sweep`` adds the card-wide row reads over
+``SWEEP_SLICES`` x ``SWEEP_WARPS``, each output held to the plain version
+of its slice count.
+
 The first line is ``nvidia-smi``'s name and power limit; then one line a
 probe: milliseconds a call by CUDA events after a warm-up (mean of
 ``REPS``), and nanoseconds per read, reduce or visit as the script
-computes them.  ``--device cpu`` runs the plain versions on a host clock,
-a rehearsal only (``--quick`` cuts the in-kernel repetitions to 1).
+computes them.  A card-wide call's device work is shorter than its
+wrapper's host time, so its ``CARD_REPS`` calls are queued behind a
+sleep kernel first and the events time the card running them back to
+back (:func:`queued_ms`); the line adds the time at the host's pace.
+Then, for each card-wide grid, the launch floor (an empty launch, queued
+the same way) and the call over no reads (its launches and the second
+pass over zero partials).  ``--device cpu`` runs the plain versions on a
+host clock, a rehearsal only (``--quick`` cuts the in-kernel repetitions
+to 1).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import subprocess
 import sys
 import time
@@ -34,6 +51,13 @@ import torch.nn.functional as F
 from spatialsim_tpu_torch.ops import traversal_probes as tp
 
 REPS = 3                  # timed calls a probe, after one warm-up
+CARD_REPS = 20            # timed calls a card-wide probe or launch floor
+CARD_SLICES = 132 * 32    # P of the card-wide instances
+CARD_WARPS = 8            # their warps a block
+SHARED_WARPS = 32         # a block an SM where each stages 229,376 B
+SWEEP_SLICES = (132 * 8, 132 * 16, 132 * 32, 132 * 64)
+SWEEP_WARPS = (2, 4, 8, 16, 32)
+GATE_CYCLES = 20_000_000  # the sleep queued calls wait behind (~10 ms)
 
 def device_line(device) -> str:
     """``nvidia-smi``'s name and power limit of the card (its own line)."""
@@ -64,13 +88,43 @@ def time_ms(fn, reps, device):
     return (time.perf_counter() - t) * 1e3 / reps
 
 
+def queued_ms(fn, reps, device):
+    """Mean milliseconds a call of ``fn`` with its calls queued on the card
+    first: a sleep kernel holds the stream while the host enqueues
+    ``reps`` calls, so the CUDA events time the card running them back to
+    back, not the host's pace (a card-wide call's device work takes tens
+    of microseconds, less than its wrapper's host time).  Raises if the
+    host had not finished enqueuing when the sleep ended.  The host clock
+    on the CPU."""
+    if device.type != "cuda":
+        return time_ms(fn, reps, device)
+    fn()
+    torch.cuda.synchronize(device)
+    gate, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    gate.record()
+    torch.cuda._sleep(GATE_CYCLES)
+    start.record()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t) * 1e3
+    end.record()
+    torch.cuda.synchronize(device)
+    if host_ms >= 0.9 * gate.elapsed_time(start):
+        raise RuntimeError(f"queued_ms: {reps} calls took {host_ms:.3f} ms "
+                           f"to enqueue, past the "
+                           f"{gate.elapsed_time(start):.3f} ms sleep")
+    return start.elapsed_time(end) / reps
+
+
 def distinct_rows(idx) -> int:
     """Distinct indices: the rows a probe's function needs, read once."""
     return int(torch.unique(idx).numel())
 
 
 def entry(label, kernel, call, plain, count, unit, ops, nbytes, *,
-          library=None, expect_zero=False):
+          library=None, expect_zero=False, grid=None):
     """One probe of a run: ``call()`` launches the kernel on prepared
     inputs, ``plain()`` runs the plain version (on CPU copies for the
     serial chains), ``count`` of ``unit`` per call (the script's divisor),
@@ -79,38 +133,60 @@ def entry(label, kernel, call, plain, count, unit, ops, nbytes, *,
     PyTorch call computing the same function, where there is one;
     ``expect_zero`` where the probe's own inputs give 0 (a check of such
     an entry is no check of the arithmetic, so an entry with inputs where
-    it is not 0 must stand beside it)."""
+    it is not 0 must stand beside it).  ``grid`` (blocks, threads) marks
+    a card-wide instance: its ``key`` is the kernel's name with
+    ``_card``, and its launch floor is an empty launch of that grid."""
     return dict(label=label, kernel=kernel, call=call, plain=plain,
                 count=count, unit=unit, ops=float(ops), nbytes=float(nbytes),
-                library=library, expect_zero=expect_zero)
+                library=library, expect_zero=expect_zero, grid=grid,
+                key=kernel.__name__ + ("_card" if grid else ""))
+
+
+def _spread(card, shared=False):
+    """(label suffix, wrapper keywords, grid) of the one-warp instance or
+    of the card-wide one at ``CARD_SLICES``."""
+    if not card:
+        return "", dict(spread="warp"), None
+    warps = SHARED_WARPS if shared else CARD_WARPS
+    return (f" card P={CARD_SLICES}/{warps}",
+            dict(spread="card", slices=CARD_SLICES, warps=warps),
+            (CARD_SLICES // warps, 32 * warps))
 
 
 def _row_reads(label, n_cells, n_reads, reps, width, device, *,
-               chained=False, where="global"):
+               chained=False, where="global", card=False):
     tree, idx = tp.row_inputs(n_cells, n_reads, device)
     used = (n_reads // width) * width
     bag = idx[:used].long().repeat(reps)[None, :]
+    suffix, kw, grid = _spread(card, where == "shared")
+    plain = ((lambda: tp.row_reads_card_reference(tree, idx, reps, width,
+                                                  kw["slices"]))
+             if card else lambda: tp.row_reads_reference(tree, idx, reps,
+                                                          width))
     return entry(
-        label, tp.row_reads,
+        label + suffix, tp.row_reads,
         lambda: tp.row_reads(tree, idx, reps, width, chained=chained,
-                             where=where),
-        lambda: tp.row_reads_reference(tree, idx, reps, width),
-        used * reps, "read", 128 * used * reps,
+                             where=where, **kw),
+        plain, used * reps, "read", 128 * used * reps,
         512 * distinct_rows(idx[:used]) + 4 * n_reads + 512,
-        library=lambda: F.embedding_bag(bag, tree, mode="sum"))
+        library=lambda: F.embedding_bag(bag, tree, mode="sum"), grid=grid)
 
 
-def _block_read(label, n_cells, n_reads, reps, device, *, chained=False):
+def _block_read(label, n_cells, n_reads, reps, device, *, chained=False,
+                card=False):
     tree, idx = tp.block_read_inputs(n_cells, n_reads, device)
     both = torch.stack([idx, idx + 1], 1).reshape(-1)
     bag = both.long().repeat(reps)[None, :]
+    suffix, kw, grid = _spread(card)
+    plain = ((lambda: tp.block_read_card_reference(tree, idx, reps,
+                                                   kw["slices"]))
+             if card else lambda: tp.block_read_reference(tree, idx, reps))
     return entry(
-        label, tp.block_read,
-        lambda: tp.block_read(tree, idx, reps, chained=chained),
-        lambda: tp.block_read_reference(tree, idx, reps),
-        n_reads * reps, "block", 256 * n_reads * reps,
+        label + suffix, tp.block_read,
+        lambda: tp.block_read(tree, idx, reps, chained=chained, **kw),
+        plain, n_reads * reps, "block", 256 * n_reads * reps,
         512 * distinct_rows(both) + 4 * n_reads + 512,
-        library=lambda: F.embedding_bag(bag, tree, mode="sum"))
+        library=lambda: F.embedding_bag(bag, tree, mode="sum"), grid=grid)
 
 
 def _reduce_roundtrip(label, n_ops, reps, batch, device):
@@ -173,10 +249,12 @@ def _extract8(label, n_cells, n_visits, reps, use_roll, device, *,
 
 
 def probes(device, quick=False, octree_cells=0):
-    """The script's probes in its order, each with its chained form, then
+    """The script's probes in its order, each with its chained form, the
+    row and block reads each with its card-wide instance beside it, then
     the Hopper placements of the row reads."""
     r = (lambda n: 1) if quick else (lambda n: n)
     both = (False, True)
+    spreads = [(card, c) for card in both for c in both]
     out = []
     for label, n_cells, reps, width in (("row-read w1 8K", 8192, 50, 1),
                                         ("row-read w1 24K", 24576, 50, 1),
@@ -184,9 +262,11 @@ def probes(device, quick=False, octree_cells=0):
                                         ("row-read w4", 8192, 50, 4),
                                         ("row-read w8", 8192, 25, 8)):
         out += [_row_reads(label + (" chained" if c else ""), n_cells, 4096,
-                           r(reps), width, device, chained=c) for c in both]
+                           r(reps), width, device, chained=c, card=card)
+                for card, c in spreads]
     out += [_block_read("block-read" + (" chained" if c else ""), 8192,
-                        4096, r(50), device, chained=c) for c in both]
+                        4096, r(50), device, chained=c, card=card)
+            for card, c in spreads]
     out.append(_row_write("row-write", 8192, 4096, r(50), device))
     out.append(_roll("roll", 5, device))
     out += [_reduce_roundtrip(f"reduce-roundtrip b{b}", 4096, r(reps), b,
@@ -207,15 +287,78 @@ def probes(device, quick=False, octree_cells=0):
     # 4096 x 50 reads, then 204,800 reads once each).
     out += [_row_reads(f"row-read w1 shared {tp.SHARED_ROWS}" +
                        (" chained" if c else ""), tp.SHARED_ROWS, 4096,
-                       r(50), 1, device, chained=c, where="shared")
-            for c in both]
+                       r(50), 1, device, chained=c, where="shared",
+                       card=card) for card, c in spreads]
     if octree_cells:
         for n_reads, reps in ((4096, r(50)), (204_800, 1)):
             out += [_row_reads(
                 f"row-read w1 {octree_cells} cells {n_reads}x{reps}" +
                 (" chained" if c else ""), octree_cells, n_reads, reps, 1,
-                device, chained=c) for c in both]
+                device, chained=c, card=card) for card, c in spreads]
     return out
+
+
+def launch_floor_ms(grid, device, reps=CARD_REPS):
+    """Milliseconds a call of an empty launch of ``grid`` (blocks,
+    threads) by CUDA events; None off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    like = torch.empty(1, device=device)
+    return queued_ms(lambda: tp.empty_launch(*grid, like), reps, device)
+
+
+def no_reads_ms(slices, warps, device, reps=CARD_REPS):
+    """Milliseconds a card-wide row-read call over no reads: its launches
+    and the second pass over ``slices`` zero partials."""
+    device = torch.device(device)
+    tree = tp.table(1, device)
+    idx = torch.zeros(0, dtype=torch.int32, device=device)
+    return queued_ms(lambda: tp.row_reads(tree, idx, 1, spread="card",
+                                          slices=slices, warps=warps),
+                     reps, device)
+
+
+def sweep(device, octree_cells=0, quick=False, out=print):
+    """The card-wide row reads (w1, plain and chained) at every
+    ``SWEEP_SLICES`` x ``SWEEP_WARPS`` on the 8K table (4,096 x 50 reads)
+    and, given ``octree_cells``, on that table (204,800 x 1); each output
+    held to the plain version of its slice count.  Prints a line a table,
+    form and slice count, with the call over no reads at that count
+    (:func:`no_reads_ms`); returns ``[{table, chained, slices, warps,
+    ms, ns, equal}]``."""
+    device = torch.device(device)
+    tables = [("8K 4096x50", 8192, 4096, 1 if quick else 50)]
+    if octree_cells:
+        tables.append((f"{octree_cells} cells 204800x1", octree_cells,
+                       204_800, 1))
+    res = []
+    for name, n_cells, n_reads, reps in tables:
+        tree, idx = tp.row_inputs(n_cells, n_reads, device)
+        for slices in SWEEP_SLICES:
+            want = tp.row_reads_card_reference(tree, idx, reps, 1,
+                                               slices).cpu()
+            no_reads = no_reads_ms(
+                slices, math.gcd(slices, CARD_WARPS), device)
+            for chained in (False, True):
+                cells = []
+                for warps in SWEEP_WARPS:
+                    def fn(slices=slices, warps=warps, chained=chained):
+                        return tp.row_reads(tree, idx, reps, 1,
+                                            chained=chained, spread="card",
+                                            slices=slices, warps=warps)
+                    equal = torch.equal(fn().cpu(), want)
+                    ms = queued_ms(fn, CARD_REPS, device)
+                    res.append(dict(table=name, chained=chained,
+                                    slices=slices, warps=warps, ms=ms,
+                                    ns=ms * 1e6 / (n_reads * reps),
+                                    equal=equal))
+                    cells.append(f"{warps} warps {ms:.4f} ms"
+                                 + ("" if equal else " MISMATCH"))
+                out(f"  sweep row-read w1 {name}"
+                    f"{' chained' if chained else ''} P={slices} (over no "
+                    f"reads {no_reads:.4f} ms): " + ", ".join(cells))
+    return res
 
 
 def octree_diagnostics(device, n=1_000_000) -> dict:
@@ -234,13 +377,38 @@ def octree_diagnostics(device, n=1_000_000) -> dict:
 
 
 def run_probes(entries, device, out=print):
-    """Time each probe (``REPS`` calls after a warm-up); print one line
-    each and return the entries with ``ms`` and ``ns`` added."""
+    """Time each probe (``REPS`` calls after a warm-up; a card-wide one
+    ``CARD_REPS`` calls queued behind a sleep, :func:`queued_ms`, and at
+    the host's pace); print one line each, then the launch floor of each
+    card-wide grid; return the entries with ``ms``, ``ns`` and, on the
+    card-wide ones, ``host_paced_ms``, ``floor_ms`` and ``no_reads_ms``
+    added."""
     for e in entries:
-        e["ms"] = time_ms(e["call"], REPS, device)
+        paced = ""
+        if e["grid"]:
+            e["ms"] = queued_ms(e["call"], CARD_REPS, device)
+            e["host_paced_ms"] = time_ms(e["call"], CARD_REPS, device)
+            paced = (f" (calls queued; {e['host_paced_ms']:.4f} ms at the "
+                     f"host's pace)")
+        else:
+            e["ms"] = time_ms(e["call"], REPS, device)
         e["ns"] = e["ms"] * 1e6 / e["count"]
         out(f"  {e['label']}: {e['ms']:.4f} ms, {e['ns']:.2f} "
-            f"ns/{e['unit']}")
+            f"ns/{e['unit']}{paced}")
+    floors = {}
+    for e in entries:
+        grid = e["grid"]
+        if grid:
+            if grid not in floors:
+                floor = launch_floor_ms(grid, device)
+                floors[grid] = (floor, no_reads_ms(
+                    grid[0] * grid[1] // 32, grid[1] // 32, device))
+                out(f"  launch floor, an empty <<<{grid[0]}, {grid[1]}>>>: "
+                    + ("not measured (no card)" if floor is None
+                       else f"{floor:.4f} ms")
+                    + f"; the call over no reads (launches and second "
+                    f"pass): {floors[grid][1]:.4f} ms")
+            e["floor_ms"], e["no_reads_ms"] = floors[grid]
     return entries
 
 
@@ -262,6 +430,8 @@ def main(argv=None) -> int:
     ap.add_argument("--octree-cells", type=int, default=None,
                     help="rows of the past-L2 table (default: the 1M "
                          "galaxy's octree on a card; 0 skips it)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="the card-wide row reads over slices x warps")
     a = ap.parse_args(argv)
     cells = a.octree_cells
     if cells is None:
@@ -269,6 +439,10 @@ def main(argv=None) -> int:
         cells = (sum(octree_diagnostics(dev)["cells_per_level"])
                  if dev.type == "cuda" else 0)
     run(a.device, a.quick, cells)
+    if a.sweep and not all(r["equal"] for r in sweep(a.device, cells,
+                                                     a.quick)):
+        print("FAILED: a card-wide output differs from its plain version")
+        return 1
     print("done")
     return 0
 

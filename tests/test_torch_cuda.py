@@ -1140,3 +1140,80 @@ def test_probe_shared_placements_refuse_past_the_optin_limit(cuda):
     torch.cuda.synchronize()
     assert tp.row_reads.launches == before[1] + 1
     assert bool(torch.isfinite(got).all())
+
+
+# The card-wide instances' slice counts and warps a block: one slice (the
+# serial order), uneven slices (7 of 12,288 reads), a block of 32 warps,
+# the tool's default, and more slices than reads (one slice empty).
+CARD_SPREADS = ((1, 1), (7, 7), (96, 32), (132 * 32, 8), (12_289, 1))
+
+
+def _card_twice(call):
+    """Two calls of a card-wide instance, synchronised, on the host."""
+    got = [call() for _ in range(2)]
+    torch.cuda.synchronize()
+    return [g.cpu() for g in got]
+
+
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+def test_probe_row_reads_card_matches_plain(cuda, width):
+    """5a's card-wide instance, where the float32 sums round (8,192 cells,
+    4,096 reads, 3 passes; the shared table 448 rows): every spread,
+    plain and chained, global and shared, equal bit for bit to its plain
+    version and to a second call; one slice is the one-warp order."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    tables = {"global": tp.row_inputs(8192, 4096, cuda),
+              "shared": tp.row_inputs(tp.SHARED_ROWS, 4096, cuda)}
+    failed = []
+    for slices, warps in CARD_SPREADS:
+        for where, (tree, idx) in tables.items():
+            want = tp.row_reads_card_reference(tree, idx, 3, width, slices)
+            if slices == 1:
+                assert torch.equal(want, tp.row_reads(tree, idx, 3, width,
+                                                      where=where))
+            for chained in (False, True):
+                before = (tp.row_reads.launches, tp.row_reads.card_launches)
+                a, b = _card_twice(lambda: tp.row_reads(
+                    tree, idx, 3, width, chained=chained, where=where,
+                    spread="card", slices=slices, warps=warps))
+                assert (tp.row_reads.launches, tp.row_reads.card_launches
+                        ) == (before[0] + 2, before[1] + 2)
+                if not (torch.equal(a, want.cpu()) and torch.equal(a, b)):
+                    failed.append((slices, warps, where, chained,
+                                   float((a - want.cpu()).abs().max()),
+                                   float((a - b).abs().max())))
+    assert not failed, failed
+
+
+def test_probe_block_read_card_matches_plain(cuda):
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    tree, idx = tp.block_read_inputs(8192, 4096, cuda)
+    failed = []
+    for slices, warps in CARD_SPREADS:
+        want = tp.block_read_card_reference(tree, idx, 3, slices).cpu()
+        for chained in (False, True):
+            a, b = _card_twice(lambda: tp.block_read(
+                tree, idx, 3, chained=chained, spread="card", slices=slices,
+                warps=warps))
+            if not (torch.equal(a, want) and torch.equal(a, b)):
+                failed.append((slices, warps, chained))
+    assert not failed, failed
+    assert torch.equal(tp.block_read_card_reference(tree, idx, 3, 1),
+                       tp.block_read(tree, idx, 3))
+
+
+def test_probe_card_instances_refuse(cuda):
+    """A shared table past the opt-in limit (with the card-wide
+    instance's mbarrier) raises before any launch; the empty launch runs."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    rows = (tp.smem_optin_bytes(cuda) - 16) // 512 + 1
+    tree, idx = tp.table(rows, cuda), tp.indices(rows, 64, cuda)
+    before = (tp.row_reads.launches, tp.row_reads.card_launches)
+    with pytest.raises(ValueError):
+        tp.row_reads(tree, idx, 1, where="shared", spread="card", slices=132,
+                     warps=1)
+    with pytest.raises(ValueError):
+        tp.row_reads(tree, idx, 1, spread="card", slices=132, warps=5)
+    assert (tp.row_reads.launches, tp.row_reads.card_launches) == before
+    tp.empty_launch(528, 256, tree)
+    torch.cuda.synchronize()

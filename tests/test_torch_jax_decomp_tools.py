@@ -58,7 +58,7 @@ from spatialsim_tpu_torch.tools.chain import Marginal
 from spatialsim_tpu_torch.tools import (
     boids_capture, decide12, decide13, decide16, decide21, decide22,
     decide23, decide24, decide25, decide26, decide27, gather_bench)
-from test_torch_jax_tools import _port, _quiet_cpu, _script
+from _jax_tools import _port, _quiet_cpu, _script
 
 N = 2048
 N_BOIDS = 1024

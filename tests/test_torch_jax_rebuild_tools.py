@@ -16,8 +16,8 @@ they are held to the JAX functions the scripts call: ``build_lists`` with
 
 Where the port calibrates (``diag10m``, ``decide29``), the script's
 calibration returns the port's calibrated configuration, after checking
-that its own input equals the port's (as ``test_torch_jax_tools.py``
-does for ``extreme_run``): the two packages size the pool differently on
+that its own input equals the port's (as
+``test_torch_jax_extreme_tools.py`` does for ``extreme_run``): the two packages size the pool differently on
 purpose (``ROADMAP.md``, "Pool cap").
 
 Tolerance: the ablation rows' accelerations within 1e-4 of max|a| (of
@@ -48,7 +48,7 @@ from spatialsim_tpu_torch.tools import (
     decide7, decide29, decide_1m, diag10m, eval_bench, prof_rebuild,
     quick_metrics)
 from spatialsim_tpu_torch.tools.oracle import initial_conditions
-from test_torch_jax_tools import _port, _quiet_cpu, _script, _to_jax
+from _jax_tools import _port, _quiet_cpu, _script, _to_jax
 
 N = 2048
 TOL = 1e-4

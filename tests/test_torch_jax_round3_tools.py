@@ -55,7 +55,7 @@ from spatialsim_tpu_torch.tools import (
     decide2, decide3, decide4, decide5, decide6, decide8, decide9, decide10,
     decide11, decide19, round3)
 from spatialsim_tpu_torch.tools.chain import Marginal
-from test_torch_jax_tools import _port, _quiet_cpu, _script
+from _jax_tools import _port, _quiet_cpu, _script
 
 N = 2048
 N_BOIDS = 1024

@@ -67,7 +67,7 @@ from spatialsim_tpu_torch.tools import (
 from spatialsim_tpu_torch.tools.chain import Marginal
 from spatialsim_tpu_torch.tools.oracle import (
     exact_accel_at, initial_conditions, sample_ids)
-from test_torch_jax_tools import _port, _quiet_cpu, _script, _to_jax
+from _jax_tools import _port, _quiet_cpu, _script, _to_jax
 
 N = 2048
 TOL = 1e-4

@@ -16,6 +16,10 @@ output compared here is integer-valued (sums of ``arange`` rows below
 * 6d returns 0 at its own table scale (1e-6: no decision fires), so the
   plain version is also held to an independent numpy oracle, and to the
   JAX probe, at scales where decisions fire.
+* The card-wide instances of 5a and 5b (``spread="card"``) sum the same
+  reads in another order: their plain versions are held to the JAX probes
+  within a stated rounding bound, and with one slice to the serial plain
+  versions bit for bit.
 """
 
 import functools
@@ -74,6 +78,73 @@ def test_row_reads(jax_probe, width):
 def test_block_read(jax_probe):
     want = jax_probe(decide15.bench_block_read, 64, 32, 2)
     _same(tp.bench_block_read(64, 32, 2, **CPU), want)
+
+
+# Slice counts of the card-wide tests: one slice, uneven slices (7 of a
+# 64-read stream: 9 and 10 reads, which no width above 1 divides), and
+# slices shorter than the widest accumulator set (32: 2 reads each).
+CARD_SLICES = (1, 7, 32)
+
+
+def _card_close(got, want, terms, rows_per_slice, slices):
+    """``got`` within ``(L + P) 2^-24 sum|terms|`` of ``want``, lane by
+    lane: each slice adds at most L rows (L its longest) in float32, the
+    second pass P partials, and each float32 add errs by at most 2^-24 of
+    a running sum no larger than ``sum|terms|`` (``terms``: the rows added,
+    in float64)."""
+    assert got.shape == want.shape and got.numpy().dtype == want.dtype
+    tol = ((rows_per_slice + slices) * 2.0 ** -24
+           * terms.abs().sum(0).numpy())
+    err = np.abs(got.double().numpy() - want.astype(np.float64))
+    assert (err <= tol).all(), (err.max(), tol.min())
+
+
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+def test_row_reads_card_plain_against_jax(jax_probe, width):
+    want = jax_probe(decide15.bench_row_reads, 64, 32, 2, width)
+    tree, idx = tp.row_inputs(64, 32, "cpu")
+    used = 32 // width * width
+    terms = tree[idx[:used].long()].double().repeat(2, 1)
+    for slices in CARD_SLICES:
+        longest = int(np.diff(tp.slice_bounds(2 * used, slices)).max())
+        for chained in (False, True):
+            got = tp.bench_row_reads(64, 32, 2, width, chained=chained,
+                                     spread="card", slices=slices, warps=1,
+                                     **CPU)
+            _card_close(got, want, terms, longest, slices)
+
+
+def test_block_read_card_plain_against_jax(jax_probe):
+    want = jax_probe(decide15.bench_block_read, 64, 32, 2)
+    tree, idx = tp.block_read_inputs(64, 32, "cpu")
+    i = idx.long()
+    terms = torch.cat([tree[i], tree[i + 1]]).double().repeat(2, 1)
+    for slices in CARD_SLICES:
+        # Two rows a read.
+        longest = 2 * int(np.diff(tp.slice_bounds(64, slices)).max())
+        for chained in (False, True):
+            got = tp.bench_block_read(64, 32, 2, chained=chained,
+                                      spread="card", slices=slices, warps=1,
+                                      **CPU)
+            _card_close(got, want, terms, longest, slices)
+
+
+def test_card_plain_with_one_slice_is_the_serial_plain_version():
+    """One slice walks the probe's reads in the probe's order, so at a
+    size where the float32 chains round (8,192 cells, 4,096 reads, 3
+    passes) it equals the one-warp plain version bit for bit; more slices
+    round otherwise."""
+    tree, idx = tp.row_inputs(8192, 4096, "cpu")
+    for width in tp.WIDTHS:
+        serial = tp.row_reads_reference(tree, idx, 3, width)
+        assert torch.equal(
+            tp.row_reads_card_reference(tree, idx, 3, width, 1), serial)
+    assert not torch.equal(
+        tp.row_reads_card_reference(tree, idx, 3, 1, 4224),
+        tp.row_reads_reference(tree, idx, 3, 1))
+    tree, idx = tp.block_read_inputs(8192, 4096, "cpu")
+    assert torch.equal(tp.block_read_card_reference(tree, idx, 3, 1),
+                       tp.block_read_reference(tree, idx, 3))
 
 
 @pytest.mark.parametrize("reps,batch", [(40, 1), (2, 4), (2, 8)])
@@ -259,11 +330,34 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         tp.iteration_core(tp.table(8, "cpu"), tp.indices(6, 12, "cpu"), 3,
                           n_iters=4)
+    # The spread: its name, a slice count only for the card-wide instance
+    # (and there a positive int), 1-32 warps a block dividing it.
+    tree, idx = tp.table(8, "cpu"), tp.indices(8, 8, "cpu")
+    for fn, args in ((tp.row_reads, (tree, idx, 1)),
+                     (tp.block_read, (tree, tp.indices(6, 8, "cpu"), 1))):
+        for kw in (dict(spread="gpu"), dict(spread="grid", slices=4),
+                   dict(spread="warp", slices=4), dict(spread="card"),
+                   dict(spread="card", slices=0),
+                   dict(spread="card", slices=-3),
+                   dict(spread="card", slices=2.0),
+                   dict(spread="card", slices=True),
+                   dict(spread="card", slices=2 ** 31),
+                   dict(spread="card", slices=4, warps=0),
+                   dict(spread="card", slices=66, warps=33),
+                   dict(spread="card", slices=4, warps=3),
+                   dict(spread="card", slices=4, warps=None)):
+            with pytest.raises(ValueError):
+                fn(*args, **kw)
     # The plain versions launch nothing.
     before = [f.launches for f in tp.KERNELS]
+    cards = (tp.row_reads.card_launches, tp.block_read.card_launches)
     tp.bench_row_reads(16, 8, 1, **CPU)
+    tp.bench_row_reads(16, 8, 1, spread="card", slices=3, warps=1, **CPU)
+    tp.bench_block_read(16, 8, 1, spread="card", slices=4, warps=2, **CPU)
     tp.probe_iteration_shapes(1, n_iters=8, reps=1, **CPU)
     assert [f.launches for f in tp.KERNELS] == before
+    assert (tp.row_reads.card_launches,
+            tp.block_read.card_launches) == cards
 
 
 def _exact_sums(probe, reps):
@@ -313,7 +407,13 @@ def test_iteration_rows_follow_the_chain():
 # The tools' entries at small sizes, built on the CPU when a case runs.
 TOOL_ENTRIES = {
     "row reads": lambda d: tool15._row_reads("r", 64, 32, 2, 2, d),
+    "row reads card": lambda d: tool15._row_reads("r", 64, 32, 2, 2, d,
+                                                  chained=True, card=True),
+    "row reads card shared": lambda d: tool15._row_reads(
+        "r", 64, 32, 2, 1, d, where="shared", card=True),
     "block read": lambda d: tool15._block_read("b", 64, 32, 2, d),
+    "block read card": lambda d: tool15._block_read("b", 64, 32, 2, d,
+                                                    card=True),
     "scalar dynsub": lambda d: tool15._scalar(
         "s", tp.scalar_load_dynsub, tp.scalar_load_dynsub_reference, 64, 32,
         2, d),
@@ -339,3 +439,18 @@ def test_tool_entries(name):
     assert (not any(bool(g.any()) for g in got)) == e["expect_zero"]
     if e["library"] is not None:
         assert torch.equal(e["library"](), got[0])
+
+
+def test_tool_sweep_holds_each_output_to_its_plain_version(monkeypatch):
+    """The tool's sweep on the CPU at two slice counts and two block
+    shapes: every output equal to the plain version of its slice count,
+    a record a (table, form, slices, warps); no launch floor off the
+    card."""
+    monkeypatch.setattr(tool15, "SWEEP_SLICES", (4, 8))
+    monkeypatch.setattr(tool15, "SWEEP_WARPS", (1, 4))
+    monkeypatch.setattr(tool15, "CARD_REPS", 1)
+    lines = []
+    res = tool15.sweep("cpu", quick=True, out=lines.append)
+    assert len(res) == 2 * 2 * 2 and all(r["equal"] for r in res)
+    assert len(lines) == 4 and "MISMATCH" not in "".join(lines)
+    assert tool15.launch_floor_ms((528, 256), "cpu") is None

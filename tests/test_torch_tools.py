@@ -3,7 +3,9 @@ and a few thousand bodies: without a card each exits 1 unless ``--device
 cpu`` is given; the oracle's and ``prof_parts``' mains print their lines;
 the staleness taus and the grown caps.  The mains of ``staleness_scan``,
 ``nbody_error``, ``nbody_error_scan``, ``quad_scan`` and ``extreme_run``
-are held to the JAX scripts they port in ``test_torch_jax_tools.py``.
+are held to the JAX scripts they port in ``test_torch_jax_tools.py``,
+``test_torch_jax_quad_tools.py``, ``test_torch_jax_stale_tools.py`` and
+``test_torch_jax_extreme_tools.py``.
 The tools' numbers on the card are in ``PERF.md``; here the wrappers
 take their plain versions because the tensors lie on the CPU.
 """
