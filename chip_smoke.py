@@ -152,9 +152,12 @@ traversal probes.
     are the kernels' times), plus the Hopper placements (chained reads,
     a shared-memory table, a table of the 1M octree's occupied cells,
     counted by the tool's ``octree_diagnostics``) and the iteration core
-    where decisions fire, and beside each row and block read its
-    card-wide instance (``spread="card"``: the reads cut into slices, one
-    warp each, over every SM), then the tool's sweep of the card-wide row
+    where decisions fire, and beside each row read, block read, row write
+    and extract8 its card-wide instance (``spread="card"``: the reads,
+    writes or visits cut into slices, one warp each, or one thread each
+    for extract8's one-hot variant, over every SM; the row write, the
+    extract8 visits and the row reads also 204,800 x 1 on the octree's
+    cells), then the tool's sweep of the card-wide row
     reads over slices x warps a block (each output equal bit for bit to
     the plain version of its slice count); ``where="shared"`` at 256 KB
     raises before any launch; then each probe against its plain version
@@ -165,9 +168,12 @@ traversal probes.
     floor (an empty launch of the same grid), and the time of one PyTorch
     call that computes the same function where there is one
     (``embedding_bag`` for the row, block and column-5 reads,
-    ``torch.roll``); the traversal's fetch estimate (the card-wide chained
-    ns a read on the octree's table times the worklist slots of a 1M
-    build); then the roll probe,
+    ``torch.roll``); the traversal estimate (``traversal_estimate``:
+    fetch, the card-wide chained ns a read on the octree's table times the
+    worklist slots of a 1M build; decode, the chained extract8 ns a visit,
+    each variant, times the same slots; emission, the row write's ns an op
+    times the build's far-list entries, an upper bound; each also less its
+    call over no reads, and their sums); then the roll probe,
     ``torch.roll`` and the roll probe through the previous launch path
     (``PreviousRollPath``) on equal terms, in 8 rounds of alternating
     order (medians compared): CUDA events over 100 back-to-back calls and
@@ -335,8 +341,10 @@ PROBE_KERNELS = {
     "row_reads": ("decide15", 64), "block_read": ("decide15", 101),
     "row_reads_card": ("decide15", 64), "block_read_card": ("decide15", 101),
     "reduce_roundtrip": ("decide15", 143), "row_write": ("decide15", 177),
+    "row_write_card": ("decide15", 177),
     "roll": ("decide15", 206), "scalar_load_dynsub": ("decide15", 239),
     "scalar_load_dyn_dyn": ("decide15", 272), "extract8": ("decide15", 325),
+    "extract8_card": ("decide15", 325),
     "smem_table": ("decide18", 60), "gated_reduce": ("decide18", 99),
     "row_store": ("decide18", 135), "iteration_core": ("decide18", 198),
 }
@@ -684,6 +692,53 @@ def report_tiles(label, launch, previous, want, ts, chosen, pairs, b_ms,
     return res
 
 
+def traversal_estimate(entries, diag, octree_cells):
+    """Phase 19's estimate of a per-group traversal kernel at 1M from the
+    card-wide probes on the octree's cells (204,800 x 1): fetch, the
+    chained row read (5a) a worklist slot; decode, the chained extract8
+    visit (5h) a slot, each variant; emission, the row write (5d) a
+    far-list entry, an upper bound (512 B rows where the cell-id finish
+    writes 4 B ids).  Each line at the probe's ns an op and less its call
+    over no reads; then their sums, one a decode variant."""
+    slots = sum(diag["wl_sizes"])
+    far = diag["far_n_mean"] * diag["ng"]
+    rows = -(-octree_cells // 16)
+
+    def card(key, label):
+        (e,) = [e for e in entries if e["key"] == key
+                and e["label"].startswith(label)]
+        net = (e["ms"] - e["no_reads_ms"]) * 1e6 / e["count"]
+        return e, net
+
+    def line(name, e, net, n, unit, what, note):
+        print(f"    traversal {name} estimate: {e['ns']:.3f} ns a {unit} "
+              f"({e['label']}) x {n:,.0f} {what} = "
+              f"{e['ns'] * n / 1e6:.3f} ms ({note}); less the call over no "
+              f"reads ({e['no_reads_ms']:.4f} ms): {net:.3f} ns a {unit}, "
+              f"{net * n / 1e6:.3f} ms")
+        return e["ns"] * n / 1e6, net * n / 1e6
+    build = "of a 1M build"
+    fetch = line("fetch", *card(
+        "row_reads_card",
+        f"row-read w1 {octree_cells} cells 204800x1 chained"), slots,
+        "read", f"worklist slots {build}", "512 B rows")
+    emit = line("emission", *card(
+        "row_write_card", f"row-write {octree_cells} cells 204800x1"), far,
+        "write", f"far-list entries {build} (far_n_mean "
+        f"{diag['far_n_mean']:.1f} x {diag['ng']:,} groups)",
+        "an upper bound: 512 B rows, where the cell-id finish writes 4 B "
+        "ids")
+    for variant in ("roll", "onehot"):
+        decode = line(f"decode ({variant})", *card(
+            "extract8_card",
+            f"extract8 ({variant}) {rows} rows 204800x1 chained"), slots,
+            "visit", f"worklist slots {build}", "8 floats of a packed cell")
+        print(f"    traversal estimate, fetch + decode ({variant}) + "
+              f"emission: {fetch[0] + decode[0] + emit[0]:.3f} ms; less "
+              f"the calls over no reads: "
+              f"{fetch[1] + decode[1] + emit[1]:.3f} ms")
+
+
 def check_probes(entries, probes):
     """Each probe of phase 19 against its plain version on the same inputs,
     bit for bit: the plain versions keep the probes' order of float32 adds
@@ -696,20 +751,22 @@ def check_probes(entries, probes):
     give 0).  ``probes`` keeps, per kernel and instance (the entry's
     ``key``), the worst error and the first entry's times and bound."""
     import torch
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
     for e in entries:
         got = e["call"]()
         if e["grid"]:
             again = e["call"]()
-            require(torch.equal(again.cpu(), got.cpu()),
+            require(all(torch.equal(a.cpu(), g.cpu())
+                        for a, g in zip(tup(again), tup(got), strict=True)),
                     (e["label"], "two calls differ"))
         torch.cuda.synchronize()
         t = time.perf_counter()
         want = e["plain"]()
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t) * 1e3
-        got = [g.cpu() for g in (got if isinstance(got, tuple) else (got,))]
-        want = [w.cpu() for w in (want if isinstance(want, tuple)
-                                  else (want,))]
+        got = [g.cpu() for g in tup(got)]
+        want = [w.cpu() for w in tup(want)]
         require([(g.shape, g.dtype) for g in got]
                 == [(w.shape, w.dtype) for w in want],
                 (e["label"], [g.shape for g in got],
@@ -3835,7 +3892,8 @@ def main() -> int:
           f"rows; worklist slots of a build (all levels): "
           f"{sum(diag['wl_sizes']):,}")
     torch.cuda.synchronize()
-    spread = (tp.row_reads, tp.block_read)   # one-warp and card-wide
+    # One-warp and card-wide instances.
+    spread = (tp.row_reads, tp.block_read, tp.row_write, tp.extract8)
     for fn in tp.KERNELS:
         fn.launches = 0
     for fn in spread:
@@ -3879,18 +3937,7 @@ def main() -> int:
           "far above its bytes-or-operations bound by design; the "
           "card-wide instances read each row as often as the probe does, "
           "where the bound counts each distinct row once)")
-    # The fetch part of a per-group traversal: the card-wide chained rate
-    # on the octree's table times the visits of a build.
-    slots = sum(diag["wl_sizes"])
-    (fetch,) = [e for e in entries if e["key"] == "row_reads_card"
-                and e["label"].startswith(
-                    f"row-read w1 {octree_cells} cells 204800x1 chained")]
-    net = (fetch["ms"] - fetch["no_reads_ms"]) * 1e6 / fetch["count"]
-    print(f"    traversal fetch estimate: {fetch['ns']:.3f} ns a read "
-          f"({fetch['label']}) x {slots:,} worklist slots of a 1M build = "
-          f"{fetch['ns'] * slots / 1e6:.3f} ms (512 B rows); less the call "
-          f"over no reads ({fetch['no_reads_ms']:.4f} ms): {net:.3f} ns a "
-          f"read, {net * slots / 1e6:.3f} ms")
+    traversal_estimate(entries, diag, octree_cells)
     # Host enqueue a call of every probe wrapper at its tool shape (the
     # first entry of each kernel and instance).
     for e in entries:

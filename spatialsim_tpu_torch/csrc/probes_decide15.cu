@@ -14,9 +14,9 @@
 // bound by design.  What bounds them on this card is the dependent-access
 // latency: L1/L2 hit latency for reads of a table that stays resident in
 // the 50 MB L2 (the TPU's 4 and 12 MB VMEM tables), device-memory latency
-// past it, and the shuffle and ALU latency of the reduce chains.  5a and
-// 5b also have card-wide instances (below the one-warp ones), which
-// spread the same reads over every SM.
+// past it, and the shuffle and ALU latency of the reduce chains.  5a, 5b,
+// 5d and 5h also have card-wide instances (below the one-warp ones), which
+// spread the same reads and writes over every SM.
 //
 // Layout: a table row is 128 float32 = 512 B = 32 lanes x float4, one
 // coalesced request a warp.  Lane l holds elements 4l .. 4l+3.
@@ -277,8 +277,9 @@ __global__ void __launch_bounds__(1024) block_read_card_kernel(
 constexpr int kSumChunk = 512;
 constexpr int kSumBatch = 16;
 
-// s + rows[0] + rows[4] + ... (n terms, stride 4: one element of a
-// float4 column), in order; loads run a batch ahead of the adds.
+// s + rows[0] + rows[S] + rows[2 S] + ... (n terms; S = 4: one element
+// of a float4 column), in order; loads run a batch ahead of the adds.
+template <int S = 4>
 __device__ __forceinline__ float serial_column(float s, const float* rows,
                                                int n) {
   constexpr int B = kSumBatch;
@@ -286,22 +287,22 @@ __device__ __forceinline__ float serial_column(float s, const float* rows,
   if (n >= B) {
     float a[B], b[B];
 #pragma unroll
-    for (int k = 0; k < B; ++k) a[k] = rows[4 * k];
+    for (int k = 0; k < B; ++k) a[k] = rows[S * k];
     i = B;  // a holds rows [i - B, i), not yet added
     for (; i + 2 * B <= n; i += 2 * B) {
 #pragma unroll
-      for (int k = 0; k < B; ++k) b[k] = rows[4 * (i + k)];
+      for (int k = 0; k < B; ++k) b[k] = rows[S * (i + k)];
 #pragma unroll
       for (int k = 0; k < B; ++k) s = __fadd_rn(s, a[k]);
 #pragma unroll
-      for (int k = 0; k < B; ++k) a[k] = rows[4 * (i + B + k)];
+      for (int k = 0; k < B; ++k) a[k] = rows[S * (i + B + k)];
 #pragma unroll
       for (int k = 0; k < B; ++k) s = __fadd_rn(s, b[k]);
     }
 #pragma unroll
     for (int k = 0; k < B; ++k) s = __fadd_rn(s, a[k]);
   }
-  for (; i < n; ++i) s = __fadd_rn(s, rows[4 * i]);
+  for (; i < n; ++i) s = __fadd_rn(s, rows[S * i]);
   return s;
 }
 
@@ -448,6 +449,41 @@ __global__ void __launch_bounds__(32) scalar_dyndyn_kernel(
   out[0] = acc;
 }
 
+// The 8 floats of cell c & 15 of a 16-cells-a-row table, two 16 B loads,
+// summed in the probe's order ((x0 + x1) + ...) + x7.
+__device__ __forceinline__ float thread_cell_sum(
+    const float4* __restrict__ tree, int c) {
+  const size_t o = (size_t)(c >> 4) * 32 + (size_t)(c & 15) * 2;
+  const float4 a = tree[o], b = tree[o + 1];
+  float s = __fadd_rn(a.x, a.y);
+  s = __fadd_rn(__fadd_rn(s, a.z), a.w);
+  s = __fadd_rn(__fadd_rn(s, b.x), b.y);
+  return __fadd_rn(__fadd_rn(s, b.z), b.w);
+}
+
+// The 8 floats of cell c & 15 from a row held as a float4 a lane, summed
+// in the probe's order; every lane of the warp returns the sum.
+__device__ __forceinline__ float warp_cell_sum(float4 row, int c, int lane) {
+  const int d = (c & 15) * 2;  // the cell's first lane
+  float4 al;                   // the roll by -base: lane l <- l + d
+  al.x = __shfl_sync(kFull, row.x, (lane + d) & 31);
+  al.y = __shfl_sync(kFull, row.y, (lane + d) & 31);
+  al.z = __shfl_sync(kFull, row.z, (lane + d) & 31);
+  al.w = __shfl_sync(kFull, row.w, (lane + d) & 31);
+  const float a0 = __shfl_sync(kFull, al.x, 0);
+  const float a1 = __shfl_sync(kFull, al.y, 0);
+  const float a2 = __shfl_sync(kFull, al.z, 0);
+  const float a3 = __shfl_sync(kFull, al.w, 0);
+  const float b0 = __shfl_sync(kFull, al.x, 1);
+  const float b1 = __shfl_sync(kFull, al.y, 1);
+  const float b2 = __shfl_sync(kFull, al.z, 1);
+  const float b3 = __shfl_sync(kFull, al.w, 1);
+  float s = __fadd_rn(a0, a1);
+  s = __fadd_rn(__fadd_rn(s, a2), a3);
+  s = __fadd_rn(__fadd_rn(s, b0), b1);
+  return __fadd_rn(__fadd_rn(s, b2), b3);
+}
+
 // 5h. Replaces decide15.py:325 bench_extract8 (body :301), both variants:
 //     a 16-cells-a-row packed table, visit c reads the 8 floats of cell
 //     c mod 16 in row c / 16 and acc += ((x0 + x1) + ...) + x7, the
@@ -468,13 +504,7 @@ __global__ void __launch_bounds__(32) extract8_thread_kernel(
     for (int i = 0; i < n_visits; ++i) {
       int c = __ldg(idx + i);
       if (CHAINED) c += (int)(acc * 0.0f);
-      const size_t o = (size_t)(c >> 4) * 32 + (size_t)(c & 15) * 2;
-      const float4 a = tree[o], b = tree[o + 1];
-      float s = __fadd_rn(a.x, a.y);
-      s = __fadd_rn(__fadd_rn(s, a.z), a.w);
-      s = __fadd_rn(__fadd_rn(s, b.x), b.y);
-      s = __fadd_rn(__fadd_rn(s, b.z), b.w);
-      acc = __fadd_rn(acc, s);
+      acc = __fadd_rn(acc, thread_cell_sum(tree, c));
     }
   }
   out[0] = acc;
@@ -491,28 +521,153 @@ __global__ void __launch_bounds__(32) extract8_warp_kernel(
       int c = __ldg(idx + i);
       if (CHAINED) c += (int)(acc * 0.0f);
       const float4 row = tree[(size_t)(c >> 4) * 32 + lane];
-      const int d = (c & 15) * 2;  // the cell's first lane
-      float4 al;                   // the roll by -base: lane l <- l + d
-      al.x = __shfl_sync(kFull, row.x, (lane + d) & 31);
-      al.y = __shfl_sync(kFull, row.y, (lane + d) & 31);
-      al.z = __shfl_sync(kFull, row.z, (lane + d) & 31);
-      al.w = __shfl_sync(kFull, row.w, (lane + d) & 31);
-      const float a0 = __shfl_sync(kFull, al.x, 0);
-      const float a1 = __shfl_sync(kFull, al.y, 0);
-      const float a2 = __shfl_sync(kFull, al.z, 0);
-      const float a3 = __shfl_sync(kFull, al.w, 0);
-      const float b0 = __shfl_sync(kFull, al.x, 1);
-      const float b1 = __shfl_sync(kFull, al.y, 1);
-      const float b2 = __shfl_sync(kFull, al.z, 1);
-      const float b3 = __shfl_sync(kFull, al.w, 1);
-      float s = __fadd_rn(a0, a1);
-      s = __fadd_rn(__fadd_rn(s, a2), a3);
-      s = __fadd_rn(__fadd_rn(s, b0), b1);
-      s = __fadd_rn(__fadd_rn(s, b2), b3);
-      acc = __fadd_rn(acc, s);
+      acc = __fadd_rn(acc, warp_cell_sum(row, c, lane));
     }
   }
   if (lane == 0) out[0] = acc;
+}
+
+// ---- Card-wide instances of 5d and 5h -----------------------------------
+//
+// As 5a's and 5b's: the probe's reps x n ops (writes or visits) form one
+// stream, op t at idx[t mod n], cut into P contiguous slices by slice_of.
+// No op is merged or skipped: a traversal can merge neither its visits nor
+// its appends.
+//
+// * 5h, use_roll = true: one warp a slice, `warps` a block; each visit
+//   reads the whole 512 B row and aligns it by shuffles, as the one-warp
+//   kernel does (16x the bytes the cell needs).  use_roll = false: one
+//   thread a slice, 32 `warps` threads a block (the last block masked);
+//   each visit is two 16 B loads, as the one-thread kernel's.  A slice
+//   sums its visits serially from 0 in float32, each visit in the probe's
+//   order ((x0 + x1) + ...) + x7; its scalar partial goes to partial[p],
+//   and sum_scalars_kernel adds the P partials serially in slice order.
+//   CHAINED: each visit's row waits on the slice's last add.
+// * 5d: one warp a slice; each write is scr[c] = 2 tree[c], one 512 B row
+//   read and written, four rows in flight a lane.  Writes to one row from
+//   different warps carry the same bits, so the table is the same in any
+//   order.  out = scr[0] is read by a second launch, after every write
+//   has landed (the one-warp kernel's lanes read back only their own).
+//
+// No float atomics: two calls give the same bits, and the plain versions
+// (ops/traversal_probes.py, extract8_card_reference and
+// row_write_card_reference) give them too.  What bounds them: the L2 (or
+// device-memory) requests in flight, and for 5h the second pass's P
+// dependent adds (~2.3 ns each: ~10 us at P = 4,224).
+
+template <bool CHAINED>
+__global__ void __launch_bounds__(1024) extract8_card_warp_kernel(
+    const float4* __restrict__ tree, const int* __restrict__ idx,
+    float* __restrict__ partial, int n_visits, long long total, int slices) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  long long t0, n;
+  slice_of(p, total, slices, &t0, &n);
+  int pos = n_visits ? static_cast<int>(t0 % n_visits) : 0;
+  float acc = 0.f;
+  for (long long k = 0; k < n; ++k) {
+    int c = __ldg(idx + pos);
+    if (++pos == n_visits) pos = 0;
+    if (CHAINED) c += (int)(acc * 0.0f);
+    const float4 row = tree[(size_t)(c >> 4) * 32 + lane];
+    acc = __fadd_rn(acc, warp_cell_sum(row, c, lane));
+  }
+  if (lane == 0) partial[p] = acc;
+}
+
+template <bool CHAINED>
+__global__ void __launch_bounds__(1024) extract8_card_thread_kernel(
+    const float4* __restrict__ tree, const int* __restrict__ idx,
+    float* __restrict__ partial, int n_visits, long long total, int slices) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= slices) return;
+  long long t0, n;
+  slice_of(p, total, slices, &t0, &n);
+  int pos = n_visits ? static_cast<int>(t0 % n_visits) : 0;
+  float acc = 0.f;
+  for (long long k = 0; k < n; ++k) {
+    int c = __ldg(idx + pos);
+    if (++pos == n_visits) pos = 0;
+    if (CHAINED) c += (int)(acc * 0.0f);
+    acc = __fadd_rn(acc, thread_cell_sum(tree, c));
+  }
+  partial[p] = acc;
+}
+
+// The second pass of 5h: out = ((0 + partial[0]) + partial[1]) + ...,
+// one serial chain.  One block: its threads stage kScalarChunk partials in
+// shared memory, coalesced, and load the next chunk while thread 0 adds
+// this one, its loads a batch ahead of its adds (serial_column): the P
+// dependent adds, not the loads' latency, set its time.
+constexpr int kScalarThreads = 1024;
+constexpr int kScalarPer = 4;  // partials a thread stages a chunk
+constexpr int kScalarChunk = kScalarThreads * kScalarPer;
+
+__global__ void __launch_bounds__(kScalarThreads) sum_scalars_kernel(
+    const float* __restrict__ partial, float* __restrict__ out, int slices) {
+  __shared__ float buf[kScalarChunk];
+  const int t = threadIdx.x;
+  float nxt[kScalarPer];
+#pragma unroll
+  for (int k = 0; k < kScalarPer; ++k) {
+    const int q = k * kScalarThreads + t;
+    nxt[k] = q < slices ? partial[q] : 0.f;
+  }
+  float s = 0.f;
+  for (int p0 = 0; p0 < slices; p0 += kScalarChunk) {
+    __syncthreads();  // thread 0 is done with the last chunk
+#pragma unroll
+    for (int k = 0; k < kScalarPer; ++k) buf[k * kScalarThreads + t] = nxt[k];
+    __syncthreads();  // buf holds partials p0 ..
+#pragma unroll
+    for (int k = 0; k < kScalarPer; ++k) {
+      const int q = p0 + kScalarChunk + k * kScalarThreads + t;
+      if (q < slices) nxt[k] = partial[q];  // in flight
+    }
+    if (t == 0) s = serial_column<1>(s, buf, min(kScalarChunk, slices - p0));
+  }
+  if (t == 0) out[0] = s;
+}
+
+constexpr int kWriteAhead = 4;  // 5d card-wide: rows in flight a lane
+
+__global__ void __launch_bounds__(1024) row_write_card_kernel(
+    const float4* __restrict__ tree, const int* __restrict__ idx,
+    float4* __restrict__ scr, int n_ops, long long total, int slices) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  long long t0, n;
+  slice_of(p, total, slices, &t0, &n);
+  int pos = n_ops ? static_cast<int>(t0 % n_ops) : 0;
+  long long k = 0;
+  for (; k + kWriteAhead <= n; k += kWriteAhead) {
+    size_t o[kWriteAhead];
+    float4 a[kWriteAhead];
+#pragma unroll
+    for (int j = 0; j < kWriteAhead; ++j) {
+      o[j] = (size_t)__ldg(idx + pos) * 32 + lane;
+      if (++pos == n_ops) pos = 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kWriteAhead; ++j) a[j] = tree[o[j]];
+#pragma unroll
+    for (int j = 0; j < kWriteAhead; ++j)
+      scr[o[j]] = make_float4(__fmul_rn(a[j].x, 2.f), __fmul_rn(a[j].y, 2.f),
+                              __fmul_rn(a[j].z, 2.f), __fmul_rn(a[j].w, 2.f));
+  }
+  for (; k < n; ++k) {  // the slice's tail
+    const size_t o = (size_t)__ldg(idx + pos) * 32 + lane;
+    if (++pos == n_ops) pos = 0;
+    const float4 a = tree[o];
+    scr[o] = make_float4(__fmul_rn(a.x, 2.f), __fmul_rn(a.y, 2.f),
+                         __fmul_rn(a.z, 2.f), __fmul_rn(a.w, 2.f));
+  }
+}
+
+// 5d's read-back: out = scr[0], launched after every write.
+__global__ void __launch_bounds__(32) copy_row_kernel(
+    const float4* __restrict__ scr, float4* __restrict__ out) {
+  out[threadIdx.x] = scr[threadIdx.x];
 }
 
 template <int W, bool CHAINED>
@@ -665,6 +820,49 @@ extern "C" int spatialsim_probe_block_read_card(
   if (e != cudaSuccess) return static_cast<int>(e);
   sum_partials_kernel<<<32, kSumChunk, 0, st>>>(
       pa, static_cast<float*>(out), slices);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatialsim_probe_extract8_card(
+    const void* tree, const int* idx, float* partial, float* out,
+    int n_visits, int reps, int use_roll, int chained, int slices, int warps,
+    void* stream) {
+  if (bad_spread(slices, warps) || n_visits < 0 || reps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* t = static_cast<const float4*>(tree);
+  const long long total = (long long)reps * n_visits;
+  const int threads = warps * 32;
+  if (use_roll) {  // a warp a slice: exactly `slices` warps
+    auto k = chained ? extract8_card_warp_kernel<true>
+                     : extract8_card_warp_kernel<false>;
+    k<<<slices / warps, threads, 0, st>>>(t, idx, partial, n_visits, total,
+                                          slices);
+  } else {         // a thread a slice
+    auto k = chained ? extract8_card_thread_kernel<true>
+                     : extract8_card_thread_kernel<false>;
+    k<<<(slices + threads - 1) / threads, threads, 0, st>>>(
+        t, idx, partial, n_visits, total, slices);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sum_scalars_kernel<<<1, kScalarThreads, 0, st>>>(partial, out, slices);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatialsim_probe_row_write_card(
+    const void* tree, const int* idx, void* scr, void* out, int n_ops,
+    int reps, int slices, int warps, void* stream) {
+  if (bad_spread(slices, warps) || n_ops < 0 || reps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float4* s = static_cast<float4*>(scr);
+  row_write_card_kernel<<<slices / warps, warps * 32, 0, st>>>(
+      static_cast<const float4*>(tree), idx, s, n_ops,
+      (long long)reps * n_ops, slices);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  copy_row_kernel<<<1, 32, 0, st>>>(s, static_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,10 +23,11 @@ Four layers, per probe:
 * the wrapper (``row_reads``, ``gated_reduce``, ...) -- takes the inputs;
   a CUDA tensor launches the kernel on the current stream (or raises) and
   adds one to the wrapper's ``launches``; a CPU tensor takes the plain
-  version.  5a and 5b also take ``spread="card"``: the same reads cut into
-  ``slices`` contiguous slices, one warp each, ``warps`` warps a block,
-  the partial rows summed in warp order (their ``card_launches`` count
-  those calls).
+  version.  5a, 5b, 5d and 5h also take ``spread="card"``: the same reads
+  or writes cut into ``slices`` contiguous slices, one warp each (one
+  thread each for 5h's one-hot variant), ``warps`` warps a block, the
+  partials summed in slice order (their ``card_launches`` count those
+  calls).
 * ``*_reference`` -- the plain version, in the probe's order of
   operations, rounding in float32 and wrapping in int32 as the TPU probe
   and the kernel do, so all three agree bit for bit.  The row sums (5a,
@@ -50,7 +51,7 @@ WHERE = ("global", "shared")
 WIDTHS = (1, 2, 4, 8)     # row-read chains: decide15's widths
 BATCHES = (1, 4, 8)       # reduce round trip: decide15's batches
 K_RUNS = (1, 2, 4)        # iteration core: decide18's runs a step
-SPREADS = ("warp", "card")  # 5a, 5b: one warp, or slices over the card
+SPREADS = ("warp", "card")  # 5a, 5b, 5d, 5h: one warp, or slices over the card
 MAX_WARPS = 32            # warps a block of the card-wide instances
 
 
@@ -196,6 +197,20 @@ def slice_bounds(total, slices) -> np.ndarray:
     """Where the card-wide instances cut a stream of ``total`` reads:
     slice p is ``[b[p], b[p + 1])``, ``b[p] = floor(p total / slices)``."""
     return np.arange(slices + 1, dtype=np.int64) * int(total) // slices
+
+
+def _card_scalar_sum(vals, total, slices):
+    """The card-wide order over a stream of ``total`` scalar terms, term
+    t ``vals[t mod len(vals)]`` (host float32): each slice summed serially
+    from 0, then the slices' partials serially in slice order.  The slices
+    are padded to one length with trailing zeros, which leave a float32
+    sum that starts at +0 unchanged."""
+    b = slice_bounds(total, slices)
+    t = b[:-1, None] + np.arange(int(np.diff(b).max()))   # (slices, L)
+    live = t < b[1:, None]
+    terms = np.zeros(t.shape, np.float32)
+    terms[live] = np.asarray(vals, np.float32)[t[live] % max(len(vals), 1)]
+    return _serial_sum(_serial_sum(terms.T))
 
 
 def _card_sum(rows, total, slices, width):
@@ -445,28 +460,52 @@ def row_write_reference(tree, idx, reps):
     return scr[0:1].clone(), scr
 
 
-def row_write(tree, idx, reps):
+def row_write_card_reference(tree, idx, reps, slices=1):
+    """The card-wide instance's function: every write carries the same
+    bits whichever slice makes it, so the table, and ``scr[0]`` read after
+    every write, are :func:`row_write_reference`'s at any ``slices``."""
+    return row_write_reference(tree, idx, reps)
+
+
+def row_write(tree, idx, reps, *, spread="warp", slices=None, warps=8):
     """5d: ``scr[idx[i]] = 2 * tree[idx[i]]`` into a zeroed scratch table;
     returns ``(scr[0], scr)``: the probe's output, and the table, which
-    holds every write (row 0 is written only where some index is 0)."""
+    holds every write (row 0 is written only where some index is 0).
+    ``spread="card"``: the ``reps x n_ops`` writes cut into ``slices``, one
+    warp each, ``warps`` a block; ``scr[0]`` read by a second launch."""
+    _check_spread("row_write", spread, slices, warps)
+    card = spread == "card"
     if not _on_card("row_write", tree, idx):
+        if card:
+            return row_write_card_reference(tree, idx, reps, slices)
         return row_write_reference(tree, idx, reps)
     _table_args("row_write", tree, idx)
     scr = torch.zeros_like(tree)
     out = torch.empty((1, ROW), dtype=torch.float32, device=tree.device)
-    _kernels.check(_kernels.entry.spatialsim_probe_row_write(
-        tree.data_ptr(), idx.data_ptr(), scr.data_ptr(), out.data_ptr(),
-        idx.shape[0], int(reps), _kernels.stream(tree)), "probe_row_write")
+    if card:
+        _kernels.check(_kernels.entry.spatialsim_probe_row_write_card(
+            tree.data_ptr(), idx.data_ptr(), scr.data_ptr(), out.data_ptr(),
+            idx.shape[0], int(reps), slices, warps, _kernels.stream(tree)),
+            "probe_row_write_card")
+        row_write.card_launches += 1
+    else:
+        _kernels.check(_kernels.entry.spatialsim_probe_row_write(
+            tree.data_ptr(), idx.data_ptr(), scr.data_ptr(), out.data_ptr(),
+            idx.shape[0], int(reps), _kernels.stream(tree)),
+            "probe_row_write")
     row_write.launches += 1
     return out, scr
 
 
 row_write.launches = 0
+row_write.card_launches = 0
 
 
-def bench_row_write(n_cells, n_ops, reps_in_kernel, *, device="cuda"):
+def bench_row_write(n_cells, n_ops, reps_in_kernel, *, spread="warp",
+                    slices=None, warps=8, device="cuda"):
     return row_write(*row_write_inputs(n_cells, n_ops, device),
-                     reps_in_kernel)
+                     reps_in_kernel, spread=spread, slices=slices,
+                     warps=warps)
 
 
 # ---- 5e. roll (decide15.py:206) ---------------------------------------------
@@ -567,38 +606,76 @@ def probe_scalar_load_dyn_dyn_retry(n_cells=8192, n_reads=4096, reps=20, *,
 
 # ---- 5h. extract8 (decide15.py:325) -----------------------------------------
 
+def _visit_sums(tree, idx) -> np.ndarray:
+    """Each visit's 8 floats ``tree[c // 16, (c % 16) 8 + k]``, c =
+    idx[i], summed in the probe's order, as host float32."""
+    c = idx.long()
+    cols = ((c % 16) * 8)[:, None] + torch.arange(8, device=c.device)
+    return _serial_sum(tree[(c // 16)[:, None], cols].T)  # (n_visits,)
+
+
 def extract8_reference(tree, idx, reps):
     """Both variants: ``sum over visits and k < 8 of
     tree[c // 16, (c % 16) 8 + k]``, c = idx[i]."""
-    c = idx.long()
-    cols = ((c % 16) * 8)[:, None] + torch.arange(8, device=c.device)
-    cells = tree[(c // 16)[:, None], cols]                 # (n_visits, 8)
-    return _scalar_sum(_serial_sum(cells.T), reps, tree.device)
+    return _scalar_sum(_visit_sums(tree, idx), reps, tree.device)
 
 
-def extract8(tree, idx, reps, *, use_roll=True, chained=False):
+def extract8_card_reference(tree, idx, reps, slices=1):
+    """The card-wide order of :func:`extract8_reference`'s sum (both
+    variants): the ``reps x n_visits`` visits as one stream cut into
+    ``slices`` (:func:`slice_bounds`), each slice's visit sums added
+    serially from 0, the partials serially in slice order, in float32.
+    ``slices=1`` is :func:`extract8_reference`'s order."""
+    out = _card_scalar_sum(_visit_sums(tree, idx), reps * idx.shape[0],
+                           slices)
+    return torch.tensor([[float(out)]], dtype=torch.float32,
+                        device=tree.device)
+
+
+def extract8(tree, idx, reps, *, use_roll=True, chained=False,
+             spread="warp", slices=None, warps=8):
     """5h: one thread's two 16 B loads (``use_roll=False``) or the warp's
     row read, shuffle alignment and shuffle sum (``use_roll=True``); both
-    give the same bits."""
+    give the same bits.  ``spread="card"``: the visits cut into ``slices``,
+    one warp each (``use_roll``) or one thread each (32 ``warps`` threads
+    a block), the partials summed in slice order by a second kernel
+    (:func:`extract8_card_reference`'s order)."""
+    _check_spread("extract8", spread, slices, warps)
+    card = spread == "card"
     if not _on_card("extract8", tree, idx):
+        if card:
+            return extract8_card_reference(tree, idx, reps, slices)
         return extract8_reference(tree, idx, reps)
     _table_args("extract8", tree, idx)
     out = torch.empty((1, 1), dtype=torch.float32, device=tree.device)
-    _kernels.check(_kernels.entry.spatialsim_probe_extract8(
-        tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-        int(reps), int(use_roll), int(chained), _kernels.stream(tree)),
-        "probe_extract8")
+    if card:
+        partial = torch.empty(slices, dtype=torch.float32,
+                              device=tree.device)
+        _kernels.check(_kernels.entry.spatialsim_probe_extract8_card(
+            tree.data_ptr(), idx.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), idx.shape[0], int(reps), int(use_roll),
+            int(chained), slices, warps, _kernels.stream(tree)),
+            "probe_extract8_card")
+        extract8.card_launches += 1
+    else:
+        _kernels.check(_kernels.entry.spatialsim_probe_extract8(
+            tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+            int(reps), int(use_roll), int(chained), _kernels.stream(tree)),
+            "probe_extract8")
     extract8.launches += 1
     return out
 
 
 extract8.launches = 0
+extract8.card_launches = 0
 
 
 def bench_extract8(n_cells=8192, n_visits=4096, reps=10, use_roll=True, *,
-                   chained=False, device="cuda"):
+                   chained=False, spread="warp", slices=None, warps=8,
+                   device="cuda"):
     return extract8(*extract8_inputs(n_cells, n_visits, device), reps,
-                    use_roll=use_roll, chained=chained)
+                    use_roll=use_roll, chained=chained, spread=spread,
+                    slices=slices, warps=warps)
 
 
 # ---- 6a. table in on-chip memory (decide18.py:60) ---------------------------

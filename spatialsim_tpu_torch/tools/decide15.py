@@ -14,14 +14,18 @@ rows (the occupied cells of the port's 1M-galaxy octree, past the 50 MB
 L2: by default counted on the card by ``build_diagnostics``; 0 skips
 them, as on the CPU).
 
-Beside each row-read and block-read line stands the card-wide instance
-of the same function (``spread="card"``: the reads cut into
-``CARD_SLICES`` slices, one warp each, ``CARD_WARPS`` warps a block; the
-shared-memory table one block of ``SHARED_WARPS`` an SM): its ns per read
-is the card's rate over that many chains at once, where the one-warp line
-is one chain's latency.  ``--sweep`` adds the card-wide row reads over
-``SWEEP_SLICES`` x ``SWEEP_WARPS``, each output held to the plain version
-of its slice count.
+Beside each row-read, block-read, row-write and extract8 line stands the
+card-wide instance of the same function (``spread="card"``: the reads,
+writes or visits cut into ``CARD_SLICES`` slices, one warp each,
+``CARD_WARPS`` warps a block; the shared-memory table one block of
+``SHARED_WARPS`` an SM; extract8's one-hot variant one thread a slice,
+``THREAD_WARPS`` warp a block): its ns per read, op or visit is the
+card's rate over that many chains at once, where the one-warp line is one
+chain's latency.  With ``--octree-cells``, row reads, row writes and
+extract8 visits also run at 204,800 x 1 on that table (extract8 on the
+same cells packed 16 a row).  ``--sweep`` adds the card-wide row reads
+over ``SWEEP_SLICES`` x ``SWEEP_WARPS``, each output held to the plain
+version of its slice count.
 
 The first line is ``nvidia-smi``'s name and power limit; then one line a
 probe: milliseconds a call by CUDA events after a warm-up (mean of
@@ -31,10 +35,11 @@ wrapper's host time, so its ``CARD_REPS`` calls are queued behind a
 sleep kernel first and the events time the card running them back to
 back (:func:`queued_ms`); the line adds the time at the host's pace.
 Then, for each card-wide grid, the launch floor (an empty launch, queued
-the same way) and the call over no reads (its launches and the second
-pass over zero partials).  ``--device cpu`` runs the plain versions on a
-host clock, a rehearsal only (``--quick`` cuts the in-kernel repetitions
-to 1).
+the same way), and for each card-wide kernel and grid the call over no
+reads (its launches, the second pass over zero partials, and for the row
+write the zeroing of its scratch table).  ``--device cpu`` runs the plain
+versions on a host clock, a rehearsal only (``--quick`` cuts the
+in-kernel repetitions to 1).
 """
 
 from __future__ import annotations
@@ -55,6 +60,8 @@ CARD_REPS = 20            # timed calls a card-wide probe or launch floor
 CARD_SLICES = 132 * 32    # P of the card-wide instances
 CARD_WARPS = 8            # their warps a block
 SHARED_WARPS = 32         # a block an SM where each stages 229,376 B
+THREAD_WARPS = 1          # extract8 one-hot: a thread a slice, 132 blocks
+PAST_L2_OPS = 204_800     # reads, writes or visits of the past-L2 tables
 SWEEP_SLICES = (132 * 8, 132 * 16, 132 * 32, 132 * 64)
 SWEEP_WARPS = (2, 4, 8, 16, 32)
 GATE_CYCLES = 20_000_000  # the sleep queued calls wait behind (~10 ms)
@@ -124,7 +131,7 @@ def distinct_rows(idx) -> int:
 
 
 def entry(label, kernel, call, plain, count, unit, ops, nbytes, *,
-          library=None, expect_zero=False, grid=None):
+          library=None, expect_zero=False, grid=None, idle=None):
     """One probe of a run: ``call()`` launches the kernel on prepared
     inputs, ``plain()`` runs the plain version (on CPU copies for the
     serial chains), ``count`` of ``unit`` per call (the script's divisor),
@@ -135,22 +142,42 @@ def entry(label, kernel, call, plain, count, unit, ops, nbytes, *,
     an entry is no check of the arithmetic, so an entry with inputs where
     it is not 0 must stand beside it).  ``grid`` (blocks, threads) marks
     a card-wide instance: its ``key`` is the kernel's name with
-    ``_card``, and its launch floor is an empty launch of that grid."""
+    ``_card``, its launch floor is an empty launch of that grid, and
+    ``idle`` is ``(name, fn)``: ``fn()`` the call over no reads, timed
+    once a name."""
     return dict(label=label, kernel=kernel, call=call, plain=plain,
                 count=count, unit=unit, ops=float(ops), nbytes=float(nbytes),
                 library=library, expect_zero=expect_zero, grid=grid,
-                key=kernel.__name__ + ("_card" if grid else ""))
+                idle=idle, key=kernel.__name__ + ("_card" if grid else ""))
 
 
-def _spread(card, shared=False):
+def _spread(card, shared=False, threads=False):
     """(label suffix, wrapper keywords, grid) of the one-warp instance or
-    of the card-wide one at ``CARD_SLICES``."""
+    of the card-wide one at ``CARD_SLICES``: one warp a slice, or one
+    thread a slice (``threads``, extract8's one-hot variant)."""
     if not card:
         return "", dict(spread="warp"), None
-    warps = SHARED_WARPS if shared else CARD_WARPS
+    warps = (THREAD_WARPS if threads else SHARED_WARPS if shared
+             else CARD_WARPS)
+    per_block = 32 * warps if threads else warps
     return (f" card P={CARD_SLICES}/{warps}",
             dict(spread="card", slices=CARD_SLICES, warps=warps),
-            (CARD_SLICES // warps, 32 * warps))
+            (-(-CARD_SLICES // per_block), 32 * warps))
+
+
+def _idle(name, kernel, tree, kw, **extra):
+    """An entry's ``idle``: ``kernel`` on ``tree`` over no indices at the
+    card-wide ``kw`` -- its launches, its second pass over zero partials
+    and whatever the call does beside them."""
+    none = torch.zeros(0, dtype=torch.int32, device=tree.device)
+    return (f"{name} P={kw['slices']}/{kw['warps']}",
+            lambda: kernel(tree, none, 1, **extra, **kw))
+
+
+def _row_reads_idle(kw, device):
+    """5a's card-wide call over no reads on a one-row table; 5b's entries
+    of the same grid share it."""
+    return _idle("row reads card", tp.row_reads, tp.table(1, device), kw)
 
 
 def _row_reads(label, n_cells, n_reads, reps, width, device, *,
@@ -169,7 +196,8 @@ def _row_reads(label, n_cells, n_reads, reps, width, device, *,
                              where=where, **kw),
         plain, used * reps, "read", 128 * used * reps,
         512 * distinct_rows(idx[:used]) + 4 * n_reads + 512,
-        library=lambda: F.embedding_bag(bag, tree, mode="sum"), grid=grid)
+        library=lambda: F.embedding_bag(bag, tree, mode="sum"), grid=grid,
+        idle=grid and _row_reads_idle(kw, device))
 
 
 def _block_read(label, n_cells, n_reads, reps, device, *, chained=False,
@@ -186,7 +214,8 @@ def _block_read(label, n_cells, n_reads, reps, device, *, chained=False,
         lambda: tp.block_read(tree, idx, reps, chained=chained, **kw),
         plain, n_reads * reps, "block", 256 * n_reads * reps,
         512 * distinct_rows(both) + 4 * n_reads + 512,
-        library=lambda: F.embedding_bag(bag, tree, mode="sum"), grid=grid)
+        library=lambda: F.embedding_bag(bag, tree, mode="sum"), grid=grid,
+        idle=grid and _row_reads_idle(kw, device))
 
 
 def _reduce_roundtrip(label, n_ops, reps, batch, device):
@@ -202,14 +231,22 @@ def _reduce_roundtrip(label, n_ops, reps, batch, device):
         steps * (2 + 383 * batch + batch), 512 + 4)
 
 
-def _row_write(label, n_cells, n_ops, reps, device):
+def _row_write(label, n_cells, n_ops, reps, device, *, card=False):
     tree, idx = tp.row_write_inputs(n_cells, n_ops, device)
+    suffix, kw, grid = _spread(card)
+    plain = ((lambda: tp.row_write_card_reference(tree, idx, reps,
+                                                  kw["slices"]))
+             if card else lambda: tp.row_write_reference(tree, idx, reps))
     return entry(
-        label, tp.row_write, lambda: tp.row_write(tree, idx, reps),
-        lambda: tp.row_write_reference(tree, idx, reps),
+        label + suffix, tp.row_write,
+        lambda: tp.row_write(tree, idx, reps, **kw), plain,
         n_ops * reps, "op", 128 * n_ops * reps,
         # The rows read, the indices, the scratch table and scr[0] written.
-        512 * distinct_rows(idx) + 4 * n_ops + 512 * n_cells + 512)
+        512 * distinct_rows(idx) + 4 * n_ops + 512 * n_cells + 512,
+        grid=grid,
+        # Over no writes the call still zeroes its n_cells-row table.
+        idle=grid and _idle(f"row write card {n_cells} rows",
+                            tp.row_write, tree, kw))
 
 
 def _roll(label, shift, device):
@@ -237,15 +274,21 @@ def _scalar(label, kernel, plain, n_cells, n_reads, reps, device, *,
 
 
 def _extract8(label, n_cells, n_visits, reps, use_roll, device, *,
-              chained=False):
+              chained=False, card=False):
     tree, idx = tp.extract8_inputs(n_cells, n_visits, device)
+    suffix, kw, grid = _spread(card, threads=not use_roll)
+    plain = ((lambda: tp.extract8_card_reference(tree, idx, reps,
+                                                 kw["slices"]))
+             if card else lambda: tp.extract8_reference(tree, idx, reps))
     return entry(
-        label, tp.extract8,
+        label + suffix, tp.extract8,
         lambda: tp.extract8(tree, idx, reps, use_roll=use_roll,
-                            chained=chained),
-        lambda: tp.extract8_reference(tree, idx, reps), n_visits * reps,
-        "visit", 8 * n_visits * reps,
-        32 * distinct_rows(idx) + 4 * n_visits + 4)
+                            chained=chained, **kw),
+        plain, n_visits * reps, "visit", 8 * n_visits * reps,
+        32 * distinct_rows(idx) + 4 * n_visits + 4, grid=grid,
+        idle=grid and _idle(
+            f"extract8 ({'roll' if use_roll else 'onehot'}) card",
+            tp.extract8, tp.table(1, device), kw, use_roll=use_roll))
 
 
 def probes(device, quick=False, octree_cells=0):
@@ -267,7 +310,8 @@ def probes(device, quick=False, octree_cells=0):
     out += [_block_read("block-read" + (" chained" if c else ""), 8192,
                         4096, r(50), device, chained=c, card=card)
             for card, c in spreads]
-    out.append(_row_write("row-write", 8192, 4096, r(50), device))
+    out += [_row_write("row-write", 8192, 4096, r(50), device, card=card)
+            for card in both]
     out.append(_roll("roll", 5, device))
     out += [_reduce_roundtrip(f"reduce-roundtrip b{b}", 4096, r(reps), b,
                               device) for b, reps in ((1, 50), (4, 50),
@@ -282,7 +326,8 @@ def probes(device, quick=False, octree_cells=0):
     for use_roll in (True, False):
         out += [_extract8(f"extract8 ({'roll' if use_roll else 'onehot'})"
                           + (" chained" if c else ""), 8192, 4096, r(10),
-                          use_roll, device, chained=c) for c in both]
+                          use_roll, device, chained=c, card=card)
+                for card, c in spreads]
     # Hopper placements of 5a: shared memory, and past the L2 (the same
     # 4096 x 50 reads, then 204,800 reads once each).
     out += [_row_reads(f"row-read w1 shared {tp.SHARED_ROWS}" +
@@ -290,11 +335,23 @@ def probes(device, quick=False, octree_cells=0):
                        r(50), 1, device, chained=c, where="shared",
                        card=card) for card, c in spreads]
     if octree_cells:
-        for n_reads, reps in ((4096, r(50)), (204_800, 1)):
+        for n_reads, reps in ((4096, r(50)), (PAST_L2_OPS, 1)):
             out += [_row_reads(
                 f"row-read w1 {octree_cells} cells {n_reads}x{reps}" +
                 (" chained" if c else ""), octree_cells, n_reads, reps, 1,
                 device, chained=c, card=card) for card, c in spreads]
+        # The append and the visit decode on the octree's cells: its
+        # table's rows, and the same cells packed 16 a row.
+        out += [_row_write(f"row-write {octree_cells} cells "
+                           f"{PAST_L2_OPS}x1", octree_cells, PAST_L2_OPS, 1,
+                           device, card=card) for card in both]
+        rows = -(-octree_cells // 16)
+        for use_roll in (True, False):
+            out += [_extract8(
+                f"extract8 ({'roll' if use_roll else 'onehot'}) {rows} rows "
+                f"{PAST_L2_OPS}x1" + (" chained" if c else ""), rows,
+                PAST_L2_OPS, 1, use_roll, device, chained=c, card=card)
+                for card, c in spreads]
     return out
 
 
@@ -312,11 +369,9 @@ def no_reads_ms(slices, warps, device, reps=CARD_REPS):
     """Milliseconds a card-wide row-read call over no reads: its launches
     and the second pass over ``slices`` zero partials."""
     device = torch.device(device)
-    tree = tp.table(1, device)
-    idx = torch.zeros(0, dtype=torch.int32, device=device)
-    return queued_ms(lambda: tp.row_reads(tree, idx, 1, spread="card",
-                                          slices=slices, warps=warps),
-                     reps, device)
+    _, fn = _row_reads_idle(dict(spread="card", slices=slices, warps=warps),
+                            device)
+    return queued_ms(fn, reps, device)
 
 
 def sweep(device, octree_cells=0, quick=False, out=print):
@@ -395,20 +450,22 @@ def run_probes(entries, device, out=print):
         e["ns"] = e["ms"] * 1e6 / e["count"]
         out(f"  {e['label']}: {e['ms']:.4f} ms, {e['ns']:.2f} "
             f"ns/{e['unit']}{paced}")
-    floors = {}
+    floors, idles = {}, {}
     for e in entries:
         grid = e["grid"]
-        if grid:
-            if grid not in floors:
-                floor = launch_floor_ms(grid, device)
-                floors[grid] = (floor, no_reads_ms(
-                    grid[0] * grid[1] // 32, grid[1] // 32, device))
-                out(f"  launch floor, an empty <<<{grid[0]}, {grid[1]}>>>: "
-                    + ("not measured (no card)" if floor is None
-                       else f"{floor:.4f} ms")
-                    + f"; the call over no reads (launches and second "
-                    f"pass): {floors[grid][1]:.4f} ms")
-            e["floor_ms"], e["no_reads_ms"] = floors[grid]
+        if not grid:
+            continue
+        if grid not in floors:
+            floors[grid] = launch_floor_ms(grid, device)
+            out(f"  launch floor, an empty <<<{grid[0]}, {grid[1]}>>>: "
+                + ("not measured (no card)" if floors[grid] is None
+                   else f"{floors[grid]:.4f} ms"))
+        name, fn = e["idle"]
+        if name not in idles:
+            idles[name] = queued_ms(fn, CARD_REPS, device)
+            out(f"  the call over no reads, {name} (launches, second "
+                f"pass, zeroing): {idles[name]:.4f} ms")
+        e["floor_ms"], e["no_reads_ms"] = floors[grid], idles[name]
     return entries
 
 

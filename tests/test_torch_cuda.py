@@ -1202,6 +1202,70 @@ def test_probe_block_read_card_matches_plain(cuda):
                        tp.block_read(tree, idx, 3))
 
 
+@pytest.mark.parametrize("use_roll", [True, False])
+def test_probe_extract8_card_matches_plain(cuda, use_roll):
+    """5h's card-wide instance (a warp a slice with ``use_roll``, else a
+    thread a slice), where the float32 chain rounds (8,192 cells, 4,096
+    visits, 3 passes): every spread, plain and chained, equal bit for bit
+    to its plain version and to a second call, each call counted once in
+    ``launches`` and ``card_launches``; one slice is the serial order, and
+    the one-warp (one-thread) instance still gives the serial plain
+    version's bits."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    tree, idx = tp.extract8_inputs(8192, 4096, cuda)
+    serial = tp.extract8_reference(tree, idx, 3).cpu()
+    failed = []
+    for chained in (False, True):
+        got = tp.extract8(tree, idx, 3, use_roll=use_roll, chained=chained)
+        if not torch.equal(got.cpu(), serial):
+            failed.append(("one-warp", chained))
+    for slices, warps in CARD_SPREADS:
+        want = tp.extract8_card_reference(tree, idx, 3, slices).cpu()
+        if slices == 1:
+            assert torch.equal(want, serial)
+        for chained in (False, True):
+            before = (tp.extract8.launches, tp.extract8.card_launches)
+            a, b = _card_twice(lambda: tp.extract8(
+                tree, idx, 3, use_roll=use_roll, chained=chained,
+                spread="card", slices=slices, warps=warps))
+            assert (tp.extract8.launches, tp.extract8.card_launches) == (
+                before[0] + 2, before[1] + 2)
+            if not (torch.equal(a, want) and torch.equal(a, b)):
+                failed.append((slices, warps, chained, float(a - want),
+                               float(a - b)))
+    assert not failed, failed
+
+
+@pytest.mark.parametrize("n_cells", [64, 8192])
+def test_probe_row_write_card_matches_plain(cuda, n_cells):
+    """5d's card-wide instance: at every spread ``scr[0]`` and the whole
+    scratch table equal the plain version and a second call bit for bit
+    (at 64 cells some index is 0, so scr[0] is a written row), each call
+    counted once; the one-warp instance's output unchanged."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    tree, idx = tp.row_write_inputs(n_cells, 4096, cuda)
+    tree = tree * torch.arange(1, n_cells + 1, dtype=torch.float32,
+                               device=cuda)[:, None]   # rows told apart
+    want = [w.cpu() for w in tp.row_write_reference(tree, idx, 3)]
+    assert all(torch.equal(g.cpu(), w)
+               for g, w in zip(tp.row_write(tree, idx, 3), want))
+    failed = []
+    for slices, warps in CARD_SPREADS:
+        before = (tp.row_write.launches, tp.row_write.card_launches)
+        calls = [tp.row_write(tree, idx, 3, spread="card", slices=slices,
+                              warps=warps) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert (tp.row_write.launches, tp.row_write.card_launches) == (
+            before[0] + 2, before[1] + 2)
+        for out, scr in calls:
+            if not (torch.equal(out.cpu(), want[0])
+                    and torch.equal(scr.cpu(), want[1])):
+                failed.append((slices, warps))
+    assert not failed, failed
+    if n_cells == 64:
+        assert bool(want[0].any())
+
+
 def test_probe_card_instances_refuse(cuda):
     """A shared table past the opt-in limit (with the card-wide
     instance's mbarrier) raises before any launch; the empty launch runs."""
@@ -1215,5 +1279,13 @@ def test_probe_card_instances_refuse(cuda):
     with pytest.raises(ValueError):
         tp.row_reads(tree, idx, 1, spread="card", slices=132, warps=5)
     assert (tp.row_reads.launches, tp.row_reads.card_launches) == before
+    spread = (tp.extract8, tp.row_write)
+    before = [(f.launches, f.card_launches) for f in spread]
+    for fn in spread:
+        for kw in (dict(spread="card", slices=132, warps=5),
+                   dict(spread="card", slices=0), dict(spread="grid")):
+            with pytest.raises(ValueError):
+                fn(tree, idx, 1, **kw)
+    assert [(f.launches, f.card_launches) for f in spread] == before
     tp.empty_launch(528, 256, tree)
     torch.cuda.synchronize()

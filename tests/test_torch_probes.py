@@ -16,10 +16,11 @@ output compared here is integer-valued (sums of ``arange`` rows below
 * 6d returns 0 at its own table scale (1e-6: no decision fires), so the
   plain version is also held to an independent numpy oracle, and to the
   JAX probe, at scales where decisions fire.
-* The card-wide instances of 5a and 5b (``spread="card"``) sum the same
-  reads in another order: their plain versions are held to the JAX probes
-  within a stated rounding bound, and with one slice to the serial plain
-  versions bit for bit.
+* The card-wide instances of 5a, 5b and 5h (``spread="card"``) sum the
+  same reads in another order: their plain versions are held to the JAX
+  probes within a stated rounding bound, and with one slice to the serial
+  plain versions bit for bit.  5d's card-wide instance writes the same
+  rows: its plain version's table equals the JAX probe's exactly.
 """
 
 import functools
@@ -145,6 +146,57 @@ def test_card_plain_with_one_slice_is_the_serial_plain_version():
     tree, idx = tp.block_read_inputs(8192, 4096, "cpu")
     assert torch.equal(tp.block_read_card_reference(tree, idx, 3, 1),
                        tp.block_read_reference(tree, idx, 3))
+
+
+@pytest.mark.parametrize("use_roll", [True, False])
+def test_extract8_card_plain_against_jax(jax_probe, use_roll):
+    """Each visit adds 7 float32 sums of its own 8 values and one into its
+    slice; a slice at most L visits, the second pass P partials.  Each add
+    errs by at most 2^-24 of a running sum no larger than S = sum|x| over
+    all visits, so the card-wide order is within (7 + L + P) 2^-24 S of
+    the exact sum and the probe's serial order within (7 + T) 2^-24 S (T
+    the visits): they differ by at most the sum of the two."""
+    want = jax_probe(decide15.bench_extract8, 64, 32, 2, use_roll)
+    tree, idx = tp.extract8_inputs(64, 32, "cpu")
+    c = idx.long()
+    cells = tree[(c // 16)[:, None], (c % 16 * 8)[:, None] + torch.arange(8)]
+    s = 2 * float(cells.double().abs().sum())
+    for slices in CARD_SLICES:
+        longest = int(np.diff(tp.slice_bounds(64, slices)).max())
+        tol = (7 + longest + slices + 7 + 64) * 2.0 ** -24 * s
+        for chained in (False, True):
+            got = tp.bench_extract8(64, 32, 2, use_roll, chained=chained,
+                                    spread="card", slices=slices, warps=1,
+                                    **CPU)
+            assert got.shape == want.shape and got.numpy().dtype == want.dtype
+            assert abs(float(got) - float(want[0, 0])) <= tol
+
+
+def test_extract8_card_plain_with_one_slice_is_the_serial_plain_version():
+    """At 8,192 cells, 4,096 visits and 3 passes the float32 chain rounds:
+    one slice equals the serial plain version bit for bit, 4,224 slices
+    round otherwise, and an empty stream sums to 0."""
+    tree, idx = tp.extract8_inputs(8192, 4096, "cpu")
+    serial = tp.extract8_reference(tree, idx, 3)
+    assert torch.equal(tp.extract8_card_reference(tree, idx, 3, 1), serial)
+    assert not torch.equal(tp.extract8_card_reference(tree, idx, 3, 4224),
+                           serial)
+    assert float(tp.extract8_card_reference(tree, idx[:0], 3, 7)) == 0.0
+
+
+def test_row_write_card_plain_is_the_probes_table(jax_probe):
+    """At 64 cells some index is 0, so scr[0] is a written row; the whole
+    table equals the JAX probe's output row and numpy's, at every slice
+    count."""
+    want = jax_probe(decide15.bench_row_write, 64, 32, 2)
+    table = np.zeros((64, 128), np.float32)
+    table[np.random.default_rng(0).integers(0, 64, 32)] = 2.0
+    assert (table[0] == 2.0).all()
+    for slices in CARD_SLICES:
+        out, scr = tp.bench_row_write(64, 32, 2, spread="card",
+                                      slices=slices, warps=1, **CPU)
+        _same(out, want)
+        np.testing.assert_array_equal(scr.numpy(), table)
 
 
 @pytest.mark.parametrize("reps,batch", [(40, 1), (2, 4), (2, 8)])
@@ -334,7 +386,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     # (and there a positive int), 1-32 warps a block dividing it.
     tree, idx = tp.table(8, "cpu"), tp.indices(8, 8, "cpu")
     for fn, args in ((tp.row_reads, (tree, idx, 1)),
-                     (tp.block_read, (tree, tp.indices(6, 8, "cpu"), 1))):
+                     (tp.block_read, (tree, tp.indices(6, 8, "cpu"), 1)),
+                     (tp.row_write, (tree, idx, 1)),
+                     (tp.extract8, (tree, tp.indices(128, 8, "cpu"), 1))):
         for kw in (dict(spread="gpu"), dict(spread="grid", slices=4),
                    dict(spread="warp", slices=4), dict(spread="card"),
                    dict(spread="card", slices=0),
@@ -350,14 +404,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                 fn(*args, **kw)
     # The plain versions launch nothing.
     before = [f.launches for f in tp.KERNELS]
-    cards = (tp.row_reads.card_launches, tp.block_read.card_launches)
+    spread = (tp.row_reads, tp.block_read, tp.row_write, tp.extract8)
+    cards = [f.card_launches for f in spread]
     tp.bench_row_reads(16, 8, 1, **CPU)
     tp.bench_row_reads(16, 8, 1, spread="card", slices=3, warps=1, **CPU)
     tp.bench_block_read(16, 8, 1, spread="card", slices=4, warps=2, **CPU)
+    tp.bench_row_write(16, 8, 1, spread="card", slices=4, warps=4, **CPU)
+    for use_roll in (True, False):
+        tp.bench_extract8(16, 8, 1, use_roll, chained=True, spread="card",
+                          slices=6, warps=3, **CPU)
     tp.probe_iteration_shapes(1, n_iters=8, reps=1, **CPU)
     assert [f.launches for f in tp.KERNELS] == before
-    assert (tp.row_reads.card_launches,
-            tp.block_read.card_launches) == cards
+    assert [f.card_launches for f in spread] == cards
 
 
 def _exact_sums(probe, reps):
@@ -418,6 +476,12 @@ TOOL_ENTRIES = {
         "s", tp.scalar_load_dynsub, tp.scalar_load_dynsub_reference, 64, 32,
         2, d),
     "row write": lambda d: tool15._row_write("w", 64, 32, 2, d),
+    "row write card": lambda d: tool15._row_write("w", 64, 32, 2, d,
+                                                  card=True),
+    "extract8 card roll": lambda d: tool15._extract8("x", 64, 32, 2, True,
+                                                     d, card=True),
+    "extract8 card onehot chained": lambda d: tool15._extract8(
+        "x", 64, 32, 2, False, d, chained=True, card=True),
     "row store": lambda d: tool18._row_store("st", 64, 32, 2, d),
     "iteration core": lambda d: tool18._iteration("i", 2, 256, 2, d),
     "iteration core where words fire": lambda d: tool18._iteration(
@@ -431,6 +495,11 @@ def test_tool_entries(name):
     plain version, the output is zero only where the entry says so, and
     the library call (one PyTorch call) gives the same sum."""
     e = TOOL_ENTRIES[name](torch.device("cpu"))
+    if e["grid"]:      # the card-wide instance's call over no reads runs
+        name_idle, idle = e["idle"]
+        assert name_idle.endswith(f"P={tool15.CARD_SLICES}/"
+                                  f"{e['grid'][1] // 32}")
+        idle()
     got, want = e["call"](), e["plain"]()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
