@@ -152,14 +152,17 @@ traversal probes.
     are the kernels' times), plus the Hopper placements (chained reads,
     a shared-memory table, a table of the 1M octree's occupied cells,
     counted by the tool's ``octree_diagnostics``) and the iteration core
-    where decisions fire, and beside each row read, block read, row write
-    and extract8 its card-wide instance (``spread="card"``: the reads,
-    writes or visits cut into slices, one warp each, or one thread each
-    for extract8's one-hot variant, over every SM; the row write, the
-    extract8 visits and the row reads also 204,800 x 1 on the octree's
-    cells), then the tool's sweep of the card-wide row
-    reads over slices x warps a block (each output equal bit for bit to
-    the plain version of its slice count); ``where="shared"`` at 256 KB
+    where decisions fire, and beside each row read, block read, row write,
+    scalar load and extract8 its card-wide instance (``spread="card"``:
+    the reads, writes or visits cut into slices, one warp each, or one
+    thread each for the scalar loads and extract8's one-hot variant, over
+    every SM; the row write, the scalar loads, the extract8 visits and the
+    row reads also 204,800 x 1 on the octree's cells), then the tool's
+    sweeps of the card-wide row reads over slices x warps a block and of
+    the card-wide 5f over slices x warps, both also on the octree's cells
+    (each output equal bit for bit to the plain version of its slice
+    count);
+    ``where="shared"`` at 256 KB
     raises before any launch; then each probe against its plain version
     on the same inputs, bit for bit (the row write's and row store's whole
     scratch tables too; each card-wide instance also to a second call of
@@ -167,10 +170,12 @@ traversal probes.
     with its bound, the card-wide instances' share of it and their launch
     floor (an empty launch of the same grid), and the time of one PyTorch
     call that computes the same function where there is one
-    (``embedding_bag`` for the row, block and column-5 reads,
+    (``embedding_bag`` for the row, block and both scalar reads,
     ``torch.roll``); the traversal estimate (``traversal_estimate``:
     fetch, the card-wide chained ns a read on the octree's table times the
-    worklist slots of a 1M build; decode, the chained extract8 ns a visit,
+    worklist slots of a 1M build, and beside it, outside the sums, the
+    card-wide chained 5f's ns a 4 B read times the same slots; decode, the
+    chained extract8 ns a visit,
     each variant, times the same slots; emission, the row write's ns an op
     times the build's far-list entries, an upper bound; each also less its
     call over no reads, and their sums); then the roll probe,
@@ -343,7 +348,10 @@ PROBE_KERNELS = {
     "reduce_roundtrip": ("decide15", 143), "row_write": ("decide15", 177),
     "row_write_card": ("decide15", 177),
     "roll": ("decide15", 206), "scalar_load_dynsub": ("decide15", 239),
-    "scalar_load_dyn_dyn": ("decide15", 272), "extract8": ("decide15", 325),
+    "scalar_load_dyn_dyn": ("decide15", 272),
+    "scalar_load_dynsub_card": ("decide15", 239),
+    "scalar_load_dyn_dyn_card": ("decide15", 272),
+    "extract8": ("decide15", 325),
     "extract8_card": ("decide15", 325),
     "smem_table": ("decide18", 60), "gated_reduce": ("decide18", 99),
     "row_store": ("decide18", 135), "iteration_core": ("decide18", 198),
@@ -699,7 +707,9 @@ def traversal_estimate(entries, diag, octree_cells):
     visit (5h) a slot, each variant; emission, the row write (5d) a
     far-list entry, an upper bound (512 B rows where the cell-id finish
     writes 4 B ids).  Each line at the probe's ns an op and less its call
-    over no reads; then their sums, one a decode variant."""
+    over no reads; then their sums, one a decode variant.  Beside the
+    fetch and outside the sums, the chained scalar load (5f) a slot: one
+    4 B attribute a slot where the fetch reads a 512 B row."""
     slots = sum(diag["wl_sizes"])
     far = diag["far_n_mean"] * diag["ng"]
     rows = -(-octree_cells // 16)
@@ -722,6 +732,14 @@ def traversal_estimate(entries, diag, octree_cells):
         "row_reads_card",
         f"row-read w1 {octree_cells} cells 204800x1 chained"), slots,
         "read", f"worklist slots {build}", "512 B rows")
+    # Beside the fetch, outside the sums: a traversal reads at least four
+    # attributes a slot (centre and size), not one.
+    line("4 B fetch", *card(
+        "scalar_load_dynsub_card",
+        f"scalar load (dyn sub, static lane) {octree_cells} cells 204800x1 "
+        "chained"), slots, "read", f"worklist slots {build}",
+        "one 4 B attribute a slot, beside the 512 B-row fetch; not in the "
+        "sums")
     emit = line("emission", *card(
         "row_write_card", f"row-write {octree_cells} cells 204800x1"), far,
         "write", f"far-list entries {build} (far_n_mean "
@@ -3892,8 +3910,9 @@ def main() -> int:
           f"rows; worklist slots of a build (all levels): "
           f"{sum(diag['wl_sizes']):,}")
     torch.cuda.synchronize()
-    # One-warp and card-wide instances.
-    spread = (tp.row_reads, tp.block_read, tp.row_write, tp.extract8)
+    # One-warp (one-thread) and card-wide instances.
+    spread = (tp.row_reads, tp.block_read, tp.row_write, tp.extract8,
+              tp.scalar_load_dynsub, tp.scalar_load_dyn_dyn)
     for fn in tp.KERNELS:
         fn.launches = 0
     for fn in spread:
@@ -3904,16 +3923,20 @@ def main() -> int:
     entries = (decide15.run("cuda", octree_cells=octree_cells, out=indent)
                + decide18.run("cuda", out=indent))
     swept = decide15.sweep("cuda", octree_cells, out=indent)
-    require(all(r["equal"] for r in swept),
-            [r for r in swept if not r["equal"]])
-    for chained in (False, True):
-        for table in dict.fromkeys(r["table"] for r in swept):
-            best = min((r for r in swept if r["table"] == table
-                        and r["chained"] == chained), key=lambda r: r["ms"])
-            print(f"    sweep's fastest, row-read w1 {table}"
-                  f"{' chained' if chained else ''}: P={best['slices']}, "
-                  f"{best['warps']} warps a block, {best['ms']:.4f} ms "
-                  f"({best['ns']:.3f} ns/read)")
+    scalar_swept = decide15.scalar_sweep("cuda", octree_cells, out=indent)
+    require(all(r["equal"] for r in swept + scalar_swept),
+            [r for r in swept + scalar_swept if not r["equal"]])
+    for label, rows in (("row-read w1", swept),
+                        ("scalar load (dyn sub)", scalar_swept)):
+        for chained in (False, True):
+            for table in dict.fromkeys(r["table"] for r in rows):
+                best = min((r for r in rows if r["table"] == table
+                            and r["chained"] == chained),
+                           key=lambda r: r["ms"])
+                print(f"    sweep's fastest, {label} {table}"
+                      f"{' chained' if chained else ''}: "
+                      f"P={best['slices']}, {best['warps']} warps a block, "
+                      f"{best['ms']:.4f} ms ({best['ns']:.3f} ns/read)")
     probe_launches = {fn.__name__: fn.launches for fn in tp.KERNELS}
     for fn in spread:
         probe_launches[fn.__name__] -= fn.card_launches

@@ -93,6 +93,8 @@ SIGNATURES = {
     "spatialsim_probe_extract8_card": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _I, _P),
     "spatialsim_probe_row_write_card": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "spatialsim_probe_scalar_load_card": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _I, _P),
     "spatialsim_probe_empty": (_I, _I, _P),
     "spatialsim_probe_reduce_roundtrip": (_P, _P, _I, _I, _I, _P),
     "spatialsim_probe_row_write": (_P, _P, _P, _P, _I, _I, _P),

@@ -15,8 +15,8 @@
 // latency: L1/L2 hit latency for reads of a table that stays resident in
 // the 50 MB L2 (the TPU's 4 and 12 MB VMEM tables), device-memory latency
 // past it, and the shuffle and ALU latency of the reduce chains.  5a, 5b,
-// 5d and 5h also have card-wide instances (below the one-warp ones), which
-// spread the same reads and writes over every SM.
+// 5d, 5f, 5g and 5h also have card-wide instances (below the one-warp and
+// one-thread ones), which spread the same reads and writes over every SM.
 //
 // Layout: a table row is 128 float32 = 512 B = 32 lanes x float4, one
 // coalesced request a warp.  Lane l holds elements 4l .. 4l+3.
@@ -670,6 +670,67 @@ __global__ void __launch_bounds__(32) copy_row_kernel(
   out[threadIdx.x] = scr[threadIdx.x];
 }
 
+// ---- Card-wide instances of 5f and 5g -----------------------------------
+//
+// As 5h's one-hot instance: the reps x n_reads reads form one stream, read
+// t at idx[t mod n_reads], cut into P contiguous slices by slice_of, one
+// thread a slice, 32 `warps` threads a block (the last block masked).  A
+// read is one 4 B load: tree[c, 5] (5f) or tree[c, (7 c) mod 128] (5g).
+// A slice sums its reads serially from +0 in float32, in stream order,
+// into partial[p]; sum_scalars_kernel adds the P partials in slice order.
+// Plain form: the loads do not depend on the sum, so a thread issues its
+// next kScalarAhead index loads, then as many table loads, before their
+// serial adds: kScalarAhead loads in flight a thread, P times that over the
+// card.  The adds stay in order, so the bits do not depend on it.  CHAINED:
+// each read's row waits on the slice's last add, one load in flight a
+// thread, P over the card.  What bounds them: the loads in flight against
+// the L2 (or device-memory) latency, then the second pass's P dependent
+// adds.
+
+constexpr int kScalarAhead = 8;  // 1-16 timed alike on an H100
+
+template <bool DYN_LANE>
+__device__ __forceinline__ float scalar_at(const float* __restrict__ tree,
+                                           int c) {
+  return tree[(size_t)c * 128 + (DYN_LANE ? ((c * 7) & 127) : 5)];
+}
+
+template <bool DYN_LANE, bool CHAINED>
+__global__ void __launch_bounds__(1024) scalar_card_kernel(
+    const float* __restrict__ tree, const int* __restrict__ idx,
+    float* __restrict__ partial, int n_reads, long long total, int slices) {
+  constexpr int U = kScalarAhead;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= slices) return;
+  long long t0, n;
+  slice_of(p, total, slices, &t0, &n);
+  int pos = n_reads ? static_cast<int>(t0 % n_reads) : 0;
+  float acc = 0.f;
+  long long k = 0;
+  if (!CHAINED) {
+    for (; k + U <= n; k += U) {
+      int c[U];
+      float v[U];
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        c[j] = __ldg(idx + pos);
+        if (++pos == n_reads) pos = 0;
+      }
+#pragma unroll
+      for (int j = 0; j < U; ++j) v[j] = scalar_at<DYN_LANE>(tree, c[j]);
+#pragma unroll
+      for (int j = 0; j < U; ++j) acc = __fadd_rn(acc, v[j]);
+    }
+  }
+  for (; k < n; ++k) {  // the plain form's tail; every chained read
+    int c = __ldg(idx + pos);
+    if (++pos == n_reads) pos = 0;
+    if (CHAINED) c += (int)(acc * 0.0f);
+    acc = __fadd_rn(acc, scalar_at<DYN_LANE>(tree, c));
+  }
+  partial[p] = acc;
+}
+
 template <int W, bool CHAINED>
 cudaError_t launch_row_reads(const float4* tree, const int* idx, float4* out,
                              int n_cells, int n_reads, int reps, int shared,
@@ -844,6 +905,26 @@ extern "C" int spatialsim_probe_extract8_card(
     k<<<(slices + threads - 1) / threads, threads, 0, st>>>(
         t, idx, partial, n_visits, total, slices);
   }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sum_scalars_kernel<<<1, kScalarThreads, 0, st>>>(partial, out, slices);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatialsim_probe_scalar_load_card(
+    const float* tree, const int* idx, float* partial, float* out,
+    int n_reads, int reps, int dyn_lane, int chained, int slices, int warps,
+    void* stream) {
+  if (bad_spread(slices, warps) || n_reads < 0 || reps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto k = dyn_lane ? (chained ? scalar_card_kernel<true, true>
+                               : scalar_card_kernel<true, false>)
+                    : (chained ? scalar_card_kernel<false, true>
+                               : scalar_card_kernel<false, false>);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = warps * 32;  // a thread a slice
+  k<<<(slices + threads - 1) / threads, threads, 0, st>>>(
+      tree, idx, partial, n_reads, (long long)reps * n_reads, slices);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   sum_scalars_kernel<<<1, kScalarThreads, 0, st>>>(partial, out, slices);

@@ -23,11 +23,11 @@ Four layers, per probe:
 * the wrapper (``row_reads``, ``gated_reduce``, ...) -- takes the inputs;
   a CUDA tensor launches the kernel on the current stream (or raises) and
   adds one to the wrapper's ``launches``; a CPU tensor takes the plain
-  version.  5a, 5b, 5d and 5h also take ``spread="card"``: the same reads
-  or writes cut into ``slices`` contiguous slices, one warp each (one
-  thread each for 5h's one-hot variant), ``warps`` warps a block, the
-  partials summed in slice order (their ``card_launches`` count those
-  calls).
+  version.  5a, 5b, 5d, 5f, 5g and 5h also take ``spread="card"``: the
+  same reads or writes cut into ``slices`` contiguous slices, one warp
+  each (one thread each for 5f, 5g and 5h's one-hot variant), ``warps``
+  warps a block, the partials summed in slice order (their
+  ``card_launches`` count those calls).
 * ``*_reference`` -- the plain version, in the probe's order of
   operations, rounding in float32 and wrapping in int32 as the TPU probe
   and the kernel do, so all three agree bit for bit.  The row sums (5a,
@@ -51,7 +51,7 @@ WHERE = ("global", "shared")
 WIDTHS = (1, 2, 4, 8)     # row-read chains: decide15's widths
 BATCHES = (1, 4, 8)       # reduce round trip: decide15's batches
 K_RUNS = (1, 2, 4)        # iteration core: decide18's runs a step
-SPREADS = ("warp", "card")  # 5a, 5b, 5d, 5h: one warp, or slices over the card
+SPREADS = ("warp", "card")  # 5a, 5b, 5d, 5f-5h: one warp, or slices over the card
 MAX_WARPS = 32            # warps a block of the card-wide instances
 
 
@@ -552,56 +552,104 @@ def _scalar_sum(vals, reps, device):
                         dtype=torch.float32, device=device)
 
 
+def _scalar_vals(tree, idx, dyn_lane):
+    """Each read's value: ``tree[c, 5]``, or ``tree[c, (7 c) mod 128]``
+    with ``dyn_lane``; c = idx[i]."""
+    i = idx.long()
+    return tree[i, (i * 7) % ROW] if dyn_lane else tree[i, 5]
+
+
 def scalar_load_dynsub_reference(tree, idx, reps):
-    return _scalar_sum(tree[idx.long(), 5], reps, tree.device)
+    return _scalar_sum(_scalar_vals(tree, idx, False), reps, tree.device)
 
 
 def scalar_load_dyn_dyn_reference(tree, idx, reps):
-    i = idx.long()
-    return _scalar_sum(tree[i, (i * 7) % ROW], reps, tree.device)
+    return _scalar_sum(_scalar_vals(tree, idx, True), reps, tree.device)
 
 
-def _scalar_load(name, counter, dyn_lane, tree, idx, reps, chained):
+def scalar_load_card_reference(tree, idx, reps, slices=1, dyn_lane=False):
+    """The card-wide order of 5f's (5g's with ``dyn_lane``) sum: the
+    ``reps x n_reads`` reads as one stream cut into ``slices``
+    (:func:`slice_bounds`), each slice's values added serially from 0, the
+    partials serially in slice order, in float32.  ``slices=1`` is the
+    serial plain version's order."""
+    out = _card_scalar_sum(_host(_scalar_vals(tree, idx, dyn_lane)),
+                           reps * idx.shape[0], slices)
+    return torch.tensor([[float(out)]], dtype=torch.float32,
+                        device=tree.device)
+
+
+def _scalar_load(counter, dyn_lane, tree, idx, reps, chained, spread,
+                 slices, warps):
+    name = counter.__name__
+    _check_spread(name, spread, slices, warps)
+    card = spread == "card"
+    if not _on_card(name, tree, idx):
+        if card:
+            return scalar_load_card_reference(tree, idx, reps, slices,
+                                              dyn_lane)
+        ref = (scalar_load_dyn_dyn_reference if dyn_lane
+               else scalar_load_dynsub_reference)
+        return ref(tree, idx, reps)
     _table_args(name, tree, idx)
     out = torch.empty((1, 1), dtype=torch.float32, device=tree.device)
-    _kernels.check(_kernels.entry.spatialsim_probe_scalar_load(
-        tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-        int(reps), int(dyn_lane), int(chained), _kernels.stream(tree)),
-        f"probe_{name}")
+    if card:
+        partial = torch.empty(slices, dtype=torch.float32,
+                              device=tree.device)
+        _kernels.check(_kernels.entry.spatialsim_probe_scalar_load_card(
+            tree.data_ptr(), idx.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), idx.shape[0], int(reps), int(dyn_lane),
+            int(chained), slices, warps, _kernels.stream(tree)),
+            f"probe_{name}_card")
+        counter.card_launches += 1
+    else:
+        _kernels.check(_kernels.entry.spatialsim_probe_scalar_load(
+            tree.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+            int(reps), int(dyn_lane), int(chained), _kernels.stream(tree)),
+            f"probe_{name}")
     counter.launches += 1
     return out
 
 
-def scalar_load_dynsub(tree, idx, reps, *, chained=False):
-    """5f: ``sum tree[idx[i], 5]``, one thread, a serial chain."""
-    if not _on_card("scalar_load_dynsub", tree, idx):
-        return scalar_load_dynsub_reference(tree, idx, reps)
-    return _scalar_load("scalar_load_dynsub", scalar_load_dynsub, False,
-                        tree, idx, reps, chained)
+def scalar_load_dynsub(tree, idx, reps, *, chained=False, spread="warp",
+                       slices=None, warps=8):
+    """5f: ``sum tree[idx[i], 5]``.  ``spread="warp"`` (the name the six
+    card-wide probes share) is one thread, a serial chain;
+    ``spread="card"``: the reads cut into ``slices``, one thread each, 32
+    ``warps`` threads a block, the partials summed in slice order by a
+    second kernel (:func:`scalar_load_card_reference`'s order)."""
+    return _scalar_load(scalar_load_dynsub, False, tree, idx, reps, chained,
+                        spread, slices, warps)
 
 
-def scalar_load_dyn_dyn(tree, idx, reps, *, chained=False):
-    """5g: ``sum tree[c, (7 c) mod 128]``, c = idx[i], one thread."""
-    if not _on_card("scalar_load_dyn_dyn", tree, idx):
-        return scalar_load_dyn_dyn_reference(tree, idx, reps)
-    return _scalar_load("scalar_load_dyn_dyn", scalar_load_dyn_dyn, True,
-                        tree, idx, reps, chained)
+def scalar_load_dyn_dyn(tree, idx, reps, *, chained=False, spread="warp",
+                        slices=None, warps=8):
+    """5g: ``sum tree[c, (7 c) mod 128]``, c = idx[i]; the spreads as
+    :func:`scalar_load_dynsub`'s."""
+    return _scalar_load(scalar_load_dyn_dyn, True, tree, idx, reps, chained,
+                        spread, slices, warps)
 
 
 scalar_load_dynsub.launches = 0
+scalar_load_dynsub.card_launches = 0
 scalar_load_dyn_dyn.launches = 0
+scalar_load_dyn_dyn.card_launches = 0
 
 
 def probe_scalar_load_dynsub(n_cells=8192, n_reads=4096, reps=20, *,
-                             chained=False, device="cuda"):
+                             chained=False, spread="warp", slices=None,
+                             warps=8, device="cuda"):
     return scalar_load_dynsub(*row_inputs(n_cells, n_reads, device), reps,
-                              chained=chained)
+                              chained=chained, spread=spread, slices=slices,
+                              warps=warps)
 
 
 def probe_scalar_load_dyn_dyn_retry(n_cells=8192, n_reads=4096, reps=20, *,
-                                    chained=False, device="cuda"):
+                                    chained=False, spread="warp",
+                                    slices=None, warps=8, device="cuda"):
     return scalar_load_dyn_dyn(*row_inputs(n_cells, n_reads, device), reps,
-                               chained=chained)
+                               chained=chained, spread=spread, slices=slices,
+                               warps=warps)
 
 
 # ---- 5h. extract8 (decide15.py:325) -----------------------------------------

@@ -14,18 +14,20 @@ rows (the occupied cells of the port's 1M-galaxy octree, past the 50 MB
 L2: by default counted on the card by ``build_diagnostics``; 0 skips
 them, as on the CPU).
 
-Beside each row-read, block-read, row-write and extract8 line stands the
-card-wide instance of the same function (``spread="card"``: the reads,
-writes or visits cut into ``CARD_SLICES`` slices, one warp each,
-``CARD_WARPS`` warps a block; the shared-memory table one block of
-``SHARED_WARPS`` an SM; extract8's one-hot variant one thread a slice,
-``THREAD_WARPS`` warp a block): its ns per read, op or visit is the
-card's rate over that many chains at once, where the one-warp line is one
-chain's latency.  With ``--octree-cells``, row reads, row writes and
-extract8 visits also run at 204,800 x 1 on that table (extract8 on the
-same cells packed 16 a row).  ``--sweep`` adds the card-wide row reads
-over ``SWEEP_SLICES`` x ``SWEEP_WARPS``, each output held to the plain
-version of its slice count.
+Beside each row-read, block-read, row-write, scalar-load and extract8
+line stands the card-wide instance of the same function
+(``spread="card"``: the reads, writes or visits cut into ``CARD_SLICES``
+slices, one warp each, ``CARD_WARPS`` warps a block; the shared-memory
+table one block of ``SHARED_WARPS`` an SM; the scalar loads and
+extract8's one-hot variant one thread a slice, ``THREAD_WARPS`` warp a
+block): its ns per read, op or visit is the card's rate over that many
+chains at once, where the one-warp or one-thread line is one chain's
+latency.  With ``--octree-cells``, row reads, row writes, scalar loads
+and extract8 visits also run at 204,800 x 1 on that table (extract8 on
+the same cells packed 16 a row).  ``--sweep`` adds the card-wide row
+reads over ``SWEEP_SLICES`` x ``SWEEP_WARPS`` and the card-wide 5f over
+``SWEEP_SLICES`` x ``SCALAR_SWEEP_WARPS``, both also on the octree's
+table, each output held to the plain version of its slice count.
 
 The first line is ``nvidia-smi``'s name and power limit; then one line a
 probe: milliseconds a call by CUDA events after a warm-up (mean of
@@ -64,6 +66,7 @@ THREAD_WARPS = 1          # extract8 one-hot: a thread a slice, 132 blocks
 PAST_L2_OPS = 204_800     # reads, writes or visits of the past-L2 tables
 SWEEP_SLICES = (132 * 8, 132 * 16, 132 * 32, 132 * 64)
 SWEEP_WARPS = (2, 4, 8, 16, 32)
+SCALAR_SWEEP_WARPS = (1, 8)  # the card-wide 5f's sweep: warps a block
 GATE_CYCLES = 20_000_000  # the sleep queued calls wait behind (~10 ms)
 
 def device_line(device) -> str:
@@ -256,21 +259,37 @@ def _roll(label, shift, device):
                  library=lambda: torch.roll(x, shift, 1))
 
 
-def _scalar(label, kernel, plain, n_cells, n_reads, reps, device, *,
-            chained=False):
+def _scalar(label, kernel, reference, n_cells, n_reads, reps, device, *,
+            chained=False, card=False):
     tree, idx = tp.row_inputs(n_cells, n_reads, device)
-    library = None
-    if kernel is tp.scalar_load_dynsub:
-        bag = idx.long().repeat(reps)[None, :]
+    dyn_lane = kernel is tp.scalar_load_dyn_dyn
+    c = idx.long()
+    if dyn_lane:
+        # The flat indices c 128 + (7 c mod 128), formed outside the call,
+        # into the table as a (n_cells 128, 1) view: one bag.
+        bag = (c * tp.ROW + (c * 7) % tp.ROW).repeat(reps)[None, :]
+
+        def library():
+            return F.embedding_bag(bag, tree.reshape(-1, 1), mode="sum")
+    else:
+        bag = c.repeat(reps)[None, :]
 
         def library():
             # Column 5 of the table as a (n_cells, 1) view: one bag.
             return F.embedding_bag(bag, tree[:, 5:6], mode="sum")
+    suffix, kw, grid = _spread(card, threads=True)
+    plain = ((lambda: tp.scalar_load_card_reference(tree, idx, reps,
+                                                   kw["slices"], dyn_lane))
+             if card else lambda: reference(tree, idx, reps))
     return entry(
-        label, kernel, lambda: kernel(tree, idx, reps, chained=chained),
-        lambda: plain(tree, idx, reps), n_reads * reps, "read",
-        n_reads * reps, 4 * distinct_rows(idx) + 4 * n_reads + 4,
-        library=library)
+        label + suffix, kernel,
+        lambda: kernel(tree, idx, reps, chained=chained, **kw), plain,
+        n_reads * reps, "read", n_reads * reps,
+        4 * distinct_rows(idx) + 4 * n_reads + 4, library=library,
+        grid=grid,
+        idle=grid and _idle(
+            f"scalar load ({'dyn lane' if dyn_lane else 'static lane'}) "
+            "card", kernel, tp.table(1, device), kw))
 
 
 def _extract8(label, n_cells, n_visits, reps, use_roll, device, *,
@@ -291,10 +310,18 @@ def _extract8(label, n_cells, n_visits, reps, use_roll, device, *,
             tp.extract8, tp.table(1, device), kw, use_roll=use_roll))
 
 
+SCALARS = (("scalar load (dyn sub, static lane)", tp.scalar_load_dynsub,
+            tp.scalar_load_dynsub_reference),
+           ("scalar load (dyn sub, dyn lane) retry", tp.scalar_load_dyn_dyn,
+            tp.scalar_load_dyn_dyn_reference))
+
+
 def probes(device, quick=False, octree_cells=0):
-    """The script's probes in its order, each with its chained form, the
-    row and block reads each with its card-wide instance beside it, then
-    the Hopper placements of the row reads."""
+    """The script's probes in its order, each with its chained form and,
+    but for the reduce round trip and the roll, its card-wide instance
+    beside it; then the Hopper placements of the row reads and, with
+    ``octree_cells``, the row reads, row writes, scalar loads and
+    extract8 visits on the octree's table."""
     r = (lambda n: 1) if quick else (lambda n: n)
     both = (False, True)
     spreads = [(card, c) for card in both for c in both]
@@ -316,13 +343,10 @@ def probes(device, quick=False, octree_cells=0):
     out += [_reduce_roundtrip(f"reduce-roundtrip b{b}", 4096, r(reps), b,
                               device) for b, reps in ((1, 50), (4, 50),
                                                       (8, 25))]
-    for name, kernel, plain in (
-            ("scalar load (dyn sub, static lane)", tp.scalar_load_dynsub,
-             tp.scalar_load_dynsub_reference),
-            ("scalar load (dyn sub, dyn lane) retry",
-             tp.scalar_load_dyn_dyn, tp.scalar_load_dyn_dyn_reference)):
+    for name, kernel, plain in SCALARS:
         out += [_scalar(name + (" chained" if c else ""), kernel, plain,
-                        8192, 4096, r(20), device, chained=c) for c in both]
+                        8192, 4096, r(20), device, chained=c, card=card)
+                for card, c in spreads]
     for use_roll in (True, False):
         out += [_extract8(f"extract8 ({'roll' if use_roll else 'onehot'})"
                           + (" chained" if c else ""), 8192, 4096, r(10),
@@ -351,6 +375,14 @@ def probes(device, quick=False, octree_cells=0):
                 f"extract8 ({'roll' if use_roll else 'onehot'}) {rows} rows "
                 f"{PAST_L2_OPS}x1" + (" chained" if c else ""), rows,
                 PAST_L2_OPS, 1, use_roll, device, chained=c, card=card)
+                for card, c in spreads]
+        # A traversal that reads one 4 B attribute a visit: the scalar
+        # loads on the octree's table.
+        for name, kernel, plain in SCALARS:
+            out += [_scalar(
+                f"{name} {octree_cells} cells {PAST_L2_OPS}x1"
+                + (" chained" if c else ""), kernel, plain, octree_cells,
+                PAST_L2_OPS, 1, device, chained=c, card=card)
                 for card, c in spreads]
     return out
 
@@ -411,6 +443,49 @@ def sweep(device, octree_cells=0, quick=False, out=print):
                     cells.append(f"{warps} warps {ms:.4f} ms"
                                  + ("" if equal else " MISMATCH"))
                 out(f"  sweep row-read w1 {name}"
+                    f"{' chained' if chained else ''} P={slices} (over no "
+                    f"reads {no_reads:.4f} ms): " + ", ".join(cells))
+    return res
+
+
+def scalar_sweep(device, octree_cells=0, quick=False, out=print):
+    """The card-wide 5f (plain and chained) at every ``SWEEP_SLICES`` x
+    ``SCALAR_SWEEP_WARPS`` on the 8K table (4,096 x 20 reads) and, given
+    ``octree_cells``, on that table (204,800 x 1); each output held to the
+    plain version of its slice count.  Prints a line a table, form and
+    slice count, with the call over no reads at that count; returns
+    ``[{table, chained, slices, warps, ms, ns, equal}]``."""
+    device = torch.device(device)
+    tables = [("8K 4096x20", 8192, 4096, 1 if quick else 20)]
+    if octree_cells:
+        tables.append((f"{octree_cells} cells {PAST_L2_OPS}x1", octree_cells,
+                       PAST_L2_OPS, 1))
+    res = []
+    for name, n_cells, n_reads, reps in tables:
+        tree, idx = tp.row_inputs(n_cells, n_reads, device)
+        for slices in SWEEP_SLICES:
+            want = tp.scalar_load_card_reference(tree, idx, reps,
+                                                 slices).cpu()
+            no_reads = queued_ms(_idle(
+                "", tp.scalar_load_dynsub, tp.table(1, device),
+                dict(spread="card", slices=slices, warps=1))[1],
+                CARD_REPS, device)
+            for chained in (False, True):
+                cells = []
+                for warps in SCALAR_SWEEP_WARPS:
+                    def fn(slices=slices, warps=warps, chained=chained):
+                        return tp.scalar_load_dynsub(
+                            tree, idx, reps, chained=chained, spread="card",
+                            slices=slices, warps=warps)
+                    equal = torch.equal(fn().cpu(), want)
+                    ms = queued_ms(fn, CARD_REPS, device)
+                    res.append(dict(table=name, chained=chained,
+                                    slices=slices, warps=warps, ms=ms,
+                                    ns=ms * 1e6 / (n_reads * reps),
+                                    equal=equal))
+                    cells.append(f"{warps} warps {ms:.4f} ms"
+                                 + ("" if equal else " MISMATCH"))
+                out(f"  sweep scalar load (dyn sub) {name}"
                     f"{' chained' if chained else ''} P={slices} (over no "
                     f"reads {no_reads:.4f} ms): " + ", ".join(cells))
     return res
@@ -488,7 +563,8 @@ def main(argv=None) -> int:
                     help="rows of the past-L2 table (default: the 1M "
                          "galaxy's octree on a card; 0 skips it)")
     ap.add_argument("--sweep", action="store_true",
-                    help="the card-wide row reads over slices x warps")
+                    help="the card-wide row reads and 5f over slices x "
+                         "warps")
     a = ap.parse_args(argv)
     cells = a.octree_cells
     if cells is None:
@@ -496,8 +572,9 @@ def main(argv=None) -> int:
         cells = (sum(octree_diagnostics(dev)["cells_per_level"])
                  if dev.type == "cuda" else 0)
     run(a.device, a.quick, cells)
-    if a.sweep and not all(r["equal"] for r in sweep(a.device, cells,
-                                                     a.quick)):
+    if a.sweep and not all(r["equal"] for r in (
+            sweep(a.device, cells, a.quick)
+            + scalar_sweep(a.device, cells, a.quick))):
         print("FAILED: a card-wide output differs from its plain version")
         return 1
     print("done")

@@ -1236,6 +1236,42 @@ def test_probe_extract8_card_matches_plain(cuda, use_roll):
     assert not failed, failed
 
 
+@pytest.mark.parametrize("dyn_lane", [False, True])
+def test_probe_scalar_load_card_matches_plain(cuda, dyn_lane):
+    """5f's (5g's with ``dyn_lane``) card-wide instance, a thread a slice,
+    where the float32 chain rounds (8,192 cells, 4,096 reads, 3 passes):
+    every spread, plain and chained, equal bit for bit to its plain
+    version and to a second call, each call counted once in ``launches``
+    and ``card_launches``; one slice is the serial order, and the
+    one-thread instance still gives the serial plain version's bits."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    fn = tp.scalar_load_dyn_dyn if dyn_lane else tp.scalar_load_dynsub
+    ref = (tp.scalar_load_dyn_dyn_reference if dyn_lane
+           else tp.scalar_load_dynsub_reference)
+    tree, idx = tp.row_inputs(8192, 4096, cuda)
+    serial = ref(tree, idx, 3).cpu()
+    failed = []
+    for chained in (False, True):
+        if not torch.equal(fn(tree, idx, 3, chained=chained).cpu(), serial):
+            failed.append(("one-thread", chained))
+    for slices, warps in CARD_SPREADS:
+        want = tp.scalar_load_card_reference(tree, idx, 3, slices,
+                                             dyn_lane).cpu()
+        if slices == 1:
+            assert torch.equal(want, serial)
+        for chained in (False, True):
+            before = (fn.launches, fn.card_launches)
+            a, b = _card_twice(lambda: fn(tree, idx, 3, chained=chained,
+                                          spread="card", slices=slices,
+                                          warps=warps))
+            assert (fn.launches, fn.card_launches) == (before[0] + 2,
+                                                       before[1] + 2)
+            if not (torch.equal(a, want) and torch.equal(a, b)):
+                failed.append((slices, warps, chained, float(a - want),
+                               float(a - b)))
+    assert not failed, failed
+
+
 @pytest.mark.parametrize("n_cells", [64, 8192])
 def test_probe_row_write_card_matches_plain(cuda, n_cells):
     """5d's card-wide instance: at every spread ``scr[0]`` and the whole
@@ -1279,7 +1315,8 @@ def test_probe_card_instances_refuse(cuda):
     with pytest.raises(ValueError):
         tp.row_reads(tree, idx, 1, spread="card", slices=132, warps=5)
     assert (tp.row_reads.launches, tp.row_reads.card_launches) == before
-    spread = (tp.extract8, tp.row_write)
+    spread = (tp.extract8, tp.row_write, tp.scalar_load_dynsub,
+              tp.scalar_load_dyn_dyn)
     before = [(f.launches, f.card_launches) for f in spread]
     for fn in spread:
         for kw in (dict(spread="card", slices=132, warps=5),

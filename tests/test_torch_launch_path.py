@@ -20,7 +20,7 @@ import torch
 from spatialsim_tpu_torch import _kernels
 from spatialsim_tpu_torch.ops import bh_eval_kernel as ek
 from spatialsim_tpu_torch.ops import traversal_probes as tp
-from spatialsim_tpu_torch.tools import eval_tiles
+from spatialsim_tpu_torch.tools import eval_tiles, same_sass
 
 _EXTERN = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
 
@@ -222,6 +222,33 @@ ptxas info    : Used 72 registers, used 1 barriers
                                            "_Z5otherv": (12, 0, 0),
                                            "cols R=8 T=1": (72, 0, 0)}
 
+
+
+def test_sass_differences_compare_kernels_addresses_aside():
+    """Two ``cuobjdump -sass`` texts: a kernel with the same instructions
+    at other addresses, in an anonymous namespace of another hash, is the
+    same; one with another instruction differs, one missing from the
+    second differs; a kernel new in the second is not one of the
+    first's."""
+    def dump(funcs):
+        return "\n".join(
+            f"\t\tFunction : {name}\n" + "\n".join(
+                f"        /*{a:04x}*/                   {t} ;"
+                for a, t in insns) for name, insns in funcs.items())
+    anon = "_ZN51_GLOBAL__N__{}_18_probes_decide15_cu_3bdf267912empty_kernelEv"
+    old = {"_Z1av": [(0, "MOV R1, c[0x0][0x28]"), (16, "EXIT")],
+           anon.format("c65e893c"): [(0, "EXIT")],
+           "_Z1bv": [(0, "LDG.E R2, desc[UR4][R2.64]"), (16, "EXIT")],
+           "_Z1cv": [(0, "EXIT")]}
+    new = {"_Z1av": [(32, "MOV R1, c[0x0][0x28]"), (48, "EXIT")],
+           anon.format("41a9956a"): [(0, "EXIT")],
+           "_Z1bv": [(0, "LDG.E.CONSTANT R2, desc[UR4][R2.64]"),
+                     (16, "EXIT")],
+           "_Z1dv": [(0, "EXIT")]}
+    assert same_sass.sass_differences(dump(old), dump(new)) == (
+        ["_Z1av", "_ZN51_GLOBAL__N__18_probes_decide15_cu_3bdf267912empty_"
+         "kernelEv", "_Z1bv", "_Z1cv"], ["_Z1bv", "_Z1cv"])
+    assert same_sass.sass_differences(dump(old), dump(old))[1] == []
 
 
 @pytest.fixture(scope="module")

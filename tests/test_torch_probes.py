@@ -16,11 +16,13 @@ output compared here is integer-valued (sums of ``arange`` rows below
 * 6d returns 0 at its own table scale (1e-6: no decision fires), so the
   plain version is also held to an independent numpy oracle, and to the
   JAX probe, at scales where decisions fire.
-* The card-wide instances of 5a, 5b and 5h (``spread="card"``) sum the
-  same reads in another order: their plain versions are held to the JAX
-  probes within a stated rounding bound, and with one slice to the serial
-  plain versions bit for bit.  5d's card-wide instance writes the same
-  rows: its plain version's table equals the JAX probe's exactly.
+* The card-wide instances of 5a, 5b, 5f, 5g and 5h (``spread="card"``)
+  sum the same reads in another order: their plain versions are held to
+  the JAX probes within a stated rounding bound (exactly for 5f and 5g at
+  the small size, where every partial sum is an integer below 2^24), and
+  with one slice to the serial plain versions bit for bit.  5d's
+  card-wide instance writes the same rows: its plain version's table
+  equals the JAX probe's exactly.
 """
 
 import functools
@@ -182,6 +184,58 @@ def test_extract8_card_plain_with_one_slice_is_the_serial_plain_version():
     assert not torch.equal(tp.extract8_card_reference(tree, idx, 3, 4224),
                            serial)
     assert float(tp.extract8_card_reference(tree, idx[:0], 3, 7)) == 0.0
+
+
+SCALAR_PROBES = ("probe_scalar_load_dynsub",
+                 "probe_scalar_load_dyn_dyn_retry")
+
+
+@pytest.mark.parametrize("probe", SCALAR_PROBES)
+def test_scalar_load_card_plain_against_jax(jax_probe, probe):
+    """At 64 cells x 32 reads x 2 every value, partial and sum is an
+    integer below 2^24 (64 reads of at most 8,191), so every float32 add
+    is exact and each slice count gives the JAX probe's output exactly."""
+    want = jax_probe(getattr(decide15, probe), 64, 32, 2)
+    for slices in CARD_SLICES:
+        for chained in (False, True):
+            _same(getattr(tp, probe)(64, 32, 2, chained=chained,
+                                     spread="card", slices=slices, warps=1,
+                                     **CPU), want)
+
+
+@pytest.mark.parametrize("probe", SCALAR_PROBES)
+def test_scalar_load_card_plain_within_its_bound_of_jax(jax_probe, probe):
+    """At 8,192 cells x 4,096 reads x 3 the float32 chains round.  A slice
+    adds at most L reads, the second pass P partials, the probe's serial
+    chain T reads; each add errs by at most 2^-24 of a running sum no
+    larger than S = sum|x| over all reads, so the card-wide order and the
+    probe's differ by at most (L + P + T) 2^-24 S."""
+    want = float(jax_probe(getattr(decide15, probe), 8192, 4096, 3)[0, 0])
+    tree, idx = tp.row_inputs(8192, 4096, "cpu")
+    vals = tp._scalar_vals(tree, idx, probe.endswith("retry")).double()
+    s = 3 * float(vals.abs().sum())
+    for slices in (*CARD_SLICES, 4224):
+        longest = int(np.diff(tp.slice_bounds(3 * 4096, slices)).max())
+        tol = (longest + slices + 3 * 4096) * 2.0 ** -24 * s
+        got = getattr(tp, probe)(8192, 4096, 3, spread="card",
+                                 slices=slices, warps=1, **CPU)
+        assert abs(float(got) - want) <= tol
+
+
+@pytest.mark.parametrize("dyn_lane", [False, True])
+def test_scalar_load_card_plain_with_one_slice_is_the_serial_plain_version(
+        dyn_lane):
+    """Where the float32 chain rounds (8,192 cells, 4,096 reads, 3
+    passes), one slice equals the serial plain version bit for bit, 4,224
+    slices round otherwise, and an empty stream sums to 0."""
+    tree, idx = tp.row_inputs(8192, 4096, "cpu")
+    serial = (tp.scalar_load_dyn_dyn_reference if dyn_lane
+              else tp.scalar_load_dynsub_reference)(tree, idx, 3)
+    card = functools.partial(tp.scalar_load_card_reference,
+                             dyn_lane=dyn_lane)
+    assert torch.equal(card(tree, idx, 3, 1), serial)
+    assert not torch.equal(card(tree, idx, 3, 4224), serial)
+    assert float(card(tree, idx[:0], 3, 7)) == 0.0
 
 
 def test_row_write_card_plain_is_the_probes_table(jax_probe):
@@ -388,7 +442,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     for fn, args in ((tp.row_reads, (tree, idx, 1)),
                      (tp.block_read, (tree, tp.indices(6, 8, "cpu"), 1)),
                      (tp.row_write, (tree, idx, 1)),
-                     (tp.extract8, (tree, tp.indices(128, 8, "cpu"), 1))):
+                     (tp.extract8, (tree, tp.indices(128, 8, "cpu"), 1)),
+                     (tp.scalar_load_dynsub, (tree, idx, 1)),
+                     (tp.scalar_load_dyn_dyn, (tree, idx, 1))):
         for kw in (dict(spread="gpu"), dict(spread="grid", slices=4),
                    dict(spread="warp", slices=4), dict(spread="card"),
                    dict(spread="card", slices=0),
@@ -404,7 +460,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                 fn(*args, **kw)
     # The plain versions launch nothing.
     before = [f.launches for f in tp.KERNELS]
-    spread = (tp.row_reads, tp.block_read, tp.row_write, tp.extract8)
+    spread = (tp.row_reads, tp.block_read, tp.row_write, tp.extract8,
+              tp.scalar_load_dynsub, tp.scalar_load_dyn_dyn)
     cards = [f.card_launches for f in spread]
     tp.bench_row_reads(16, 8, 1, **CPU)
     tp.bench_row_reads(16, 8, 1, spread="card", slices=3, warps=1, **CPU)
@@ -413,6 +470,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     for use_roll in (True, False):
         tp.bench_extract8(16, 8, 1, use_roll, chained=True, spread="card",
                           slices=6, warps=3, **CPU)
+    for probe in SCALAR_PROBES:
+        getattr(tp, probe)(16, 8, 1, chained=True, spread="card", slices=6,
+                           warps=3, **CPU)
+    tp.scalar_load_dynsub(tree, idx, 1, spread="card", slices=4, warps=4)
     tp.probe_iteration_shapes(1, n_iters=8, reps=1, **CPU)
     assert [f.launches for f in tp.KERNELS] == before
     assert [f.card_launches for f in spread] == cards
@@ -475,6 +536,15 @@ TOOL_ENTRIES = {
     "scalar dynsub": lambda d: tool15._scalar(
         "s", tp.scalar_load_dynsub, tp.scalar_load_dynsub_reference, 64, 32,
         2, d),
+    "scalar dyn dyn": lambda d: tool15._scalar(
+        "s", tp.scalar_load_dyn_dyn, tp.scalar_load_dyn_dyn_reference, 64,
+        32, 2, d),
+    "scalar dynsub card": lambda d: tool15._scalar(
+        "s", tp.scalar_load_dynsub, tp.scalar_load_dynsub_reference, 64, 32,
+        2, d, card=True),
+    "scalar dyn dyn card chained": lambda d: tool15._scalar(
+        "s", tp.scalar_load_dyn_dyn, tp.scalar_load_dyn_dyn_reference, 64,
+        32, 2, d, chained=True, card=True),
     "row write": lambda d: tool15._row_write("w", 64, 32, 2, d),
     "row write card": lambda d: tool15._row_write("w", 64, 32, 2, d,
                                                   card=True),
@@ -523,3 +593,20 @@ def test_tool_sweep_holds_each_output_to_its_plain_version(monkeypatch):
     assert len(res) == 2 * 2 * 2 and all(r["equal"] for r in res)
     assert len(lines) == 4 and "MISMATCH" not in "".join(lines)
     assert tool15.launch_floor_ms((528, 256), "cpu") is None
+
+
+def test_tool_scalar_sweep_holds_each_output_to_its_plain_version(
+        monkeypatch):
+    """The tool's 5f sweep on the CPU at two slice counts and two block
+    shapes, plain and chained, on the 8K table and a 64-row one in the
+    octree table's place: every output equal to the plain version of its
+    slice count."""
+    monkeypatch.setattr(tool15, "SWEEP_SLICES", (4, 8))
+    monkeypatch.setattr(tool15, "SCALAR_SWEEP_WARPS", (1, 4))
+    monkeypatch.setattr(tool15, "PAST_L2_OPS", 32)
+    monkeypatch.setattr(tool15, "CARD_REPS", 1)
+    lines = []
+    res = tool15.scalar_sweep("cpu", 64, quick=True, out=lines.append)
+    assert len(res) == 2 * 2 * 2 * 2 and all(r["equal"] for r in res)
+    assert {r["table"] for r in res} == {"8K 4096x20", "64 cells 32x1"}
+    assert len(lines) == 8 and "MISMATCH" not in "".join(lines)
