@@ -355,6 +355,8 @@ PROBE_KERNELS = {
     "extract8_card": ("decide15", 325),
     "smem_table": ("decide18", 60), "gated_reduce": ("decide18", 99),
     "row_store": ("decide18", 135), "iteration_core": ("decide18", 198),
+    "row_store_card": ("decide18", 135),
+    "iteration_core_card": ("decide18", 198),
 }
 
 
@@ -370,6 +372,15 @@ def phase(name):
 
 def done(t0):
     print(f"    phase seconds: {time.perf_counter() - t0:.3f}", flush=True)
+
+
+def sm_clock():
+    """``nvidia-smi``'s SM clock now and its maximum, as it prints them:
+    beside a latency probe's ns, they read as cycles."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
 
 
 def cuda_ms(fn, reps):
@@ -709,7 +720,11 @@ def traversal_estimate(entries, diag, octree_cells):
     writes 4 B ids).  Each line at the probe's ns an op and less its call
     over no reads; then their sums, one a decode variant.  Beside the
     fetch and outside the sums, the chained scalar load (5f) a slot: one
-    4 B attribute a slot where the fetch reads a 512 B row."""
+    4 B attribute a slot where the fetch reads a 512 B row; beside the
+    emission, the row store (6c) a far-list entry: a 512 B store with no
+    read; and the iteration core (6d, one run a step, where decisions
+    fire) a slot: the opening decision with its own two-row read."""
+    from spatialsim_tpu_torch.tools.decide15 import CARD_SLICES
     slots = sum(diag["wl_sizes"])
     far = diag["far_n_mean"] * diag["ng"]
     rows = -(-octree_cells // 16)
@@ -746,6 +761,18 @@ def traversal_estimate(entries, diag, octree_cells):
         f"{diag['far_n_mean']:.1f} x {diag['ng']:,} groups)",
         "an upper bound: 512 B rows, where the cell-id finish writes 4 B "
         "ids")
+    # Beside the emission and the fetch, outside the sums.
+    line("store-only emission", *card(
+        "row_store_card", f"row-store {octree_cells} cells 204800x1"), far,
+        "store", f"far-list entries {build}",
+        "512 B row stores with no read, beside the read-and-write emission "
+        "line; not in the sums")
+    line("opening decision", *card(
+        "iteration_core_card",
+        f"iter-core k1 at 2^18 x 1e-6 card P={CARD_SLICES}/"), slots,
+        "run", f"worklist slots {build}",
+        "the opening test and decision word with its own two-row read, "
+        "8,192-row table; not in the sums")
     for variant in ("roll", "onehot"):
         decode = line(f"decode ({variant})", *card(
             "extract8_card",
@@ -791,9 +818,15 @@ def check_probes(entries, probes):
                  [w.shape for w in want]))
         abs_err = max(float((g.double() - w.double()).abs().max())
                       for g, w in zip(got, want))
-        library_ms = cuda_ms(e["library"], 3) if e["library"] else None
+        # A library call held to the plain version's bits (the row
+        # store's index_put_) stands only where it gives them.
+        exact = not e["library_exact"] or (e["library"] and torch.equal(
+            e["library"]().cpu(), want[-1]))
+        library_ms = (cuda_ms(e["library"], 3) if e["library"] and exact
+                      else None)
         b_ms, b_by = bound(e["ops"], e["nbytes"])
-        lib = ("" if library_ms is None
+        lib = ("; library call: none, it differs from the plain version"
+               if not exact else "" if library_ms is None
                else f"; library call {library_ms:.4f} ms")
         table = "".join(f"; table {tuple(g.shape)}: "
                         f"{int((g != 0).any(1).sum())} rows written"
@@ -3912,7 +3945,15 @@ def main() -> int:
     torch.cuda.synchronize()
     # One-warp (one-thread) and card-wide instances.
     spread = (tp.row_reads, tp.block_read, tp.row_write, tp.extract8,
-              tp.scalar_load_dynsub, tp.scalar_load_dyn_dyn)
+              tp.scalar_load_dynsub, tp.scalar_load_dyn_dyn, tp.row_store,
+              tp.iteration_core)
+    print(f"    SM clock before the probes: {sm_clock()}")
+    # Registers and spills of 6c's and 6d's card-wide kernels (phase 1's
+    # build).
+    for label, (regs, st, ld) in ptxas.items():
+        if "_card_kernel" in label and "probes_decide18" in label:
+            print(f"    ptxas [{label.split('probes_decide18_cu_')[-1]}]: "
+                  f"{regs} registers, spills {st} B stored, {ld} B loaded")
     for fn in tp.KERNELS:
         fn.launches = 0
     for fn in spread:
@@ -3921,7 +3962,8 @@ def main() -> int:
     def indent(s):
         print("    " + s)
     entries = (decide15.run("cuda", octree_cells=octree_cells, out=indent)
-               + decide18.run("cuda", out=indent))
+               + decide18.run("cuda", out=indent, octree_cells=octree_cells))
+    print(f"    SM clock after the probes: {sm_clock()}")
     swept = decide15.sweep("cuda", octree_cells, out=indent)
     scalar_swept = decide15.scalar_sweep("cuda", octree_cells, out=indent)
     require(all(r["equal"] for r in swept + scalar_swept),
@@ -3960,6 +4002,19 @@ def main() -> int:
           "far above its bytes-or-operations bound by design; the "
           "card-wide instances read each row as often as the probe does, "
           "where the bound counts each distinct row once)")
+    # 6d's redesigned chain (the card-wide instance at one slice) beside
+    # the one-warp kernel on the same inputs: the same int32.
+    cores = {e["label"]: e for e in entries
+             if e["kernel"] is tp.iteration_core}
+    for label, e in cores.items():
+        if e["grid"]:
+            continue
+        one = cores[f"{label} card P=1/1"]
+        got, want = one["call"]().cpu(), e["call"]().cpu()
+        require(torch.equal(got, want), (label, "one slice", got, want))
+        print(f"    {label}: one slice {one['ns']:.2f} ns/run, the one-warp "
+              f"kernel {e['ns']:.2f} ({one['ns'] / e['ns']:.3f}x), both "
+              f"{int(got)}")
     traversal_estimate(entries, diag, octree_cells)
     # Host enqueue a call of every probe wrapper at its tool shape (the
     # first entry of each kernel and instance).

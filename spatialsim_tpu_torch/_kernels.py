@@ -105,6 +105,10 @@ SIGNATURES = {
     "spatialsim_probe_gated_reduce": (_P, _P, _I, _I, _I, _P),
     "spatialsim_probe_row_store": (_P, _P, _P, _I, _I, _P),
     "spatialsim_probe_iteration_core": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "spatialsim_probe_row_store_card": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _P),
+    "spatialsim_probe_iteration_core_card": (_P, _P, _P, _P, _I, _I, _I, _I,
+                                             _I, _I, _P),
 }
 
 _lib = None

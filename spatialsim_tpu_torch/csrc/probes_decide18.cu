@@ -11,6 +11,10 @@
 // Integer chains wrap in int32 as the TPU's do (added as unsigned), and
 // `%` is the floor modulo of jnp (`fmod_floor`), so a negative value
 // would take the same residue as on the TPU.
+//
+// 6c and 6d also have card-wide instances (below the one-warp ones), as
+// 5a-5h in probes_decide15.cu: the probe's stores or steps as one stream
+// cut into P slices, one warp a slice.
 
 #include <cuda_runtime.h>
 
@@ -202,6 +206,311 @@ __global__ void __launch_bounds__(32) iteration_core_kernel(
   if (lane == 0) out[0] = acc;
 }
 
+// ---- Card-wide instances of 6c and 6d -----------------------------------
+
+// Slice p of a stream of `total` stores or steps cut into `slices`: its
+// first element and its length (probes_decide15.cu's slice_of).
+__device__ __forceinline__ void slice_of(int p, long long total, int slices,
+                                         long long* t0, long long* n) {
+  *t0 = (long long)p * total / slices;
+  *n = (long long)(p + 1) * total / slices - *t0;
+}
+
+// 6c, card-wide.  Pass 1: last[r] = the largest i with idx[i] = r, by
+// atomicMax into a table set to -1; a maximum does not depend on the
+// order the atomics land in.
+__global__ void __launch_bounds__(256) last_writer_kernel(
+    const int* __restrict__ idx, int* __restrict__ last, int n_ops) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_ops) atomicMax(last + idx[i], i);
+}
+
+constexpr int kStoreAhead = 4;  // 6c card-wide: rows in flight a lane
+
+// Pass 2: the reps x n_ops stores as one stream, store t to row
+// r = idx[t mod n_ops], cut into slices by slice_of, one warp a slice
+// (blockDim.x / 32 warps a block, exactly `slices` warps).  Every store
+// to r writes the bits its last writer writes, iota + last[r] (its 4 B
+// read of last from an n_cells-entry table), so the table is the plain
+// version's whatever order the stores land in.  What bounds it: the 512 B
+// stores (and their index and last reads), kStoreAhead in flight a lane.
+__global__ void __launch_bounds__(1024) row_store_card_kernel(
+    const int* __restrict__ idx, const int* __restrict__ last,
+    float4* __restrict__ scr, int n_ops, long long total, int slices) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const float b = (float)(4 * lane);
+  long long t0, n;
+  slice_of(p, total, slices, &t0, &n);
+  int pos = n_ops ? static_cast<int>(t0 % n_ops) : 0;
+  long long k = 0;
+  for (; k + kStoreAhead <= n; k += kStoreAhead) {
+    int r[kStoreAhead];
+    float f[kStoreAhead];
+#pragma unroll
+    for (int j = 0; j < kStoreAhead; ++j) {
+      r[j] = __ldg(idx + pos);
+      if (++pos == n_ops) pos = 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kStoreAhead; ++j) f[j] = (float)__ldg(last + r[j]);
+#pragma unroll
+    for (int j = 0; j < kStoreAhead; ++j)
+      scr[(size_t)r[j] * 32 + lane] =
+          make_float4(__fadd_rn(b, f[j]), __fadd_rn(b + 1.f, f[j]),
+                      __fadd_rn(b + 2.f, f[j]), __fadd_rn(b + 3.f, f[j]));
+  }
+  for (; k < n; ++k) {  // the slice's tail
+    const int r = __ldg(idx + pos);
+    if (++pos == n_ops) pos = 0;
+    const float f = (float)__ldg(last + r);
+    scr[(size_t)r * 32 + lane] =
+        make_float4(__fadd_rn(b, f), __fadd_rn(b + 1.f, f),
+                    __fadd_rn(b + 2.f, f), __fadd_rn(b + 3.f, f));
+  }
+}
+
+// 6c's read-back: out = scr[0], launched after every store.
+__global__ void __launch_bounds__(32) copy_row_kernel(
+    const float4* __restrict__ scr, float4* __restrict__ out) {
+  out[threadIdx.x] = scr[threadIdx.x];
+}
+
+// 6d, card-wide, with its reads off the chain.  The reps x n_iters steps
+// form one stream, step t at i = t mod n_iters, cut into slices by
+// slice_of, one warp a slice; each slice runs the probe's chain from
+// acc = 0 over its steps, each step exactly as iteration_core_kernel's,
+// and sum_ints_kernel adds the slices' results.  One slice is the
+// probe's function: a redesign of the one-warp kernel's chain.
+//
+// A step waits on acc only through a3 = acc mod 3, so run q's start is
+// one of s0, s0 + 1, s0 + 2 (s0 = idx[i K + q]) and every row it can read
+// is known before acc is: rows (s div 16) mod (n_cells - 2) and the row
+// after, for those three s.  The warp loads them kIterAhead steps before
+// the chain reaches the step (and the step's indices one step before
+// that), with no branch: R0, R1 = r0, r0 + 1; R2 = r0 + 2 where s0 + 2
+// crosses a multiple of 16, or R2, R3 = r2, r2 + 1 where r2 wraps at
+// n_cells - 2 (or s0 + 2 wraps in int32); the loads not needed repeat R0
+// and R1 (the same lines).  Start a reads pair p_a, (R0, R1), (R1, R2) or
+// (R2, R3); byte a of a run's meta is d_a | p_a << 5, d_a = (s mod 16) 2.
+// The modulo by n_cells - 2 is a multiply by a reciprocal taken once a
+// thread.  So acc's path holds no load and no division: a3 (a multiply),
+// the byte of a3 (PRMT), the row selects, the six alignment shuffles and
+// the seventh for cxv, the opening test, the ballot, % 5 (a multiply) and
+// the adds.  Only .x, .z and .w of a row are used.
+//
+// What bounds it: one warp issues in order, so a step costs its
+// instructions (~110 at K = 1) and the stalls of that path, and the loads
+// only where kIterAhead steps take less than their latency.  K = 4 holds
+// three steps of four runs' four rows: 230 registers (K = 1: 74), so at
+// most 8 warps a block (the wrapper refuses more).  The selects are PTX
+// selp: written as ?: the compiler made some of them divergent branches.
+constexpr int kIterWarps = 8;
+constexpr int kIterAhead = 2;  // steps whose rows are loaded ahead
+
+__device__ __forceinline__ float fsel(bool c, float a, float b) {
+  float r;
+  asm("{\n .reg .pred p;\n setp.ne.u32 p, %3, 0;\n selp.f32 %0, %1, %2, p;\n}"
+      : "=f"(r) : "f"(a), "f"(b), "r"(static_cast<unsigned>(c)));
+  return r;
+}
+
+__device__ __forceinline__ int isel(bool c, int a, int b) {
+  int r;
+  asm("{\n .reg .pred p;\n setp.ne.u32 p, %3, 0;\n selp.b32 %0, %1, %2, p;\n}"
+      : "=r"(r) : "r"(a), "r"(b), "r"(static_cast<unsigned>(c)));
+  return r;
+}
+
+// Floor modulo by m (1 <= m <= 2^26) of f in [-2^27, 2^27): with B a
+// multiple of m >= 2^27, n = f + B lies in [0, 2^29), where
+// umulhi(n, floor((2^32 - 1) / m)) is floor(n / m) or one less.
+struct ModM {
+  unsigned m, inv, bias;
+};
+
+__device__ __forceinline__ ModM mod_of(int m) {
+  ModM d;
+  d.m = static_cast<unsigned>(m);
+  d.inv = 0xffffffffu / d.m;
+  d.bias = d.m * ((0x8000000u + d.m - 1) / d.m);
+  return d;
+}
+
+__device__ __forceinline__ int mod_m(int f, ModM d) {
+  const unsigned n = static_cast<unsigned>(f) + d.bias;
+  const unsigned r = n - __umulhi(n, d.inv) * d.m;
+  return static_cast<int>(r >= d.m ? r - d.m : r);
+}
+
+// fmod_floor(a, 3) without a branch: 2^32 = 1 mod 3.
+__device__ __forceinline__ int mod3(int a) {
+  const unsigned u = static_cast<unsigned>(a);
+  const int r = static_cast<int>(u - 3u * (__umulhi(u, 0xAAAAAAABu) >> 1));
+  return isel(a >= 0, r, isel(r == 0, 2, r - 1));
+}
+
+template <int K>
+struct IterRows {
+  float x[K][4], z[K][4], w[K][4];  // this lane's elements of R0-R3
+  unsigned meta[K];                 // byte a: d_a | p_a << 5
+};
+
+template <int K>
+__device__ __forceinline__ void load_step(const float4* __restrict__ tree,
+                                          const int (&s0)[K], ModM mm,
+                                          int rwrap, int lane,
+                                          IterRows<K>& st) {
+  const int m = static_cast<int>(mm.m);
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int s = s0[q];
+    const int s1 = wrap_add(s, 1), s2 = wrap_add(s, 2);
+    const int f0 = s >> 4, f1 = s1 >> 4, f2 = s2 >> 4;  // floor(s / 16)
+    const int r0 = mod_m(f0, mm);
+    const int r2 = isel(f2 == f0, r0,
+                        isel(f2 == f0 + 1, isel(r0 + 1 == m, 0, r0 + 1),
+                             rwrap));
+    const int p2 = isel(r2 == r0, 0, isel(r2 == r0 + 1, 1, 2));
+    const int p1 = isel(f1 == f0, 0, p2);
+    st.meta[q] = static_cast<unsigned>((s & 15) * 2) |
+                 static_cast<unsigned>((s1 & 15) * 2 | p1 << 5) << 8 |
+                 static_cast<unsigned>((s2 & 15) * 2 | p2 << 5) << 16;
+    const int rc = isel(p2 == 1, r0 + 2, isel(p2 == 2, r2, r0));
+    const int re = isel(p2 == 2, r2 + 1, r0 + 1);
+    const float4 a = __ldg(tree + (r0 * 32 + lane));
+    const float4 b = __ldg(tree + ((r0 + 1) * 32 + lane));
+    const float4 c = __ldg(tree + (rc * 32 + lane));
+    const float4 e = __ldg(tree + (re * 32 + lane));
+    st.x[q][0] = a.x; st.z[q][0] = a.z; st.w[q][0] = a.w;
+    st.x[q][1] = b.x; st.z[q][1] = b.z; st.w[q][1] = b.w;
+    st.x[q][2] = c.x; st.z[q][2] = c.z; st.w[q][2] = c.w;
+    st.x[q][3] = e.x; st.z[q][3] = e.z; st.w[q][3] = e.w;
+  }
+}
+
+__device__ __forceinline__ float pick_row(int p, const float (&v)[4],
+                                          int hi) {  // v[p + hi]
+  return fsel(p == 0, v[hi], fsel(p == 1, v[1 + hi], v[2 + hi]));
+}
+
+// A step's decision chain once a3 is known; returns the sum of its K
+// words mod 5.  __shfl_sync takes the source lane mod 32.
+template <int K>
+__device__ __forceinline__ int decide_step(int lane, bool weighted, int a3,
+                                           const IterRows<K>& cur) {
+  int add = 0;
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const unsigned byte = __byte_perm(cur.meta[q], 0, a3);
+    const int d = byte & 31, p = (byte >> 5) & 3;
+    const int src = lane + d;
+    const bool first = src < 32;
+    const float x0 = __shfl_sync(kFull, pick_row(p, cur.x[q], 0), src);
+    const float x1 = __shfl_sync(kFull, pick_row(p, cur.x[q], 1), src);
+    const float z0 = __shfl_sync(kFull, pick_row(p, cur.z[q], 0), src);
+    const float z1 = __shfl_sync(kFull, pick_row(p, cur.z[q], 1), src);
+    const float w0 = __shfl_sync(kFull, pick_row(p, cur.w[q], 0), src);
+    const float w1 = __shfl_sync(kFull, pick_row(p, cur.w[q], 1), src);
+    const float al = fsel(first, x0, x1);     // element 4 lane
+    const float bsv = fsel(first, z0, z1);    // element 4 lane + 2
+    const float bev = fsel(first, w0, w1);    // element 4 lane + 3
+    const float cxv = __shfl_sync(kFull, al, lane + 1);  // + 4
+    // The terms that do not wait on cxv first, combined without branches.
+    const bool live = weighted & (bev > bsv) & (bsv > 100.0f);
+    const bool near = __fsub_rn(bev, bsv) <= 1.0f;
+    const float gx = fmaxf(__fsub_rn(1.0f, cxv), __fsub_rn(cxv, 2.0f));
+    const float dmin = __fadd_rn(__fmul_rn(gx, gx), 1.0f);
+    const bool em = live & (near | (al < __fmul_rn(0.64f, dmin)));
+    const unsigned word = __ballot_sync(kFull, em) & 0x5555u;
+    // word % 5 for word < 2^16: 0x33333334 = (2^32 + 4) / 5.
+    add = wrap_add(add, static_cast<int>(
+                            word - 5u * __umulhi(word, 0x33333334u)));
+  }
+  return add;
+}
+
+template <int K>
+__device__ __forceinline__ void next_starts(const int* __restrict__ idx,
+                                            int n_iters, int (&nxt)[K],
+                                            int& pos) {
+#pragma unroll
+  for (int q = 0; q < K; ++q) nxt[q] = __ldg(idx + pos * K + q);
+  if (++pos == n_iters) pos = 0;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kIterWarps * 32) iteration_core_card_kernel(
+    const float4* __restrict__ tree, const int* __restrict__ idx,
+    int* __restrict__ partial, int n_cells, int n_iters, long long total,
+    int slices) {
+  constexpr int R = kIterAhead + 1;  // row sets: the step's and those ahead
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const bool weighted = ((lane & 1) == 0) && lane < 16;
+  const ModM mm = mod_of(n_cells - 2);
+  const int rwrap = mod_m(-(1 << 27), mm);  // the row of a wrapped s + 2
+  long long t0, n;
+  slice_of(p, total, slices, &t0, &n);
+  int acc = 0;
+  if (n > 0) {
+    // Past the slice's end the loads read steps of the stream (i wraps),
+    // unused.
+    int pos = static_cast<int>(t0 % n_iters);
+    int nxt[K];
+    IterRows<K> rows[R];
+#pragma unroll
+    for (int j = 0; j < kIterAhead; ++j) {
+      next_starts<K>(idx, n_iters, nxt, pos);
+      load_step<K>(tree, nxt, mm, rwrap, lane, rows[j]);
+    }
+    next_starts<K>(idx, n_iters, nxt, pos);
+    // Step t (ring place j, static once unrolled): load step t + R - 1's
+    // rows and step t + R's starts, then step t's chain.
+    auto step = [&](int j) {
+      load_step<K>(tree, nxt, mm, rwrap, lane, rows[(j + kIterAhead) % R]);
+      next_starts<K>(idx, n_iters, nxt, pos);
+      acc = wrap_add(acc, decide_step<K>(lane, weighted, mod3(acc),
+                                         rows[j]));
+    };
+    long long k = 0;
+    for (; k + R <= n; k += R) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) step(j);
+    }
+#pragma unroll
+    for (int j = 0; j < R - 1; ++j)
+      if (k + j < n) step(j);
+  }
+  if (lane == 0) partial[p] = acc;
+}
+
+// 6d's second pass: out = the slices' results summed with int32 wrap.
+// Addition mod 2^32 does not depend on the order, so the block sums them
+// in parallel and gives slice order's bits.
+__global__ void __launch_bounds__(1024) sum_ints_kernel(
+    const int* __restrict__ partial, int* __restrict__ out, int slices) {
+  __shared__ unsigned warp_sums[32];
+  unsigned s = 0;
+  for (int p = threadIdx.x; p < slices; p += blockDim.x)
+    s += static_cast<unsigned>(partial[p]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  s = threadIdx.x < (blockDim.x >> 5) ? warp_sums[threadIdx.x] : 0u;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  if (threadIdx.x == 0) out[0] = static_cast<int>(s);
+}
+
+// The card-wide instances take 1-32 warps a block (6d 1-kIterWarps) and a
+// whole number of blocks.
+bool bad_spread(int slices, int warps, int most) {
+  return slices < 1 || warps < 1 || warps > most || slices % warps != 0;
+}
+
 }  // namespace
 
 extern "C" int spatialsim_probe_smem_table(const int* idx4, int* gtable,
@@ -257,5 +566,52 @@ extern "C" int spatialsim_probe_iteration_core(const void* tree,
 #undef IC_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatialsim_probe_row_store_card(const int* idx, int* last,
+                                               void* scr, void* out,
+                                               int n_cells, int n_ops,
+                                               int reps, int slices,
+                                               int warps, void* stream) {
+  if (bad_spread(slices, warps, 32) || n_cells < 1 || n_ops < 0 || reps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float4* s = static_cast<float4*>(scr);
+  cudaError_t e = cudaMemsetAsync(last, 0xff, (size_t)n_cells * 4, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n_ops > 0 && reps > 0)
+    last_writer_kernel<<<(n_ops + 255) / 256, 256, 0, st>>>(idx, last,
+                                                             n_ops);
+  row_store_card_kernel<<<slices / warps, warps * 32, 0, st>>>(
+      idx, last, s, n_ops, (long long)reps * n_ops, slices);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  copy_row_kernel<<<1, 32, 0, st>>>(s, static_cast<float4*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatialsim_probe_iteration_core_card(
+    const void* tree, const int* idx, int* partial, int* out, int n_cells,
+    int k_runs, int n_iters, int reps, int slices, int warps, void* stream) {
+  if (bad_spread(slices, warps, kIterWarps) || n_cells < 3 ||
+      n_cells > (1 << 26) || n_iters < 0 || reps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* t = static_cast<const float4*>(tree);
+  const long long total = (long long)reps * n_iters;
+  switch (k_runs) {
+#define ICC_CASE(K)                                                          \
+    case K:                                                                  \
+      iteration_core_card_kernel<K><<<slices / warps, warps * 32, 0, st>>>( \
+          t, idx, partial, n_cells, n_iters, total, slices);                 \
+      break;
+    ICC_CASE(1) ICC_CASE(2) ICC_CASE(4)
+#undef ICC_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sum_ints_kernel<<<1, 1024, 0, st>>>(partial, out, slices);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,11 +23,11 @@ Four layers, per probe:
 * the wrapper (``row_reads``, ``gated_reduce``, ...) -- takes the inputs;
   a CUDA tensor launches the kernel on the current stream (or raises) and
   adds one to the wrapper's ``launches``; a CPU tensor takes the plain
-  version.  5a, 5b, 5d, 5f, 5g and 5h also take ``spread="card"``: the
-  same reads or writes cut into ``slices`` contiguous slices, one warp
-  each (one thread each for 5f, 5g and 5h's one-hot variant), ``warps``
-  warps a block, the partials summed in slice order (their
-  ``card_launches`` count those calls).
+  version.  5a, 5b, 5d, 5f, 5g, 5h, 6c and 6d also take
+  ``spread="card"``: the same reads, writes or steps cut into ``slices``
+  contiguous slices, one warp each (one thread each for 5f, 5g and 5h's
+  one-hot variant), ``warps`` warps a block, the partials summed in slice
+  order (their ``card_launches`` count those calls).
 * ``*_reference`` -- the plain version, in the probe's order of
   operations, rounding in float32 and wrapping in int32 as the TPU probe
   and the kernel do, so all three agree bit for bit.  The row sums (5a,
@@ -51,8 +51,9 @@ WHERE = ("global", "shared")
 WIDTHS = (1, 2, 4, 8)     # row-read chains: decide15's widths
 BATCHES = (1, 4, 8)       # reduce round trip: decide15's batches
 K_RUNS = (1, 2, 4)        # iteration core: decide18's runs a step
-SPREADS = ("warp", "card")  # 5a, 5b, 5d, 5f-5h: one warp, or slices over the card
+SPREADS = ("warp", "card")  # 5a, 5b, 5d, 5f-5h, 6c, 6d: one warp, or slices
 MAX_WARPS = 32            # warps a block of the card-wide instances
+ITER_WARPS = 8            # 6d's: K = 4 holds three steps of rows
 
 
 # ---- inputs, made as the TPU probes make them ------------------------------
@@ -171,11 +172,11 @@ def _serial_sum(terms, reps=1) -> np.ndarray:
     return acc
 
 
-def _check_spread(fn_name, spread, slices, warps):
+def _check_spread(fn_name, spread, slices, warps, most=MAX_WARPS):
     """Refuse what the one-warp and card-wide instances do not take: a
     ``spread`` not in :data:`SPREADS`; for ``"card"`` a ``slices`` that is
-    not a positive int or ``warps`` (1-32) that does not divide it; for
-    ``"warp"`` any ``slices``."""
+    not a positive int or ``warps`` (1 to ``most``) that does not divide
+    it; for ``"warp"`` any ``slices``."""
     if spread not in SPREADS:
         raise ValueError(f"{fn_name}: spread={spread!r} not in {SPREADS}")
     if spread == "warp":
@@ -188,9 +189,9 @@ def _check_spread(fn_name, spread, slices, warps):
         raise ValueError(f"{fn_name}: spread='card' needs slices, a "
                          f"positive int, got {slices!r}")
     if (not isinstance(warps, int) or isinstance(warps, bool)
-            or not 1 <= warps <= MAX_WARPS or slices % warps):
+            or not 1 <= warps <= most or slices % warps):
         raise ValueError(f"{fn_name}: warps={warps!r} a block must be in "
-                         f"1..{MAX_WARPS} and divide slices={slices}")
+                         f"1..{most} and divide slices={slices}")
 
 
 def slice_bounds(total, slices) -> np.ndarray:
@@ -821,9 +822,9 @@ def probe_gated_reduce(gate_frac_pct, *, n_ops=4096, reps=20, device="cuda"):
 # ---- 6c. row store (decide18.py:135) ----------------------------------------
 
 def row_store_reference(idx, n_cells, reps=20):
-    """``scr[idx[i]] = iota + i`` over a zeroed table, the last i winning;
-    returns ``(scr[0], scr)``."""
-    i = idx.long()
+    """``scr[idx[i]] = iota + i`` over a zeroed table, the last i winning
+    (no store at ``reps`` 0); returns ``(scr[0], scr)``."""
+    i = idx.long()[:idx.shape[0] if reps > 0 else 0]
     last = torch.full((n_cells,), -1, dtype=torch.long, device=idx.device)
     last.scatter_reduce_(0, i, torch.arange(i.shape[0], device=idx.device),
                          "amax")
@@ -834,26 +835,66 @@ def row_store_reference(idx, n_cells, reps=20):
     return scr[0:1].clone(), scr
 
 
-def row_store(idx, n_cells, reps=20):
+def row_store_card_reference(idx, n_cells, reps=20, slices=1):
+    """The card-wide instance's two passes: ``last[r]``, the largest i
+    with ``idx[i] = r`` (-1 elsewhere), then the ``reps x n_ops`` stores
+    as one stream (cut into ``slices``), store t to ``r = idx[t mod
+    n_ops]`` with ``iota + last[r]``.  Every store to a row carries its
+    last writer's bits, so the table is :func:`row_store_reference`'s in
+    any order of the stores, at any ``slices``."""
+    ids = _host(idx).astype(np.int64)
+    n = ids.shape[0]
+    last = np.full(n_cells, -1, np.int64)
+    np.maximum.at(last, ids, np.arange(n))
+    scr = np.zeros((n_cells, ROW), np.float32)
+    rows = ids[np.arange(reps * n) % max(n, 1)]
+    scr[rows] = (np.arange(ROW, dtype=np.float32)
+                 + last[rows, None].astype(np.float32))
+    scr = torch.from_numpy(scr).to(idx.device)
+    return scr[0:1].clone(), scr
+
+
+def row_store(idx, n_cells, reps=20, *, spread="warp", slices=None,
+              warps=8):
     """6c: a 512 B row store a step into a zeroed scratch table; returns
-    ``(scr[0], scr)`` as :func:`row_write`."""
+    ``(scr[0], scr)`` as :func:`row_write`.  ``spread="card"``: a
+    last-writer pass (``atomicMax``), then the ``reps x n_ops`` stores cut
+    into ``slices``, one warp each, ``warps`` a block, each store writing
+    its row's last writer's bits; ``scr[0]`` read by a third launch."""
+    _check_spread("row_store", spread, slices, warps)
+    card = spread == "card"
+    if n_cells < 1:
+        raise ValueError(f"row_store: n_cells {n_cells} < 1")
     if not _on_card("row_store", idx):
+        if card:
+            return row_store_card_reference(idx, n_cells, reps, slices)
         return row_store_reference(idx, n_cells, reps)
     _check("row_store: idx", idx, torch.int32)
     scr = torch.zeros((n_cells, ROW), dtype=torch.float32, device=idx.device)
     out = torch.empty((1, ROW), dtype=torch.float32, device=idx.device)
-    _kernels.check(_kernels.entry.spatialsim_probe_row_store(
-        idx.data_ptr(), scr.data_ptr(), out.data_ptr(), idx.shape[0],
-        int(reps), _kernels.stream(idx)), "probe_row_store")
+    if card:
+        last = torch.empty(n_cells, dtype=torch.int32, device=idx.device)
+        _kernels.check(_kernels.entry.spatialsim_probe_row_store_card(
+            idx.data_ptr(), last.data_ptr(), scr.data_ptr(), out.data_ptr(),
+            int(n_cells), idx.shape[0], int(reps), slices, warps,
+            _kernels.stream(idx)), "probe_row_store_card")
+        row_store.card_launches += 1
+    else:
+        _kernels.check(_kernels.entry.spatialsim_probe_row_store(
+            idx.data_ptr(), scr.data_ptr(), out.data_ptr(), idx.shape[0],
+            int(reps), _kernels.stream(idx)), "probe_row_store")
     row_store.launches += 1
     return out, scr
 
 
 row_store.launches = 0
+row_store.card_launches = 0
 
 
-def probe_row_store(n_cells, *, n_ops=4096, reps=20, device="cuda"):
-    return row_store(indices(n_cells, n_ops, device), n_cells, reps)
+def probe_row_store(n_cells, *, n_ops=4096, reps=20, spread="warp",
+                    slices=None, warps=8, device="cuda"):
+    return row_store(indices(n_cells, n_ops, device), n_cells, reps,
+                     spread=spread, slices=slices, warps=warps)
 
 
 # ---- 6d. iteration core (decide18.py:198) -----------------------------------
@@ -877,17 +918,25 @@ def decision_words(tree, s):
     return (em[:, 0:64:8].long() * weights).sum(1)
 
 
-def _iteration_chain(tree, idx, k_runs, n_iters, reps):
-    """The int32 chain ``acc += word(idx[i k + q] + acc mod 3) mod 5``, with
-    the words of every reachable start computed first
-    (:func:`decision_words`); returns ``acc`` and the starts it took."""
+def _iteration_chain(tree, idx, k_runs, n_iters, reps, slices=1):
+    """The int32 chains ``acc += word(idx[i k + q] + acc mod 3) mod 5``
+    over the ``reps x n_iters`` steps as one stream (step t at ``i = t mod
+    n_iters``) cut into ``slices`` (:func:`slice_bounds`), each from
+    ``acc = 0``, with the words of every reachable start computed first
+    (:func:`decision_words`); returns the slices' ``acc`` and the starts
+    they took.  One slice is the probe's chain."""
+    b = slice_bounds(reps * n_iters, slices)
+    if not reps * n_iters:
+        return [0] * slices, set()
     ids = [int(v) for v in idx.tolist()]
     lo, hi = min(ids), max(ids) + 2
     words = decision_words(
         tree, torch.arange(lo, hi + 1, device=tree.device)).tolist()
-    acc, starts = 0, set()
-    for _ in range(reps):
-        for i in range(n_iters):
+    accs, starts = [], set()
+    for p in range(slices):
+        acc = 0
+        for t in range(int(b[p]), int(b[p + 1])):
+            i = t % n_iters
             a3 = acc % 3
             add = 0
             for q in range(k_runs):
@@ -895,43 +944,105 @@ def _iteration_chain(tree, idx, k_runs, n_iters, reps):
                 starts.add(s)
                 add = _i32(add + words[s - lo] % 5)
             acc = _i32(acc + add)
-    return acc, starts
+        accs.append(acc)
+    return accs, starts
 
 
 def iteration_core_reference(tree, idx, k_runs, n_iters=2048, reps=10):
-    acc, _ = _iteration_chain(tree, idx, k_runs, n_iters, reps)
+    (acc,), _ = _iteration_chain(tree, idx, k_runs, n_iters, reps)
     return torch.tensor([[acc]], dtype=torch.int32, device=tree.device)
 
 
-def iteration_rows(tree, idx, k_runs, n_iters=2048, reps=10) -> int:
-    """Distinct table rows the chain reads (rows ``row`` and ``row + 1`` of
-    every start it takes): where decisions fire, ``acc mod 3`` moves the
-    starts, so this depends on the data."""
-    _, starts = _iteration_chain(tree, idx, k_runs, n_iters, reps)
+def iteration_core_card_reference(tree, idx, k_runs, n_iters=2048, reps=10,
+                                  slices=1):
+    """The card-wide instance's function: the steps cut into ``slices``,
+    each slice's chain from ``acc = 0`` (:func:`_iteration_chain`), their
+    results added with int32 wrap.  ``slices=1`` is
+    :func:`iteration_core_reference`'s."""
+    accs, _ = _iteration_chain(tree, idx, k_runs, n_iters, reps, slices)
+    out = 0
+    for a in accs:
+        out = _i32(out + a)
+    return torch.tensor([[out]], dtype=torch.int32, device=tree.device)
+
+
+def iteration_rows(tree, idx, k_runs, n_iters=2048, reps=10,
+                   slices=1) -> int:
+    """Distinct table rows the chains read (rows ``row`` and ``row + 1`` of
+    every start they take): where decisions fire, ``acc mod 3`` moves the
+    starts, so this depends on the data (and on ``slices``: each slice's
+    chain starts from 0)."""
+    _, starts = _iteration_chain(tree, idx, k_runs, n_iters, reps, slices)
     rows = {(s // 16) % (tree.shape[0] - 2) for s in starts}
     return len(rows | {r + 1 for r in rows})
 
 
-def iteration_core(tree, idx, k_runs, n_iters=2048, reps=10):
+def iteration_step_rows(s0, n_cells):
+    """The distinct rows the card-wide 6d step loads for a run whose start
+    before ``acc`` is ``s0`` (its other two loads repeat the first two),
+    and for ``a`` = 0, 1, 2 the pair ``p_a`` that
+    start ``s0 + a`` reads, ``(rows[p_a], rows[p_a + 1])``: rows ``r0``,
+    ``r0 + 1`` (``r0 = (s0 div 16) mod (n_cells - 2)``), then ``r0 + 2``
+    where ``s0 + 2`` crosses a multiple of 16, or ``r2, r2 + 1`` where its
+    row wraps at ``n_cells - 2`` (or ``s0 + 2`` wraps in int32)."""
+    m = n_cells - 2
+    f0, f1, f2 = (_i32(s0 + a) >> 4 for a in range(3))   # floor(s / 16)
+    r0 = f0 % m
+    r2 = r0 if f2 == f0 else (r0 + 1) % m if f2 == f0 + 1 else f2 % m
+    p2 = 0 if r2 == r0 else 1 if r2 == r0 + 1 else 2
+    rows = [r0, r0 + 1] + ([] if p2 == 0 else [r0 + 2] if p2 == 1
+                           else [r2, r2 + 1])
+    return rows, (0, 0 if f1 == f0 else p2, p2)
+
+
+def iteration_core(tree, idx, k_runs, n_iters=2048, reps=10, *,
+                   spread="warp", slices=None, warps=8):
     """6d: one warp, ``k_runs`` two-row reads in flight a step, shuffle
-    alignment and shifts, the decision word by ``__ballot_sync``."""
+    alignment and shifts, the decision word by ``__ballot_sync``.
+    ``spread="card"``: the steps cut into ``slices``, one warp each,
+    ``warps`` (1-8) a block, each slice's chain from 0 with the rows of
+    the next two steps loaded before the current step's decision, the
+    results added by a second kernel
+    (:func:`iteration_core_card_reference`); ``slices=1`` is the probe's
+    chain.  It takes tables of up to 2^26 rows (32-bit row offsets)."""
     if k_runs not in K_RUNS:
         raise ValueError(f"iteration_core: k_runs {k_runs} not in {K_RUNS}")
     if idx.shape[0] < n_iters * k_runs:
         raise ValueError("iteration_core: idx shorter than n_iters * k_runs")
+    if tree.shape[0] < 3:
+        raise ValueError(f"iteration_core: {tree.shape[0]} rows, fewer "
+                         f"than 3 (rows are taken mod n_cells - 2)")
+    _check_spread("iteration_core", spread, slices, warps, ITER_WARPS)
+    card = spread == "card"
+    if card and tree.shape[0] > 1 << 26:
+        raise ValueError(f"iteration_core: spread='card' takes at most 2^26 "
+                         f"rows, got {tree.shape[0]}")
     if not _on_card("iteration_core", tree, idx):
+        if card:
+            return iteration_core_card_reference(tree, idx, k_runs, n_iters,
+                                                 reps, slices)
         return iteration_core_reference(tree, idx, k_runs, n_iters, reps)
     _table_args("iteration_core", tree, idx)
     out = torch.empty((1, 1), dtype=torch.int32, device=tree.device)
-    _kernels.check(_kernels.entry.spatialsim_probe_iteration_core(
-        tree.data_ptr(), idx.data_ptr(), out.data_ptr(), tree.shape[0],
-        int(k_runs), int(n_iters), int(reps), _kernels.stream(tree)),
-        "probe_iteration_core")
+    if card:
+        partial = torch.empty(slices, dtype=torch.int32, device=tree.device)
+        _kernels.check(_kernels.entry.spatialsim_probe_iteration_core_card(
+            tree.data_ptr(), idx.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), tree.shape[0], int(k_runs), int(n_iters),
+            int(reps), slices, warps, _kernels.stream(tree)),
+            "probe_iteration_core_card")
+        iteration_core.card_launches += 1
+    else:
+        _kernels.check(_kernels.entry.spatialsim_probe_iteration_core(
+            tree.data_ptr(), idx.data_ptr(), out.data_ptr(), tree.shape[0],
+            int(k_runs), int(n_iters), int(reps), _kernels.stream(tree)),
+            "probe_iteration_core")
     iteration_core.launches += 1
     return out
 
 
 iteration_core.launches = 0
+iteration_core.card_launches = 0
 
 
 def iteration_inputs(k_runs, *, scale=1e-6, n_iters=2048, n_cells=8192,
@@ -943,10 +1054,12 @@ def iteration_inputs(k_runs, *, scale=1e-6, n_iters=2048, n_cells=8192,
 
 
 def probe_iteration_shapes(k_runs, *, scale=1e-6, n_iters=2048, reps=10,
+                           spread="warp", slices=None, warps=8,
                            device="cuda"):
     tree, idx = iteration_inputs(k_runs, scale=scale, n_iters=n_iters,
                                  device=device)
-    return iteration_core(tree, idx, k_runs, n_iters, reps)
+    return iteration_core(tree, idx, k_runs, n_iters, reps, spread=spread,
+                          slices=slices, warps=warps)
 
 
 KERNELS = (row_reads, block_read, reduce_roundtrip, row_write, roll,

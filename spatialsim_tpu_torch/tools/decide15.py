@@ -134,24 +134,27 @@ def distinct_rows(idx) -> int:
 
 
 def entry(label, kernel, call, plain, count, unit, ops, nbytes, *,
-          library=None, expect_zero=False, grid=None, idle=None):
+          library=None, library_exact=False, expect_zero=False, grid=None,
+          idle=None):
     """One probe of a run: ``call()`` launches the kernel on prepared
     inputs, ``plain()`` runs the plain version (on CPU copies for the
     serial chains), ``count`` of ``unit`` per call (the script's divisor),
     ``ops``/``nbytes`` the work the function needs (distinct rows touched
     and the indices read once, outputs written once), ``library()`` one
-    PyTorch call computing the same function, where there is one;
-    ``expect_zero`` where the probe's own inputs give 0 (a check of such
-    an entry is no check of the arithmetic, so an entry with inputs where
-    it is not 0 must stand beside it).  ``grid`` (blocks, threads) marks
-    a card-wide instance: its ``key`` is the kernel's name with
-    ``_card``, its launch floor is an empty launch of that grid, and
-    ``idle`` is ``(name, fn)``: ``fn()`` the call over no reads, timed
-    once a name."""
+    PyTorch call computing the same function, where there is one
+    (``library_exact``: it stands only where it gives the plain version's
+    last output bit for bit); ``expect_zero`` where the probe's own inputs
+    give 0 (a check of such an entry is no check of the arithmetic, so an
+    entry with inputs where it is not 0 must stand beside it).  ``grid``
+    (blocks, threads) marks a card-wide instance: its ``key`` is the
+    kernel's name with ``_card``, its launch floor is an empty launch of
+    that grid, and ``idle`` is ``(name, fn)``: ``fn()`` the call over no
+    reads, timed once a name."""
     return dict(label=label, kernel=kernel, call=call, plain=plain,
                 count=count, unit=unit, ops=float(ops), nbytes=float(nbytes),
-                library=library, expect_zero=expect_zero, grid=grid,
-                idle=idle, key=kernel.__name__ + ("_card" if grid else ""))
+                library=library, library_exact=library_exact,
+                expect_zero=expect_zero, grid=grid, idle=idle,
+                key=kernel.__name__ + ("_card" if grid else ""))
 
 
 def _spread(card, shared=False, threads=False):

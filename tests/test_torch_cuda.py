@@ -1302,6 +1302,84 @@ def test_probe_row_write_card_matches_plain(cuda, n_cells):
         assert bool(want[0].any())
 
 
+@pytest.mark.parametrize("n_cells", [64, 8192])
+def test_probe_row_store_card_matches_plain(cuda, n_cells):
+    """6c's card-wide instance: at every spread ``scr[0]`` and the whole
+    scratch table equal the plain version and a second call bit for bit
+    (at 64 cells a late index 0 wins row 0), each call counted once; the
+    one-warp instance's output unchanged; over no stores (reps 0) the
+    table stays zero."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    idx = tp.indices(n_cells, 4096, cuda)
+    want = [w.cpu() for w in tp.row_store_reference(idx, n_cells, 3)]
+    assert all(torch.equal(g.cpu(), w)
+               for g, w in zip(tp.row_store(idx, n_cells, 3), want))
+    failed = []
+    for slices, warps in CARD_SPREADS:
+        before = (tp.row_store.launches, tp.row_store.card_launches)
+        calls = [tp.row_store(idx, n_cells, 3, spread="card", slices=slices,
+                              warps=warps) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert (tp.row_store.launches, tp.row_store.card_launches) == (
+            before[0] + 2, before[1] + 2)
+        for out, scr in calls:
+            if not (torch.equal(out.cpu(), want[0])
+                    and torch.equal(scr.cpu(), want[1])):
+                failed.append((slices, warps))
+    assert not failed, failed
+    if n_cells == 64:
+        assert float(want[0][0, 5]) > 5.0
+    out, scr = tp.row_store(idx, n_cells, 0, spread="card", slices=96,
+                            warps=32)
+    assert not bool(scr.any()) and not bool(out.any())
+
+
+def _iteration_tables(k, dev):
+    """6d's inputs: the probe's table scale, where no decision fires; the
+    scale where decisions fire and ``acc mod 3`` moves the starts; and a
+    6-row table (scale 1) with starts in [-64, 192), where rows wrap at
+    n_cells - 2 and a step loads 3 or 4 rows."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    tables = {scale: tp.iteration_inputs(k, scale=scale, n_iters=1024,
+                                         device=dev)
+              for scale in (1e-6, 1e-6 * 2 ** 18)}
+    tables["wrap"] = (tp.table(6, dev), torch.as_tensor(
+        np.random.default_rng(1).integers(-64, 192, 1024 * k).astype(
+            np.int32), device=dev))
+    return tables
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_probe_iteration_core_card_matches_plain(cuda, k):
+    """6d's card-wide instance (1,024 steps x 2 passes): at every spread
+    (warps a block capped at ``ITER_WARPS``) equal to its plain version
+    and to a second call, each call counted once; one slice, the
+    redesigned chain, gives the one-warp kernel's int32 at every table."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    spreads = [(s, min(w, tp.ITER_WARPS)) for s, w in CARD_SPREADS]
+    failed = []
+    for name, (tree, idx) in _iteration_tables(k, cuda).items():
+        one_warp = tp.iteration_core(tree, idx, k, 1024, 2).cpu()
+        assert torch.equal(one_warp, tp.iteration_core_reference(
+            tree.cpu(), idx.cpu(), k, 1024, 2)), name
+        for slices, warps in spreads:
+            want = tp.iteration_core_card_reference(
+                tree.cpu(), idx.cpu(), k, 1024, 2, slices)
+            before = (tp.iteration_core.launches,
+                      tp.iteration_core.card_launches)
+            a, b = _card_twice(lambda: tp.iteration_core(
+                tree, idx, k, 1024, 2, spread="card", slices=slices,
+                warps=warps))
+            assert (tp.iteration_core.launches,
+                    tp.iteration_core.card_launches) == (before[0] + 2,
+                                                         before[1] + 2)
+            if not (torch.equal(a, want) and torch.equal(a, b)
+                    and (slices > 1 or torch.equal(a, one_warp))):
+                failed.append((name, slices, warps, int(a), int(b),
+                               int(want), int(one_warp)))
+    assert not failed, failed
+
+
 def test_probe_card_instances_refuse(cuda):
     """A shared table past the opt-in limit (with the card-wide
     instance's mbarrier) raises before any launch; the empty launch runs."""
@@ -1316,13 +1394,19 @@ def test_probe_card_instances_refuse(cuda):
         tp.row_reads(tree, idx, 1, spread="card", slices=132, warps=5)
     assert (tp.row_reads.launches, tp.row_reads.card_launches) == before
     spread = (tp.extract8, tp.row_write, tp.scalar_load_dynsub,
-              tp.scalar_load_dyn_dyn)
+              tp.scalar_load_dyn_dyn, tp.row_store, tp.iteration_core)
     before = [(f.launches, f.card_launches) for f in spread]
+    args = {tp.row_store: (idx, rows, 1),
+            tp.iteration_core: (tree, idx, 1, 64, 1)}
     for fn in spread:
         for kw in (dict(spread="card", slices=132, warps=5),
                    dict(spread="card", slices=0), dict(spread="grid")):
             with pytest.raises(ValueError):
-                fn(tree, idx, 1, **kw)
+                fn(*args.get(fn, (tree, idx, 1)), **kw)
+    # 6d's blocks hold at most ITER_WARPS warps.
+    with pytest.raises(ValueError):
+        tp.iteration_core(tree, idx, 1, 64, 1, spread="card", slices=96,
+                          warps=tp.ITER_WARPS * 2)
     assert [(f.launches, f.card_launches) for f in spread] == before
     tp.empty_launch(528, 256, tree)
     torch.cuda.synchronize()

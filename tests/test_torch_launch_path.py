@@ -251,6 +251,30 @@ def test_sass_differences_compare_kernels_addresses_aside():
     assert same_sass.sass_differences(dump(old), dump(old))[1] == []
 
 
+def test_show_loops_prints_the_innermost_loops():
+    """``same_sass --show`` reads the innermost loops of the named kernels
+    off a ``cuobjdump -sass`` dump: a loop inside another is listed, the
+    outer one is not, nor an unconditional jump back; a kernel without a
+    loop lists none; other kernels are skipped."""
+    insns = ["MOV R1, c[0x0][0x28]", "IADD3 R2, R2, 0x1, RZ",
+             "SHFL.IDX PT, R3, R3, R2, 0x1f", "@P0 BRA 0x10",
+             "@P1 BRA 0x0", "EXIT", "BRA 0x20"]
+    dump = "\n".join(
+        [f"\t\tFunction : {name}\n" + "\n".join(
+            f"        /*{16 * i:04x}*/                   {t} ;"
+            for i, t in enumerate(body))
+         for name, body in (("_Z5chainv", insns), ("_Z4flatv", ["EXIT"]),
+                            ("_Z5otherv", insns))])
+    lines = []
+    assert same_sass.show_loops(dump, ["chain", "flat"], lines.append) == 2
+    assert lines == ["kernel _Z5chainv: 7 instructions",
+                     "  loop 0x0010-0x0030: 3 instructions",
+                     "    IADD3 R2, R2, 0x1, RZ",
+                     "    SHFL.IDX PT, R3, R3, R2, 0x1f",
+                     "    @P0 BRA 0x10",
+                     "kernel _Z4flatv: 1 instructions"]
+
+
 @pytest.fixture(scope="module")
 def stub_binding(tmp_path_factory):
     """The launch binding compiled on the host against stub entry points

@@ -12,7 +12,9 @@ output compared here is integer-valued (sums of ``arange`` rows below
 * 6a runs at ``n_i32=256``, where the probe writes every table entry
   (997 is odd): at larger sizes its table holds unwritten memory.
 * 5d and 6c run at 64 cells, where some index is 0, so the row they
-  return is written; their whole scratch tables are held to numpy.
+  return is written; their whole scratch tables are held to numpy (6c's
+  card-wide plain version, a last-writer table and then the stores, to
+  the serial one at every slice count).
 * 6d returns 0 at its own table scale (1e-6: no decision fires), so the
   plain version is also held to an independent numpy oracle, and to the
   JAX probe, at scales where decisions fire.
@@ -22,7 +24,9 @@ output compared here is integer-valued (sums of ``arange`` rows below
   the small size, where every partial sum is an integer below 2^24), and
   with one slice to the serial plain versions bit for bit.  5d's
   card-wide instance writes the same rows: its plain version's table
-  equals the JAX probe's exactly.
+  equals the JAX probe's exactly.  6d's card-wide plain version is a
+  chain a slice, each from 0: at one slice it equals the JAX probe, at
+  more a numpy oracle of the slices' chains.
 """
 
 import functools
@@ -359,32 +363,140 @@ def test_iteration_shapes_at_the_probe_scale(jax_probe, k):
 def _oracle(tree, idx, k, n_iters, reps):
     """decide18's iteration core in numpy float32, one run at a time, with
     the probe's rolls and lane select."""
+    return _oracle_steps(tree, idx, k, n_iters, 0, reps * n_iters)
+
+
+def _oracle_steps(tree, idx, k, n_iters, t0, t1):
+    """:func:`_oracle`'s chain from ``acc = 0`` over the steps ``t0`` to
+    ``t1`` of the stream (step t at ``i = t mod n_iters``)."""
     n_cells = tree.shape[0]
     lanes = np.arange(128)
     w_emit = np.where((lanes % 8 == 0) & (lanes // 8 < 8),
                       4.0 ** (lanes // 8), 0.0).astype(np.float32)
     f32 = np.float32
     acc, words = 0, []
-    for _ in range(reps):
-        for i in range(n_iters):
-            out = acc
-            for q in range(k):
-                s = int(idx[i * k + q]) + acc % 3
-                row, base8 = s // 16, (s % 16) * 8
-                blk = tree[row % (n_cells - 2):row % (n_cells - 2) + 2]
-                amt = (128 - base8) % 128
-                al = np.where(lanes < 128 - base8, np.roll(blk[0], amt),
-                              np.roll(blk[1], amt))
-                bsv, bev, cxv = (np.roll(al, a) for a in (126, 125, 124))
-                gx = np.maximum(f32(1.0) - cxv, cxv - f32(2.0))
-                dmin = gx * gx + f32(1.0)
-                accept = (al < f32(0.64) * dmin) | (bev - bsv <= f32(1.0))
-                em = (bev > bsv) & accept & (bsv > f32(100.0))
-                word = int(np.sum(np.where(em, f32(1.0), f32(0.0)) * w_emit))
-                words.append(word)
-                out += word % 5
-            acc = out
+    for t in range(t0, t1):
+        i = t % n_iters
+        out = acc
+        for q in range(k):
+            s = int(idx[i * k + q]) + acc % 3
+            row, base8 = s // 16, (s % 16) * 8
+            blk = tree[row % (n_cells - 2):row % (n_cells - 2) + 2]
+            amt = (128 - base8) % 128
+            al = np.where(lanes < 128 - base8, np.roll(blk[0], amt),
+                          np.roll(blk[1], amt))
+            bsv, bev, cxv = (np.roll(al, a) for a in (126, 125, 124))
+            gx = np.maximum(f32(1.0) - cxv, cxv - f32(2.0))
+            dmin = gx * gx + f32(1.0)
+            accept = (al < f32(0.64) * dmin) | (bev - bsv <= f32(1.0))
+            em = (bev > bsv) & accept & (bsv > f32(100.0))
+            word = int(np.sum(np.where(em, f32(1.0), f32(0.0)) * w_emit))
+            words.append(word)
+            out += word % 5
+        acc = out
     return acc, words
+
+
+# 6c's and 6d's card-wide slice counts: one slice, uneven slices, the
+# tools' P, and more slices than stores or steps.
+CARD_SLICES_6 = (1, 7, 96, 4224, 12_289)
+
+
+def test_row_store_card_plain_is_the_probes_table(jax_probe):
+    """The card-wide plain version (a last-writer table, then every store
+    with its row's last writer's bits) gives the JAX probe's output row
+    and the serial plain version's whole table at every slice count, at
+    the probe's 4,096 x 20 stores and at 8 x 2 (more slices than
+    stores, some rows stored twice); at reps 0 neither stores."""
+    want = jax_probe(decide18.probe_row_store, 64)
+    idx = tp.indices(64, 4096, "cpu")
+    table = tp.row_store_reference(idx, 64, 20)[1]
+    few_idx = tp.indices(4, 8, "cpu")             # duplicates: 8 into 4
+    few = tp.row_store_reference(few_idx, 64, 2)
+    assert bool(few[1].any()) and int((few[1] != 0).any(1).sum()) < 8
+    for slices in CARD_SLICES_6:
+        out, scr = tp.probe_row_store(64, spread="card", slices=slices,
+                                      warps=1, **CPU)
+        _same(out, want)
+        assert torch.equal(scr, table)
+        got = tp.row_store(few_idx, 64, 2, spread="card", slices=slices,
+                           warps=1)
+        assert all(torch.equal(g, w) for g, w in zip(got, few))
+    for reference in (tp.row_store_reference,
+                      functools.partial(tp.row_store_card_reference,
+                                        slices=7)):
+        assert not any(bool(t.any()) for t in reference(idx, 64, 0))
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("fire", [False, True])
+def test_iteration_core_card_plain_with_one_slice_is_the_jax_probe(
+        jax_probe, monkeypatch, k, fire):
+    """At one slice the card-wide plain version is the probe's chain: the
+    JAX probe's int32 at the probe's table scale (no decision fires) and
+    at 2^18 x 1e-6 (decisions fire), for each k."""
+    scale = 1e-6
+    if fire:
+        class _Jnp:
+            def __getattr__(self, name):
+                return getattr(jnp, name)
+
+            def arange(self, *a, **kw):
+                return jnp.arange(*a, **kw) * 2 ** 18
+        monkeypatch.setattr(decide18, "jnp", _Jnp())
+        scale = tool18.FIRE_SCALE
+    want = jax_probe(decide18.probe_iteration_shapes, k)
+    assert (int(want[0, 0]) != 0) == fire
+    _same(tp.probe_iteration_shapes(k, scale=scale, spread="card", slices=1,
+                                    warps=1, **CPU), want)
+
+
+def _wrap_inputs(k, n_iters):
+    """A 6-row table (scale 1) and starts in [-64, 192): rows wrap at
+    n_cells - 2, so steps load 3 and 4 rows, and decisions fire."""
+    return tp.table(6, "cpu"), torch.as_tensor(
+        np.random.default_rng(1).integers(-64, 192, n_iters * k).astype(
+            np.int32))
+
+
+@pytest.mark.parametrize("slices", [7, 96, 4224])
+@pytest.mark.parametrize("table", ["fire", "wrap"])
+def test_iteration_core_card_plain_against_numpy_oracle(slices, table):
+    """At more than one slice: each slice's chain from 0 by the numpy
+    oracle, the results added with int32 wrap."""
+    k, n_iters, reps = 2, 256, 2
+    tree, idx = (_wrap_inputs(k, n_iters) if table == "wrap" else
+                 tp.iteration_inputs(k, scale=tool18.FIRE_SCALE,
+                                     n_iters=n_iters, device="cpu"))
+    b = tp.slice_bounds(reps * n_iters, slices)
+    want, words = 0, []
+    for p in range(slices):
+        acc, w = _oracle_steps(tree.numpy(), idx.numpy(), k, n_iters,
+                               int(b[p]), int(b[p + 1]))
+        want, words = tp._i32(want + acc), words + w
+    assert any(words) and want != 0
+    got = tp.iteration_core_card_reference(tree, idx, k, n_iters, reps,
+                                           slices)
+    assert int(got) == want
+
+
+def test_iteration_step_rows_cover_every_start():
+    """The rows the card-wide 6d step loads for a start s0 (before acc is
+    known) hold the two rows that start s0 + a3 reads, for every s0 from
+    -48 to past two wraps of a 6-row table's rows and at the int32 edge,
+    and every a3; the 3-row and 4-row (wrap) cases occur."""
+    n_cells, m = 6, 4
+    sizes = set()
+    for s0 in [*range(-48, 16 * m * 2 + 16), 2 ** 31 - 3, 2 ** 31 - 2,
+               2 ** 31 - 1, -2 ** 31]:
+        rows, pairs = tp.iteration_step_rows(s0, n_cells)
+        sizes.add(len(rows))
+        assert all(0 <= r < n_cells for r in rows)
+        assert len(set(rows)) == len(rows)
+        for a3 in range(3):
+            r = (tp._i32(s0 + a3) // 16) % m
+            assert rows[pairs[a3]:pairs[a3] + 2] == [r, r + 1], (s0, a3)
+    assert sizes == {2, 3, 4}
 
 
 @pytest.mark.parametrize("scale", [1e-6 * 2 ** 18, 1e-6 * 2 ** 19])
@@ -436,15 +548,27 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         tp.iteration_core(tp.table(8, "cpu"), tp.indices(6, 12, "cpu"), 3,
                           n_iters=4)
+    with pytest.raises(ValueError):
+        tp.iteration_core(tp.table(2, "cpu"), tp.indices(1, 4, "cpu"), 1,
+                          n_iters=4)
+    with pytest.raises(ValueError):
+        tp.row_store(tp.indices(8, 8, "cpu"), 0, 1)
     # The spread: its name, a slice count only for the card-wide instance
-    # (and there a positive int), 1-32 warps a block dividing it.
+    # (and there a positive int), 1-32 warps a block dividing it (6d's
+    # 1-8).
     tree, idx = tp.table(8, "cpu"), tp.indices(8, 8, "cpu")
+    with pytest.raises(ValueError):
+        tp.iteration_core(tree, idx, 1, 8, spread="card", slices=32,
+                          warps=tp.ITER_WARPS * 2)
     for fn, args in ((tp.row_reads, (tree, idx, 1)),
                      (tp.block_read, (tree, tp.indices(6, 8, "cpu"), 1)),
                      (tp.row_write, (tree, idx, 1)),
                      (tp.extract8, (tree, tp.indices(128, 8, "cpu"), 1)),
                      (tp.scalar_load_dynsub, (tree, idx, 1)),
-                     (tp.scalar_load_dyn_dyn, (tree, idx, 1))):
+                     (tp.scalar_load_dyn_dyn, (tree, idx, 1)),
+                     (tp.row_store, (idx, 8, 1)),
+                     (tp.iteration_core, (tree, tp.indices(6, 8, "cpu"), 1,
+                                          8))):
         for kw in (dict(spread="gpu"), dict(spread="grid", slices=4),
                    dict(spread="warp", slices=4), dict(spread="card"),
                    dict(spread="card", slices=0),
@@ -461,7 +585,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     # The plain versions launch nothing.
     before = [f.launches for f in tp.KERNELS]
     spread = (tp.row_reads, tp.block_read, tp.row_write, tp.extract8,
-              tp.scalar_load_dynsub, tp.scalar_load_dyn_dyn)
+              tp.scalar_load_dynsub, tp.scalar_load_dyn_dyn, tp.row_store,
+              tp.iteration_core)
     cards = [f.card_launches for f in spread]
     tp.bench_row_reads(16, 8, 1, **CPU)
     tp.bench_row_reads(16, 8, 1, spread="card", slices=3, warps=1, **CPU)
@@ -475,6 +600,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                            warps=3, **CPU)
     tp.scalar_load_dynsub(tree, idx, 1, spread="card", slices=4, warps=4)
     tp.probe_iteration_shapes(1, n_iters=8, reps=1, **CPU)
+    tp.probe_iteration_shapes(2, n_iters=8, reps=1, spread="card", slices=8,
+                              warps=8, **CPU)
+    tp.probe_row_store(16, n_ops=8, spread="card", slices=6, warps=3, **CPU)
     assert [f.launches for f in tp.KERNELS] == before
     assert [f.card_launches for f in spread] == cards
 
@@ -553,9 +681,13 @@ TOOL_ENTRIES = {
     "extract8 card onehot chained": lambda d: tool15._extract8(
         "x", 64, 32, 2, False, d, chained=True, card=True),
     "row store": lambda d: tool18._row_store("st", 64, 32, 2, d),
+    "row store card": lambda d: tool18._row_store("st", 64, 32, 2, d,
+                                                  card=True),
     "iteration core": lambda d: tool18._iteration("i", 2, 256, 2, d),
     "iteration core where words fire": lambda d: tool18._iteration(
         "f", 2, 256, 2, d, tool18.FIRE_SCALE),
+    "iteration core card where words fire": lambda d: tool18._iteration(
+        "f", 4, 256, 2, d, tool18.FIRE_SCALE, tool15.CARD_SLICES),
 }
 
 
@@ -563,7 +695,8 @@ TOOL_ENTRIES = {
 def test_tool_entries(name):
     """The tools' entries at small sizes on the CPU: the call equals the
     plain version, the output is zero only where the entry says so, and
-    the library call (one PyTorch call) gives the same sum."""
+    the library call (one PyTorch call) gives the same sum (the row
+    store's, the same table)."""
     e = TOOL_ENTRIES[name](torch.device("cpu"))
     if e["grid"]:      # the card-wide instance's call over no reads runs
         name_idle, idle = e["idle"]
@@ -577,7 +710,7 @@ def test_tool_entries(name):
         assert torch.equal(g, w)
     assert (not any(bool(g.any()) for g in got)) == e["expect_zero"]
     if e["library"] is not None:
-        assert torch.equal(e["library"](), got[0])
+        assert torch.equal(e["library"](), got[-1])
 
 
 def test_tool_sweep_holds_each_output_to_its_plain_version(monkeypatch):
