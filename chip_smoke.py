@@ -152,8 +152,9 @@ traversal probes.
     are the kernels' times), plus the Hopper placements (chained reads,
     a shared-memory table, a table of the 1M octree's occupied cells,
     counted by the tool's ``octree_diagnostics``) and the iteration core
-    where decisions fire, and beside each row read, block read, row write,
-    scalar load and extract8 its card-wide instance (``spread="card"``:
+    where decisions fire, and beside each row read, block read, reduce
+    round trip, row write, scalar load, extract8, gated reduce, row store
+    and iteration core its card-wide instance (``spread="card"``:
     the reads, writes or visits cut into slices, one warp each, or one
     thread each for the scalar loads and extract8's one-hot variant, over
     every SM; the row write, the scalar loads, the extract8 visits and the
@@ -166,7 +167,10 @@ traversal probes.
     raises before any launch; then each probe against its plain version
     on the same inputs, bit for bit (the row write's and row store's whole
     scratch tables too; each card-wide instance also to a second call of
-    itself), every output not 0 but where the probe's own inputs give 0,
+    itself; each card-wide instance of a dependent chain at one slice,
+    5c's, 6b's and 6d's, also to the one-warp kernel on the same inputs;
+    6b also where its words saturate, at ``arange x 2^24``), every output
+    not 0 but where the probe's own inputs give 0,
     with its bound, the card-wide instances' share of it and their launch
     floor (an empty launch of the same grid), and the time of one PyTorch
     call that computes the same function where there is one
@@ -345,7 +349,8 @@ PEAK_BYTES = 3.35e12
 PROBE_KERNELS = {
     "row_reads": ("decide15", 64), "block_read": ("decide15", 101),
     "row_reads_card": ("decide15", 64), "block_read_card": ("decide15", 101),
-    "reduce_roundtrip": ("decide15", 143), "row_write": ("decide15", 177),
+    "reduce_roundtrip": ("decide15", 143),
+    "reduce_roundtrip_card": ("decide15", 143), "row_write": ("decide15", 177),
     "row_write_card": ("decide15", 177),
     "roll": ("decide15", 206), "scalar_load_dynsub": ("decide15", 239),
     "scalar_load_dyn_dyn": ("decide15", 272),
@@ -354,6 +359,7 @@ PROBE_KERNELS = {
     "extract8": ("decide15", 325),
     "extract8_card": ("decide15", 325),
     "smem_table": ("decide18", 60), "gated_reduce": ("decide18", 99),
+    "gated_reduce_card": ("decide18", 99),
     "row_store": ("decide18", 135), "iteration_core": ("decide18", 198),
     "row_store_card": ("decide18", 135),
     "iteration_core_card": ("decide18", 198),
@@ -3944,15 +3950,16 @@ def main() -> int:
           f"{sum(diag['wl_sizes']):,}")
     torch.cuda.synchronize()
     # One-warp (one-thread) and card-wide instances.
-    spread = (tp.row_reads, tp.block_read, tp.row_write, tp.extract8,
-              tp.scalar_load_dynsub, tp.scalar_load_dyn_dyn, tp.row_store,
-              tp.iteration_core)
+    spread = (tp.row_reads, tp.block_read, tp.reduce_roundtrip, tp.row_write,
+              tp.extract8, tp.scalar_load_dynsub, tp.scalar_load_dyn_dyn,
+              tp.gated_reduce, tp.row_store, tp.iteration_core)
     print(f"    SM clock before the probes: {sm_clock()}")
-    # Registers and spills of 6c's and 6d's card-wide kernels (phase 1's
-    # build).
+    # Registers and spills of 6b's, 6c's and 6d's card-wide kernels and
+    # 5c's (phase 1's build).
     for label, (regs, st, ld) in ptxas.items():
-        if "_card_kernel" in label and "probes_decide18" in label:
-            print(f"    ptxas [{label.split('probes_decide18_cu_')[-1]}]: "
+        if "_card_kernel" in label and ("probes_decide18" in label or
+                                        "reduce_roundtrip" in label):
+            print(f"    ptxas [{label.split('_cu_')[-1]}]: "
                   f"{regs} registers, spills {st} B stored, {ld} B loaded")
     for fn in tp.KERNELS:
         fn.launches = 0
@@ -4002,19 +4009,36 @@ def main() -> int:
           "far above its bytes-or-operations bound by design; the "
           "card-wide instances read each row as often as the probe does, "
           "where the bound counts each distinct row once)")
-    # 6d's redesigned chain (the card-wide instance at one slice) beside
-    # the one-warp kernel on the same inputs: the same int32.
-    cores = {e["label"]: e for e in entries
-             if e["kernel"] is tp.iteration_core}
-    for label, e in cores.items():
+    # 5c's, 6b's and 6d's chains at one slice (6b's and 6d's redesigned)
+    # beside the one-warp kernels on the same inputs: the same output.
+    chains = {e["label"]: e for e in entries if e["kernel"] in (
+        tp.reduce_roundtrip, tp.gated_reduce, tp.iteration_core)}
+    for label, e in chains.items():
         if e["grid"]:
             continue
-        one = cores[f"{label} card P=1/1"]
+        one = chains[f"{label} card P=1/1"]
         got, want = one["call"]().cpu(), e["call"]().cpu()
         require(torch.equal(got, want), (label, "one slice", got, want))
-        print(f"    {label}: one slice {one['ns']:.2f} ns/run, the one-warp "
-              f"kernel {e['ns']:.2f} ({one['ns'] / e['ns']:.3f}x), both "
-              f"{int(got)}")
+        print(f"    {label}: one slice {one['ns']:.2f} ns/{e['unit']}, the "
+              f"one-warp kernel {e['ns']:.2f} ({one['ns'] / e['ns']:.3f}x), "
+              f"both {float(got):.9g}")
+    # 6b where each word saturates (arange x 2^24: both sums past 2^31),
+    # every instance against its plain version.
+    xs = tp.lane_row(dev) * 2 ** 24
+    for pct in (0, 15, 100):
+        serial = tp.gated_reduce_reference(xs.cpu(), pct)
+        card = tp.gated_reduce_card_reference(xs.cpu(), pct, 4096, 20,
+                                              decide15.CARD_SLICES)
+        got = [tp.gated_reduce(xs, pct, **kw).cpu() for kw in (
+            {}, dict(spread="card", slices=1, warps=1),
+            dict(spread="card", slices=decide15.CARD_SLICES,
+                 warps=decide15.CARD_WARPS))]
+        require(torch.equal(got[0], serial) and torch.equal(got[1], serial)
+                and torch.equal(got[2], card),
+                ("gated reduce, saturated words", pct, got, serial, card))
+        print(f"    gated {pct}% at arange x 2^24 (saturated words): "
+              f"one-warp, one slice and card-wide {int(got[0])}, "
+              f"{int(got[1])}, {int(got[2])}, equal to the plain versions")
     traversal_estimate(entries, diag, octree_cells)
     # Host enqueue a call of every probe wrapper at its tool shape (the
     # first entry of each kernel and instance).

@@ -97,12 +97,16 @@ SIGNATURES = {
                                           _I, _P),
     "spatialsim_probe_empty": (_I, _I, _P),
     "spatialsim_probe_reduce_roundtrip": (_P, _P, _I, _I, _I, _P),
+    "spatialsim_probe_reduce_roundtrip_card": (_P, _P, _P, _I, _I, _I, _I,
+                                               _I, _P),
     "spatialsim_probe_row_write": (_P, _P, _P, _P, _I, _I, _P),
     "spatialsim_probe_roll": (_P, _I, _P, _P),
     "spatialsim_probe_scalar_load": (_P, _P, _P, _I, _I, _I, _I, _P),
     "spatialsim_probe_extract8": (_P, _P, _P, _I, _I, _I, _I, _P),
     "spatialsim_probe_smem_table": (_P, _P, _P, _I, _I, _I, _I, _P),
     "spatialsim_probe_gated_reduce": (_P, _P, _I, _I, _I, _P),
+    "spatialsim_probe_gated_reduce_card": (_P, _P, _P, _I, _I, _I, _I, _I,
+                                           _P),
     "spatialsim_probe_row_store": (_P, _P, _P, _I, _I, _P),
     "spatialsim_probe_iteration_core": (_P, _P, _P, _I, _I, _I, _I, _P),
     "spatialsim_probe_row_store_card": (_P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -14,9 +14,10 @@
 // bound by design.  What bounds them on this card is the dependent-access
 // latency: L1/L2 hit latency for reads of a table that stays resident in
 // the 50 MB L2 (the TPU's 4 and 12 MB VMEM tables), device-memory latency
-// past it, and the shuffle and ALU latency of the reduce chains.  5a, 5b,
-// 5d, 5f, 5g and 5h also have card-wide instances (below the one-warp and
-// one-thread ones), which spread the same reads and writes over every SM.
+// past it, and the shuffle and ALU latency of the reduce chains.  5a-5d and
+// 5f-5h also have card-wide instances (beside or below the one-warp and
+// one-thread ones), which spread the same reads, writes or steps over every
+// SM.
 //
 // Layout: a table row is 128 float32 = 512 B = 32 lanes x float4, one
 // coalesced request a warp.  Lane l holds elements 4l .. 4l+3.
@@ -341,31 +342,73 @@ __global__ void empty_kernel() {}
 //     the scalar, so the scalar chain (and any branch on it) is uniform
 //     across the warp: the SM's answer to the TPU's vector-to-SMEM trip.
 template <int BATCH>
+__device__ __forceinline__ float roundtrip_step(float4 v, float acc) {
+  const float f = __fadd_rn(1.0f, __fmul_rn(acc, 1e-20f));
+  float sb[BATCH];
+#pragma unroll
+  for (int b = 0; b < BATCH; ++b) {
+    const float fb = (float)b;
+    float p = __fadd_rn(__fmul_rn(v.x, f), fb);
+    p = __fadd_rn(p, __fadd_rn(__fmul_rn(v.y, f), fb));
+    p = __fadd_rn(p, __fadd_rn(__fmul_rn(v.z, f), fb));
+    p = __fadd_rn(p, __fadd_rn(__fmul_rn(v.w, f), fb));
+    sb[b] = warp_sum(p);
+  }
+  float s = sb[0];
+#pragma unroll
+  for (int b = 1; b < BATCH; ++b) s = __fadd_rn(s, sb[b]);
+  return __fadd_rn(acc, s);
+}
+
+template <int BATCH>
 __global__ void __launch_bounds__(32) reduce_roundtrip_kernel(
     const float4* __restrict__ x, float* __restrict__ out, int n_ops,
     int reps) {
   const float4 v = x[threadIdx.x];
   float acc = 0.f;
   for (int r = 0; r < reps; ++r) {
-    for (int i = 0; i < n_ops; ++i) {
-      const float f = __fadd_rn(1.0f, __fmul_rn(acc, 1e-20f));
-      float sb[BATCH];
-#pragma unroll
-      for (int b = 0; b < BATCH; ++b) {
-        const float fb = (float)b;
-        float p = __fadd_rn(__fmul_rn(v.x, f), fb);
-        p = __fadd_rn(p, __fadd_rn(__fmul_rn(v.y, f), fb));
-        p = __fadd_rn(p, __fadd_rn(__fmul_rn(v.z, f), fb));
-        p = __fadd_rn(p, __fadd_rn(__fmul_rn(v.w, f), fb));
-        sb[b] = warp_sum(p);
-      }
-      float s = sb[0];
-#pragma unroll
-      for (int b = 1; b < BATCH; ++b) s = __fadd_rn(s, sb[b]);
-      acc = __fadd_rn(acc, s);
-    }
+    for (int i = 0; i < n_ops; ++i) acc = roundtrip_step<BATCH>(v, acc);
   }
   if (threadIdx.x == 0) out[0] = acc;
+}
+
+// 5c, card-wide.  The reps x n_ops steps form one stream, cut into slices
+// by slice_of, one warp a slice (blockDim.x / 32 warps a block, exactly
+// `slices` warps).  Each slice runs the probe's chain from acc = 0 over
+// its steps, every step reduce_roundtrip_kernel's (f from this step's acc,
+// BATCH butterflies, the adds in the same order), and lane 0 writes its
+// float32 acc to partial[p]; sum_scalars_kernel adds the partials serially
+// in slice order (no float atomics).  One slice is the probe's chain: the
+// one-warp kernel's float32 bit for bit.
+//
+// Nothing leaves a slice's chain: f waits on acc, each product on f, and
+// the lane's three adds and the butterfly are the function's order of
+// float32 adds, so any other order or a fused multiply-add changes bits.
+// The card-wide instance takes no step off the path; it runs P chains at
+// once.  What bounds it: each warp's dependent path (18 instructions a
+// step at BATCH 1, 5 of them shuffles) times its steps, with 8 warps a
+// scheduler interleaved, then the second pass's P dependent adds; at
+// BATCH 8 the shuffle throughput (one warp's shuffle a cycle an SM).
+//
+// ONE_WARP: blocks of one warp (`warps` 1), p = blockIdx.x.  The compiler
+// then sees each warp's trip count as uniform and issues the butterflies
+// with no divergence check (BRA.DIV) in the loop, as in the one-warp
+// kernel; in a block of several warps it cannot, and on an H100 the check
+// and the schedule around it cost the chain at one slice 2%, 10% and 18%
+// at BATCH 1, 4 and 8.
+template <int BATCH, bool ONE_WARP>
+__global__ void __launch_bounds__(ONE_WARP ? 32 : 1024)
+    reduce_roundtrip_card_kernel(const float4* __restrict__ x,
+                                 float* __restrict__ partial,
+                                 long long total, int slices) {
+  const int p = ONE_WARP ? blockIdx.x
+                         : blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const float4 v = x[threadIdx.x & 31];
+  long long t0, n;
+  slice_of(p, total, slices, &t0, &n);
+  float acc = 0.f;
+  for (long long k = 0; k < n; ++k) acc = roundtrip_step<BATCH>(v, acc);
+  if ((threadIdx.x & 31) == 0) partial[p] = acc;
 }
 
 // 5d. Replaces decide15.py:177 bench_row_write (body :166): the append
@@ -967,6 +1010,32 @@ extern "C" int spatialsim_probe_reduce_roundtrip(const void* x, float* out,
 #undef RT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatialsim_probe_reduce_roundtrip_card(
+    const void* x, float* partial, float* out, int n_ops, int reps,
+    int batch, int slices, int warps, void* stream) {
+  if (bad_spread(slices, warps) || n_ops < 0 || reps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* v = static_cast<const float4*>(x);
+  const long long total = (long long)reps * n_ops;
+  void (*k)(const float4*, float*, long long, int);
+  switch (batch) {
+#define RTC_CASE(B)                                                        \
+    case B:                                                                \
+      k = warps == 1 ? reduce_roundtrip_card_kernel<B, true>               \
+                     : reduce_roundtrip_card_kernel<B, false>;             \
+      break;
+    RTC_CASE(1) RTC_CASE(4) RTC_CASE(8)
+#undef RTC_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  k<<<slices / warps, warps * 32, 0, st>>>(v, partial, total, slices);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sum_scalars_kernel<<<1, kScalarThreads, 0, st>>>(partial, out, slices);
   return static_cast<int>(cudaGetLastError());
 }
 

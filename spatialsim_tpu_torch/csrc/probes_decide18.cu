@@ -12,7 +12,7 @@
 // `%` is the floor modulo of jnp (`fmod_floor`), so a negative value
 // would take the same residue as on the TPU.
 //
-// 6c and 6d also have card-wide instances (below the one-warp ones), as
+// 6b, 6c and 6d also have card-wide instances (below the one-warp ones), as
 // 5a-5h in probes_decide15.cu: the probe's stores or steps as one stream
 // cut into P slices, one warp a slice.
 
@@ -206,7 +206,7 @@ __global__ void __launch_bounds__(32) iteration_core_kernel(
   if (lane == 0) out[0] = acc;
 }
 
-// ---- Card-wide instances of 6c and 6d -----------------------------------
+// ---- Card-wide instances of 6b, 6c and 6d -------------------------------
 
 // Slice p of a stream of `total` stores or steps cut into `slices`: its
 // first element and its length (probes_decide15.cu's slice_of).
@@ -485,9 +485,9 @@ __global__ void __launch_bounds__(kIterWarps * 32) iteration_core_card_kernel(
   if (lane == 0) partial[p] = acc;
 }
 
-// 6d's second pass: out = the slices' results summed with int32 wrap.
-// Addition mod 2^32 does not depend on the order, so the block sums them
-// in parallel and gives slice order's bits.
+// 6b's and 6d's second pass: out = the slices' results summed with int32
+// wrap.  Addition mod 2^32 does not depend on the order, so the block sums
+// them in parallel and gives slice order's bits.
 __global__ void __launch_bounds__(1024) sum_ints_kernel(
     const int* __restrict__ partial, int* __restrict__ out, int slices) {
   __shared__ unsigned warp_sums[32];
@@ -503,6 +503,69 @@ __global__ void __launch_bounds__(1024) sum_ints_kernel(
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
   if (threadIdx.x == 0) out[0] = static_cast<int>(s);
+}
+
+// 6b, card-wide, with its second reduce off the dependent chain.  The
+// reps x n_ops steps form one stream, step t at i = t mod n_ops, cut into
+// slices by slice_of, one warp a slice; each slice runs the probe's chain
+// from acc = 0 over its steps, and sum_ints_kernel adds the slices' int32
+// results.  One slice is the probe's function: a redesign of
+// gated_reduce_kernel's chain.
+//
+// The second reduce, sum(2 v + t), waits on t = acc 1e-20 but not on the
+// first reduce's word w, so it is issued beside the first on every step:
+// the two butterflies' shuffles interleave, and a hit's path gains only
+// the select.  The hit (w + i) mod 100 < pct then takes its word with a
+// PTX selp (isel), so the loop holds no branch: the words are uniform
+// across the warp, but the compiler cannot know it, and a branch or a
+// divergent ?: in the loop cost the iteration core's first design its
+// gain (iteration_core_card_kernel).  Each word is
+// __float2int_rz of the sum (toward zero, saturating, NaN to 0, as XLA's
+// convert), and the gate's floor mod 100 of wrap(w + i) holds for every
+// int32 w, saturated words included.  What bounds it: one warp issues in
+// order, so the second reduce costs its issue slots and shuffles even
+// where no step hits; the path a step is t, the four adds of a lane, the
+// butterfly, the conversion, the gate, the select and the adds.  ONE_WARP:
+// blocks of one warp, p = blockIdx.x, so the compiler sees each warp's trip
+// count as uniform and puts no divergence check (BRA.DIV) in the loop (as
+// probes_decide15.cu's reduce_roundtrip_card_kernel): on an H100, 124.6 ns
+// a step at one slice against 134.4 with the check.
+template <bool ONE_WARP>
+__global__ void __launch_bounds__(ONE_WARP ? 32 : 1024)
+    gated_reduce_card_kernel(const float4* __restrict__ x,
+                             int* __restrict__ partial, int pct, int n_ops,
+                             long long total, int slices) {
+  const int p = ONE_WARP ? blockIdx.x
+                         : blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const float4 v = x[threadIdx.x & 31];
+  const float4 v2 = make_float4(__fmul_rn(v.x, 2.f), __fmul_rn(v.y, 2.f),
+                                __fmul_rn(v.z, 2.f), __fmul_rn(v.w, 2.f));
+  long long t0, n;
+  slice_of(p, total, slices, &t0, &n);
+  int i = n_ops ? static_cast<int>(t0 % n_ops) : 0;
+  int acc = 0;
+  for (long long k = 0; k < n; ++k) {
+    const float t = __fmul_rn(__int2float_rn(acc), 1e-20f);
+    float a = __fadd_rn(v.x, t), b = __fadd_rn(v2.x, t);
+    a = __fadd_rn(a, __fadd_rn(v.y, t));
+    b = __fadd_rn(b, __fadd_rn(v2.y, t));
+    a = __fadd_rn(a, __fadd_rn(v.z, t));
+    b = __fadd_rn(b, __fadd_rn(v2.z, t));
+    a = __fadd_rn(a, __fadd_rn(v.w, t));
+    b = __fadd_rn(b, __fadd_rn(v2.w, t));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float sa = __shfl_xor_sync(kFull, a, o);
+      const float sb = __shfl_xor_sync(kFull, b, o);
+      a = __fadd_rn(a, sa);
+      b = __fadd_rn(b, sb);
+    }
+    const int w = __float2int_rz(a), w2 = __float2int_rz(b);
+    const int add = isel(fmod_floor(wrap_add(w, i), 100) < pct, w2, 0);
+    acc = wrap_add(wrap_add(acc, w), add);
+    i = isel(i + 1 == n_ops, 0, i + 1);
+  }
+  if ((threadIdx.x & 31) == 0) partial[p] = acc;
 }
 
 // The card-wide instances take 1-32 warps a block (6d 1-kIterWarps) and a
@@ -538,6 +601,25 @@ extern "C" int spatialsim_probe_gated_reduce(const void* x, int* out, int pct,
                                              void* stream) {
   gated_reduce_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(x), out, pct, n_ops, reps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatialsim_probe_gated_reduce_card(const void* x, int* partial,
+                                                  int* out, int pct,
+                                                  int n_ops, int reps,
+                                                  int slices, int warps,
+                                                  void* stream) {
+  if (bad_spread(slices, warps, 32) || n_ops < 0 || reps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto k = warps == 1 ? gated_reduce_card_kernel<true>
+                      : gated_reduce_card_kernel<false>;
+  k<<<slices / warps, warps * 32, 0, st>>>(static_cast<const float4*>(x),
+                                           partial, pct, n_ops,
+                                           (long long)reps * n_ops, slices);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sum_ints_kernel<<<1, 1024, 0, st>>>(partial, out, slices);
   return static_cast<int>(cudaGetLastError());
 }
 

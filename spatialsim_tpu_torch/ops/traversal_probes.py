@@ -23,17 +23,19 @@ Four layers, per probe:
 * the wrapper (``row_reads``, ``gated_reduce``, ...) -- takes the inputs;
   a CUDA tensor launches the kernel on the current stream (or raises) and
   adds one to the wrapper's ``launches``; a CPU tensor takes the plain
-  version.  5a, 5b, 5d, 5f, 5g, 5h, 6c and 6d also take
-  ``spread="card"``: the same reads, writes or steps cut into ``slices``
-  contiguous slices, one warp each (one thread each for 5f, 5g and 5h's
-  one-hot variant), ``warps`` warps a block, the partials summed in slice
-  order (their ``card_launches`` count those calls).
+  version.  5a-5d, 5f-5h and 6b-6d also take ``spread="card"``: the
+  same reads, writes or steps cut into ``slices`` contiguous slices, one
+  warp each (one thread each for 5f, 5g and 5h's one-hot variant),
+  ``warps`` warps a block, the partials summed in slice order (their
+  ``card_launches`` count those calls).
 * ``*_reference`` -- the plain version, in the probe's order of
   operations, rounding in float32 and wrapping in int32 as the TPU probe
-  and the kernel do, so all three agree bit for bit.  The row sums (5a,
+  and the kernel do (a float32 word goes to int32 toward zero, saturating,
+  :func:`_f32_to_i32`), so all three agree bit for bit.  The row sums (5a,
   5b, 5f-5h) are serial float32 scans on the host (:func:`_serial_sum`);
   the chains whose next step depends on the last (5c, 6a, 6b, 6d) go step
-  by step.
+  by step, 5c's and 6b's reduces in the kernels' order
+  (:func:`_warp_sum`).
 
 Rows 5a-6d refer to the table of TPU kernels in ``PERF.md``.
 """
@@ -51,7 +53,7 @@ WHERE = ("global", "shared")
 WIDTHS = (1, 2, 4, 8)     # row-read chains: decide15's widths
 BATCHES = (1, 4, 8)       # reduce round trip: decide15's batches
 K_RUNS = (1, 2, 4)        # iteration core: decide18's runs a step
-SPREADS = ("warp", "card")  # 5a, 5b, 5d, 5f-5h, 6c, 6d: one warp, or slices
+SPREADS = ("warp", "card")  # 5a-5d, 5f-5h, 6b-6d: one warp, or slices
 MAX_WARPS = 32            # warps a block of the card-wide instances
 ITER_WARPS = 8            # 6d's: K = 4 holds three steps of rows
 
@@ -116,6 +118,32 @@ def smem_optin_bytes(device) -> int:
 def _i32(x: int) -> int:
     """Wrap a Python int to int32, as the kernels' chains wrap."""
     return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _f32_to_i32(x) -> int:
+    """A float32 value to int32 as the kernels' ``__float2int_rz`` and
+    XLA's convert take it: toward zero, saturating to ``[-2^31, 2^31 -
+    1]``, NaN to 0."""
+    x = float(x)
+    return 0 if x != x else int(max(-2.0 ** 31, min(2.0 ** 31 - 1, x)))
+
+
+def _lanes(x) -> np.ndarray:
+    """A ``(1, 128)`` row as the kernels hold it, host float32 ``(4, 32)``:
+    ``[k, l]`` is element ``4 l + k``, component k of lane l's float4."""
+    return np.ascontiguousarray(_host(x).reshape(32, 4).T, dtype=np.float32)
+
+
+def _warp_sum(a) -> np.float32:
+    """The kernels' sum of a row held as :func:`_lanes`: each lane's four
+    values left to right, then the shuffle butterfly (lanes l and l + o
+    added, o = 16, 8, 4, 2, 1), in float32.  Where every partial sum is
+    exact in float32 (the probes' rows, and ``arange x 2^24``), any order
+    gives these bits, the JAX probe's ``jnp.sum`` included."""
+    p = ((a[0] + a[1]) + a[2]) + a[3]
+    for o in (16, 8, 4, 2, 1):
+        p = p[:o] + p[o:2 * o]
+    return p[0]
 
 
 def _check(name, t, dtype, shape=None):
@@ -408,48 +436,90 @@ def empty_launch(blocks, threads, like):
 
 # ---- 5c. reduce round trip (decide15.py:143) --------------------------------
 
+def _roundtrip_chain(v, batch, steps, sums) -> np.float32:
+    """``steps`` steps of the probe's chain from ``acc = 0`` on the row
+    ``v`` (:func:`_lanes`): ``f = 1 + acc * 1e-20``, ``s_b = sum(v * f +
+    b)`` (:func:`_warp_sum`), ``acc += s_0 + ... + s_{batch-1}`` in
+    float32.  The sums depend on ``acc`` only through ``f``, so ``sums``
+    keeps each f's (by its bits) and they are computed once an f."""
+    acc = np.float32(0.0)
+    for _ in range(steps):
+        f = np.float32(np.float32(1.0) + acc * np.float32(1e-20))
+        key = int(f.view(np.uint32))
+        s = sums.get(key)
+        if s is None:
+            parts = [_warp_sum(v * f + np.float32(b)) for b in range(batch)]
+            s = parts[0]
+            for sb in parts[1:]:
+                s = np.float32(s + sb)
+            sums[key] = s
+        acc = np.float32(acc + s)
+    return acc
+
+
 def reduce_roundtrip_reference(x, n_ops, reps, batch=1):
-    """Step by step: ``f = 1 + acc * 1e-20``, ``s_b = sum(v * f + b)``,
-    ``acc += s_0 + ... + s_{batch-1}`` in float32.  The sums depend on
-    ``acc`` only through ``f``, so they are recomputed only when ``f``
-    changes."""
-    v = x.reshape(-1)
-    acc, f_last, s = np.float32(0.0), None, np.float32(0.0)
-    for _ in range(reps):
-        for _ in range(n_ops):
-            f = np.float32(np.float32(1.0) + acc * np.float32(1e-20))
-            if f != f_last:
-                sums = [np.float32(torch.sum(v * float(f) + float(b)).item())
-                        for b in range(batch)]
-                s = sums[0]
-                for sb in sums[1:]:
-                    s = np.float32(s + sb)
-                f_last = f
-            acc = np.float32(acc + s)
+    """The probe's chain over its ``reps x n_ops`` steps
+    (:func:`_roundtrip_chain`)."""
+    acc = _roundtrip_chain(_lanes(x), batch, max(n_ops, 0) * max(reps, 0), {})
     return torch.tensor([[float(acc)]], dtype=torch.float32, device=x.device)
 
 
-def reduce_roundtrip(x, n_ops, reps, batch=1):
+def reduce_roundtrip_card_reference(x, n_ops, reps, batch=1, slices=1):
+    """The card-wide instance's function: the ``reps x n_ops`` steps as one
+    stream cut into ``slices`` (:func:`slice_bounds`), each slice's chain
+    from ``acc = 0`` (:func:`_roundtrip_chain`), the partials summed
+    serially in slice order in float32.  ``slices=1`` is
+    :func:`reduce_roundtrip_reference`'s chain."""
+    v, sums = _lanes(x), {}
+    lens = np.diff(slice_bounds(max(n_ops, 0) * max(reps, 0), slices))
+    parts = np.array([_roundtrip_chain(v, batch, int(n), sums)
+                      for n in lens], np.float32)
+    return torch.tensor([[float(_serial_sum(parts))]], dtype=torch.float32,
+                        device=x.device)
+
+
+def reduce_roundtrip(x, n_ops, reps, batch=1, *, spread="warp", slices=None,
+                     warps=8):
     """5c: ``batch`` reductions issued before any is read, then the scalar
-    chain; one warp, shuffle butterflies."""
+    chain; one warp, shuffle butterflies.  ``spread="card"``: the steps cut
+    into ``slices``, one warp each, ``warps`` a block, each slice's chain
+    from 0, the partials summed in slice order by a second kernel
+    (:func:`reduce_roundtrip_card_reference`); ``slices=1`` is the probe's
+    chain."""
     if batch not in BATCHES:
         raise ValueError(f"reduce_roundtrip: batch {batch} not in {BATCHES}")
+    _check_spread("reduce_roundtrip", spread, slices, warps)
+    card = spread == "card"
     if not _on_card("reduce_roundtrip", x):
+        if card:
+            return reduce_roundtrip_card_reference(x, n_ops, reps, batch,
+                                                   slices)
         return reduce_roundtrip_reference(x, n_ops, reps, batch)
     _check("reduce_roundtrip: x", x, torch.float32, (1, ROW))
     out = torch.empty((1, 1), dtype=torch.float32, device=x.device)
-    _kernels.check(_kernels.entry.spatialsim_probe_reduce_roundtrip(
-        x.data_ptr(), out.data_ptr(), int(n_ops), int(reps), int(batch),
-        _kernels.stream(x)), "probe_reduce_roundtrip")
+    if card:
+        partial = torch.empty(slices, dtype=torch.float32, device=x.device)
+        _kernels.check(_kernels.entry.spatialsim_probe_reduce_roundtrip_card(
+            x.data_ptr(), partial.data_ptr(), out.data_ptr(), int(n_ops),
+            int(reps), int(batch), slices, warps, _kernels.stream(x)),
+            "probe_reduce_roundtrip_card")
+        reduce_roundtrip.card_launches += 1
+    else:
+        _kernels.check(_kernels.entry.spatialsim_probe_reduce_roundtrip(
+            x.data_ptr(), out.data_ptr(), int(n_ops), int(reps), int(batch),
+            _kernels.stream(x)), "probe_reduce_roundtrip")
     reduce_roundtrip.launches += 1
     return out
 
 
 reduce_roundtrip.launches = 0
+reduce_roundtrip.card_launches = 0
 
 
-def bench_reduce_roundtrip(n_ops, reps_in_kernel, batch=1, *, device="cuda"):
-    return reduce_roundtrip(lane_row(device), n_ops, reps_in_kernel, batch)
+def bench_reduce_roundtrip(n_ops, reps_in_kernel, batch=1, *, spread="warp",
+                           slices=None, warps=8, device="cuda"):
+    return reduce_roundtrip(lane_row(device), n_ops, reps_in_kernel, batch,
+                            spread=spread, slices=slices, warps=warps)
 
 
 # ---- 5d. row write (decide15.py:177) ----------------------------------------
@@ -781,42 +851,96 @@ def probe_smem_capacity(n_i32, *, where="shared", n_ops=4096, reps=20,
 
 # ---- 6b. gated reduce (decide18.py:99) --------------------------------------
 
+def _gated_chain(v, pct, n_ops, t0, steps, words) -> int:
+    """``steps`` steps of the probe's int32 chain from ``acc = 0`` on the
+    row ``v`` (:func:`_lanes`), from step ``t0`` of the stream (step t at
+    ``i = t mod n_ops``): ``t = acc * 1e-20`` (float32), ``w = int(sum(v
+    + t))``, a hit when ``(w + i) mod 100 < pct``, then ``acc += w + (hit
+    ? int(sum(2 v + t)) : 0)``, each sum :func:`_warp_sum`, each word
+    converted by :func:`_f32_to_i32`.  The words depend on ``acc`` only
+    through ``t``: ``words`` keeps each t's (by its bits)."""
+    acc, i = 0, t0 % n_ops if n_ops else 0
+    v2 = v * np.float32(2.0)
+    for _ in range(steps):
+        t = np.float32(np.float32(acc) * np.float32(1e-20))
+        key = int(t.view(np.uint32))
+        w = words.get((key, 1))
+        if w is None:
+            w = words[key, 1] = _f32_to_i32(_warp_sum(v + t))
+        add = 0
+        if _i32(w + i) % 100 < pct:
+            add = words.get((key, 2))
+            if add is None:
+                add = words[key, 2] = _f32_to_i32(_warp_sum(v2 + t))
+        acc = _i32(_i32(acc + w) + add)
+        i = 0 if i + 1 == n_ops else i + 1
+    return acc
+
+
 def gated_reduce_reference(x, gate_frac_pct, n_ops=4096, reps=20):
-    """Step by step: ``t = acc * 1e-20`` (float32), ``w = int(sum(v + t))``,
-    a hit when ``(w + i) mod 100 < pct``, then ``acc += w + (hit ?
-    int(sum(2 v + t)) : 0)`` in int32."""
-    v = x.reshape(-1)
-    acc = 0
-    for _ in range(reps):
-        for i in range(n_ops):
-            t = float(np.float32(np.float32(acc) * np.float32(1e-20)))
-            w = int(torch.sum(v + t).item())
-            add = 0
-            if _i32(w + i) % 100 < gate_frac_pct:
-                add = int(torch.sum(v * 2.0 + t).item())
-            acc = _i32(_i32(acc + w) + add)
+    """The probe's chain over its ``reps x n_ops`` steps
+    (:func:`_gated_chain`)."""
+    acc = _gated_chain(_lanes(x), gate_frac_pct, n_ops, 0,
+                       max(n_ops, 0) * max(reps, 0), {})
     return torch.tensor([[acc]], dtype=torch.int32, device=x.device)
 
 
-def gated_reduce(x, gate_frac_pct, n_ops=4096, reps=20):
+def gated_reduce_card_reference(x, gate_frac_pct, n_ops=4096, reps=20,
+                                slices=1):
+    """The card-wide instance's function: the ``reps x n_ops`` steps as one
+    stream cut into ``slices`` (:func:`slice_bounds`), each slice's chain
+    from ``acc = 0`` (:func:`_gated_chain`), the results added with int32
+    wrap.  ``slices=1`` is :func:`gated_reduce_reference`'s chain."""
+    v, words = _lanes(x), {}
+    b = slice_bounds(max(n_ops, 0) * max(reps, 0), slices)
+    out = 0
+    for p in range(slices):
+        out = _i32(out + _gated_chain(v, gate_frac_pct, n_ops, int(b[p]),
+                                      int(b[p + 1] - b[p]), words))
+    return torch.tensor([[out]], dtype=torch.int32, device=x.device)
+
+
+def gated_reduce(x, gate_frac_pct, n_ops=4096, reps=20, *, spread="warp",
+                 slices=None, warps=8):
     """6b: the word reduce every step and a second reduce on a hit; one
-    warp, the branch uniform across it."""
+    warp, the branch uniform across it.  ``spread="card"``: the steps cut
+    into ``slices``, one warp each, ``warps`` a block, each slice's chain
+    from 0 with the second reduce issued beside the first on every step
+    and taken by a select, the results added by a second kernel
+    (:func:`gated_reduce_card_reference`); ``slices=1`` is the probe's
+    chain."""
+    _check_spread("gated_reduce", spread, slices, warps)
+    card = spread == "card"
     if not _on_card("gated_reduce", x):
+        if card:
+            return gated_reduce_card_reference(x, gate_frac_pct, n_ops, reps,
+                                               slices)
         return gated_reduce_reference(x, gate_frac_pct, n_ops, reps)
     _check("gated_reduce: x", x, torch.float32, (1, ROW))
     out = torch.empty((1, 1), dtype=torch.int32, device=x.device)
-    _kernels.check(_kernels.entry.spatialsim_probe_gated_reduce(
-        x.data_ptr(), out.data_ptr(), int(gate_frac_pct), int(n_ops),
-        int(reps), _kernels.stream(x)), "probe_gated_reduce")
+    if card:
+        partial = torch.empty(slices, dtype=torch.int32, device=x.device)
+        _kernels.check(_kernels.entry.spatialsim_probe_gated_reduce_card(
+            x.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            int(gate_frac_pct), int(n_ops), int(reps), slices, warps,
+            _kernels.stream(x)), "probe_gated_reduce_card")
+        gated_reduce.card_launches += 1
+    else:
+        _kernels.check(_kernels.entry.spatialsim_probe_gated_reduce(
+            x.data_ptr(), out.data_ptr(), int(gate_frac_pct), int(n_ops),
+            int(reps), _kernels.stream(x)), "probe_gated_reduce")
     gated_reduce.launches += 1
     return out
 
 
 gated_reduce.launches = 0
+gated_reduce.card_launches = 0
 
 
-def probe_gated_reduce(gate_frac_pct, *, n_ops=4096, reps=20, device="cuda"):
-    return gated_reduce(lane_row(device), gate_frac_pct, n_ops, reps)
+def probe_gated_reduce(gate_frac_pct, *, n_ops=4096, reps=20, spread="warp",
+                       slices=None, warps=8, device="cuda"):
+    return gated_reduce(lane_row(device), gate_frac_pct, n_ops, reps,
+                        spread=spread, slices=slices, warps=warps)
 
 
 # ---- 6c. row store (decide18.py:135) ----------------------------------------

@@ -14,18 +14,21 @@ rows (the occupied cells of the port's 1M-galaxy octree, past the 50 MB
 L2: by default counted on the card by ``build_diagnostics``; 0 skips
 them, as on the CPU).
 
-Beside each row-read, block-read, row-write, scalar-load and extract8
-line stands the card-wide instance of the same function
-(``spread="card"``: the reads, writes or visits cut into ``CARD_SLICES``
-slices, one warp each, ``CARD_WARPS`` warps a block; the shared-memory
-table one block of ``SHARED_WARPS`` an SM; the scalar loads and
-extract8's one-hot variant one thread a slice, ``THREAD_WARPS`` warp a
-block): its ns per read, op or visit is the card's rate over that many
-chains at once, where the one-warp or one-thread line is one chain's
-latency.  With ``--octree-cells``, row reads, row writes, scalar loads
-and extract8 visits also run at 204,800 x 1 on that table (extract8 on
-the same cells packed 16 a row).  ``--sweep`` adds the card-wide row
-reads over ``SWEEP_SLICES`` x ``SWEEP_WARPS`` and the card-wide 5f over
+Beside each row-read, block-read, reduce-roundtrip, row-write,
+scalar-load and extract8 line stands the card-wide instance of the same
+function (``spread="card"``: the reads, steps, writes or visits cut into
+``CARD_SLICES`` slices, one warp each, ``CARD_WARPS`` warps a block; the
+shared-memory table one block of ``SHARED_WARPS`` an SM; the scalar
+loads and extract8's one-hot variant one thread a slice,
+``THREAD_WARPS`` warp a block): its ns per read, reduce, op or visit is
+the card's rate over that many chains at once, where the one-warp or
+one-thread line is one chain's latency.  Beside each reduce round trip
+also stands the card-wide instance at one slice (``P=1/1``): the probe's
+chain, ns a reduce beside the one-warp kernel's.  With
+``--octree-cells``, row reads, row writes, scalar loads and extract8
+visits also run at 204,800 x 1 on that table (extract8 on the same cells
+packed 16 a row).  ``--sweep`` adds the card-wide row reads over
+``SWEEP_SLICES`` x ``SWEEP_WARPS`` and the card-wide 5f over
 ``SWEEP_SLICES`` x ``SCALAR_SWEEP_WARPS``, both also on the octree's
 table, each output held to the plain version of its slice count.
 
@@ -224,17 +227,55 @@ def _block_read(label, n_cells, n_reads, reps, device, *, chained=False,
         idle=grid and _row_reads_idle(kw, device))
 
 
-def _reduce_roundtrip(label, n_ops, reps, batch, device):
+def _once(fn):
+    """``fn`` computed at the first call and kept: a plain chain that the
+    one-warp entry and the card-wide one at one slice share (one slice is
+    the probe's chain)."""
+    kept = []
+
+    def call():
+        if not kept:
+            kept.append(fn())
+        return kept[0]
+    return call
+
+
+def _chain_spread(slices, most=CARD_WARPS):
+    """(label suffix, wrapper keywords, grid) of a dependent chain's
+    instance: the one-warp kernel (``slices`` None), or the card-wide one
+    at ``slices`` (``CARD_WARPS`` warps a block, at most ``most``; one
+    warp at one slice)."""
+    if not slices:
+        return "", dict(spread="warp"), None
+    warps = min(CARD_WARPS, most) if slices > 1 else 1
+    return (f" card P={slices}/{warps}",
+            dict(spread="card", slices=slices, warps=warps),
+            (slices // warps, 32 * warps))
+
+
+def _reduce_roundtrip(label, n_ops, reps, batch, device, slices=None, *,
+                      serial=None):
+    """5c's entry: the one-warp kernel, or with ``slices`` the card-wide
+    instance at that many slices.  The one-warp kernel and the card-wide
+    one at one slice run the probe's chain, whose plain version is
+    ``serial`` where given (a :func:`_once` the two entries share)."""
     x = tp.lane_row(device)
     steps = n_ops * reps
+    suffix, kw, grid = _chain_spread(slices)
+    plain = ((lambda: tp.reduce_roundtrip_card_reference(
+        x.cpu(), n_ops, reps, batch, slices)) if slices and slices > 1
+        else serial or (lambda: tp.reduce_roundtrip_reference(
+            x.cpu(), n_ops, reps, batch)))
     return entry(
-        label, tp.reduce_roundtrip,
-        lambda: tp.reduce_roundtrip(x, n_ops, reps, batch),
-        lambda: tp.reduce_roundtrip_reference(x.cpu(), n_ops, reps, batch),
+        label + suffix, tp.reduce_roundtrip,
+        lambda: tp.reduce_roundtrip(x, n_ops, reps, batch, **kw), plain,
         steps * batch, "reduce",
         # f (2), per reduce 128 multiplies, 128 adds and 127 sums, the
         # batch's sum and the accumulate.
-        steps * (2 + 383 * batch + batch), 512 + 4)
+        steps * (2 + 383 * batch + batch), 512 + 4, grid=grid,
+        # Over no steps: the launch and the second pass over zero partials.
+        idle=grid and (f"reduce roundtrip b{batch}{suffix}",
+                       lambda: tp.reduce_roundtrip(x, 0, 1, batch, **kw)))
 
 
 def _row_write(label, n_cells, n_ops, reps, device, *, card=False):
@@ -321,10 +362,10 @@ SCALARS = (("scalar load (dyn sub, static lane)", tp.scalar_load_dynsub,
 
 def probes(device, quick=False, octree_cells=0):
     """The script's probes in its order, each with its chained form and,
-    but for the reduce round trip and the roll, its card-wide instance
-    beside it; then the Hopper placements of the row reads and, with
-    ``octree_cells``, the row reads, row writes, scalar loads and
-    extract8 visits on the octree's table."""
+    but for the roll, its card-wide instance beside it (the reduce round
+    trip also at one slice); then the Hopper placements of the row reads
+    and, with ``octree_cells``, the row reads, row writes, scalar loads
+    and extract8 visits on the octree's table."""
     r = (lambda n: 1) if quick else (lambda n: n)
     both = (False, True)
     spreads = [(card, c) for card in both for c in both]
@@ -343,9 +384,12 @@ def probes(device, quick=False, octree_cells=0):
     out += [_row_write("row-write", 8192, 4096, r(50), device, card=card)
             for card in both]
     out.append(_roll("roll", 5, device))
-    out += [_reduce_roundtrip(f"reduce-roundtrip b{b}", 4096, r(reps), b,
-                              device) for b, reps in ((1, 50), (4, 50),
-                                                      (8, 25))]
+    for b, reps in ((1, 50), (4, 50), (8, 25)):
+        serial = _once(lambda b=b, reps=r(reps): tp.reduce_roundtrip_reference(
+            tp.lane_row("cpu"), 4096, reps, b))
+        out += [_reduce_roundtrip(f"reduce-roundtrip b{b}", 4096, r(reps), b,
+                                  device, slices, serial=serial)
+                for slices in (None, CARD_SLICES, 1)]
     for name, kernel, plain in SCALARS:
         out += [_scalar(name + (" chained" if c else ""), kernel, plain,
                         8192, 4096, r(20), device, chained=c, card=card)

@@ -13,12 +13,14 @@ The probe's table scale (1e-6) fires no decision, so the iteration core
 returns 0 there; each k also runs on the table at 2^18 x 1e-6, where
 decisions fire and ``acc mod 3`` moves the next step's starts (so each
 step's reads wait on the last step's word, as a traversal's do).
-Beside the row store and each iteration core stands its card-wide
-instance (``spread="card"``, ``tools/decide15.py``'s ``CARD_SLICES``
-slices, one warp each, 8 warps a block, timed as that tool times its
-card-wide lines), and beside each iteration core the card-wide instance
-at one slice (``P=1/1``): the probe's chain with its reads off the
-dependent path, ns a run beside the one-warp kernel's.  With
+Beside each gated reduce, the row store and each iteration core stands
+its card-wide instance (``spread="card"``, ``tools/decide15.py``'s
+``CARD_SLICES`` slices, one warp each, 8 warps a block, timed as that
+tool times its card-wide lines), and beside each gated reduce and
+iteration core the card-wide instance at one slice (``P=1/1``): the
+probe's chain redesigned (the second reduce issued beside the first on
+every step; the iteration core's reads off the dependent path), ns an
+iteration or run beside the one-warp kernel's.  With
 ``--octree-cells`` (by default the 1M galaxy's octree's, counted on a
 card; 0 skips it, as on the CPU) the row store also runs 204,800 x 1 on
 a table of that many rows, past the L2.  The row store's library call is
@@ -41,8 +43,8 @@ import torch
 
 from spatialsim_tpu_torch.ops import traversal_probes as tp
 from spatialsim_tpu_torch.tools.decide15 import (
-    CARD_SLICES, CARD_WARPS, PAST_L2_OPS, _spread, device_line, entry,
-    octree_diagnostics, run_probes)
+    CARD_SLICES, PAST_L2_OPS, _chain_spread, _once, _spread, device_line,
+    entry, octree_diagnostics, run_probes)
 
 SMEM_SIZES = (8192, 32768, 65536, 131072)     # int32 entries: 32-512 KB
 FIRE_SCALE = 1e-6 * 2 ** 18   # the iteration core's table where words fire
@@ -59,18 +61,30 @@ def _smem(label, n_i32, where, n_ops, reps, device):
         6 * n_ops * reps, 16 + 4)
 
 
-def _gated(label, pct, n_ops, reps, device):
+def _gated(label, pct, n_ops, reps, device, slices=None, *, serial=None):
+    """6b's entry: the one-warp kernel, or with ``slices`` the card-wide
+    instance at that many slices.  The one-warp kernel and the card-wide
+    one at one slice run the probe's chain, whose plain version is
+    ``serial`` where given (a ``_once`` the two entries share)."""
     x = tp.lane_row(device)
-    w = int(x.sum())        # the word: acc * 1e-20 never moves it here
-    hits = sum((w + i) % 100 < pct for i in range(n_ops)) * reps
+    # The word: acc * 1e-20 never moves it, so the hits follow i alone.
+    w = tp._f32_to_i32(x.sum())
+    hits = sum(tp._i32(w + i) % 100 < pct for i in range(n_ops)) * reps
+    suffix, kw, grid = _chain_spread(slices)
+    plain = ((lambda: tp.gated_reduce_card_reference(
+        x.cpu(), pct, n_ops, reps, slices)) if slices and slices > 1
+        else serial or (lambda: tp.gated_reduce_reference(
+            x.cpu(), pct, n_ops, reps)))
     return entry(
-        label, tp.gated_reduce,
-        lambda: tp.gated_reduce(x, pct, n_ops, reps),
-        lambda: tp.gated_reduce_reference(x.cpu(), pct, n_ops, reps),
+        label + suffix, tp.gated_reduce,
+        lambda: tp.gated_reduce(x, pct, n_ops, reps, **kw), plain,
         n_ops * reps, "iter",
         # Per step the word reduce (128 adds, 127 sums, t: 2), the gate
         # (3); per hit the second reduce (128 multiplies, 128 adds, 127).
-        260 * n_ops * reps + 383 * hits, 512 + 4)
+        260 * n_ops * reps + 383 * hits, 512 + 4, grid=grid,
+        # Over no steps: the launch and the second pass over zero partials.
+        idle=grid and (f"gated reduce{suffix}",
+                       lambda: tp.gated_reduce(x, pct, 0, 1, **kw)))
 
 
 def last_store_table(rows, vals, n_cells):
@@ -120,12 +134,7 @@ def _iteration(label, k, n_iters, reps, device, scale=1e-6, slices=None):
     at one slice)."""
     tree, idx = tp.iteration_inputs(k, scale=scale, n_iters=n_iters,
                                     device=device)
-    kw, grid, suffix = dict(spread="warp"), None, ""
-    if slices:
-        warps = min(CARD_WARPS, tp.ITER_WARPS) if slices > 1 else 1
-        kw = dict(spread="card", slices=slices, warps=warps)
-        grid = (slices // warps, 32 * warps)
-        suffix = f" card P={slices}/{warps}"
+    suffix, kw, grid = _chain_spread(slices, tp.ITER_WARPS)
     rows = tp.iteration_rows(tree.cpu(), idx.cpu(), k, n_iters, reps,
                              slices or 1)
     runs = n_iters * k * reps
@@ -142,13 +151,13 @@ def _iteration(label, k, n_iters, reps, device, scale=1e-6, slices=None):
         # the word; the other 120 lanes' results are dead in the probe.
         104 * runs, 512 * rows + 4 * idx.numel() + 4,
         expect_zero=scale == 1e-6, grid=grid,
-        idle=grid and (f"iteration core k{k} card P={slices}/{warps}",
+        idle=grid and (f"iteration core k{k}{suffix}",
                        lambda: tp.iteration_core(tree, none, k, 0, 1, **kw)))
 
 
 def probes(device, quick=False, out=print, octree_cells=0):
-    """The script's probes in its order, the row store and iteration
-    core with their card-wide instances beside them; the tables that
+    """The script's probes in its order, the gated reduce, row store and
+    iteration core with their card-wide instances beside them; the tables that
     shared memory cannot hold go to device memory, with a printed line
     saying so; with ``octree_cells``, the row store at 204,800 x 1 on a
     table of that many rows."""
@@ -164,8 +173,11 @@ def probes(device, quick=False, out=print, octree_cells=0):
             where = "global"
         res.append(_smem(f"smem {kb}KB ({where})", n, where, 4096, r(20),
                          device))
-    res += [_gated(f"gated {p}%", p, 4096, r(20), device)
-            for p in (0, 15, 100)]
+    for p in (0, 15, 100):
+        serial = _once(lambda p=p: tp.gated_reduce_reference(
+            tp.lane_row("cpu"), p, 4096, r(20)))
+        res += [_gated(f"gated {p}%", p, 4096, r(20), device, slices,
+                       serial=serial) for slices in (None, CARD_SLICES, 1)]
     both = (False, True)
     res += [_row_store("row-store", 8192, 4096, r(20), device, card=card)
             for card in both]

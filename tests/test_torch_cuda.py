@@ -1084,10 +1084,15 @@ def _probe_cases(dev):
                 tp.smem_table, lambda n=n, where=where: tp.smem_table(
                     idx4, n, 512, 2, where=where),
                 lambda n=n: tp.smem_table_reference(idx4.cpu(), n, 512, 2))
-    for pct in (0, 15, 100):
-        cases[f"gated_reduce {pct}"] = (
-            tp.gated_reduce, lambda pct=pct: tp.gated_reduce(x, pct, 512, 2),
-            lambda pct=pct: tp.gated_reduce_reference(x.cpu(), pct, 512, 2))
+    # arange x 2^24: each word's sum passes 2^31 and saturates.
+    for scale in (1, 2 ** 24):
+        for pct in (0, 15, 100):
+            cases[f"gated_reduce {pct} x{scale}"] = (
+                tp.gated_reduce,
+                lambda pct=pct, scale=scale: tp.gated_reduce(x * scale, pct,
+                                                             512, 2),
+                lambda pct=pct, scale=scale: tp.gated_reduce_reference(
+                    x.cpu() * scale, pct, 512, 2))
     cases["row_store"] = (tp.row_store, lambda: tp.row_store(idx, 64, 2),
                           lambda: tp.row_store_reference(idx, 64, 2))
     for k in tp.K_RUNS:
@@ -1334,6 +1339,67 @@ def test_probe_row_store_card_matches_plain(cuda, n_cells):
     assert not bool(scr.any()) and not bool(out.any())
 
 
+@pytest.mark.parametrize("batch", [1, 4, 8])
+def test_probe_reduce_roundtrip_card_matches_plain(cuda, batch):
+    """5c's card-wide instance (4,096 steps x 3 passes) on a row summing to
+    8,129, where the float32 chains round: at every spread equal to its
+    plain version and to a second call, each call counted once; one slice
+    gives the one-warp kernel's float32."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    x = tp.lane_row(cuda).clone()
+    x[0, 0] = 1.0
+    one_warp = tp.reduce_roundtrip(x, 4096, 3, batch).cpu()
+    assert torch.equal(one_warp, tp.reduce_roundtrip_reference(
+        x.cpu(), 4096, 3, batch))
+    failed = []
+    for slices, warps in CARD_SPREADS:
+        want = tp.reduce_roundtrip_card_reference(x.cpu(), 4096, 3, batch,
+                                                  slices)
+        before = (tp.reduce_roundtrip.launches,
+                  tp.reduce_roundtrip.card_launches)
+        a, b = _card_twice(lambda: tp.reduce_roundtrip(
+            x, 4096, 3, batch, spread="card", slices=slices, warps=warps))
+        assert (tp.reduce_roundtrip.launches,
+                tp.reduce_roundtrip.card_launches) == (before[0] + 2,
+                                                       before[1] + 2)
+        if not (torch.equal(a, want) and torch.equal(a, b)
+                and (slices > 1 or torch.equal(a, one_warp))):
+            failed.append((slices, warps, float(a), float(b), float(want),
+                           float(one_warp)))
+    assert not failed, failed
+
+
+@pytest.mark.parametrize("pct", [0, 15, 100])
+def test_probe_gated_reduce_card_matches_plain(cuda, pct):
+    """6b's card-wide instance (4,096 steps x 3 passes) on the probe's row,
+    on it x 2^24 (the words saturate) and x -3 (negative words): at every
+    spread equal to its plain version and to a second call, each call
+    counted once; one slice, the redesigned chain, gives the one-warp
+    kernel's int32."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    failed = []
+    for scale in (1, 2 ** 24, -3):
+        x = tp.lane_row(cuda) * scale
+        one_warp = tp.gated_reduce(x, pct, 4096, 3).cpu()
+        assert torch.equal(one_warp, tp.gated_reduce_reference(
+            x.cpu(), pct, 4096, 3)), scale
+        for slices, warps in CARD_SPREADS:
+            want = tp.gated_reduce_card_reference(x.cpu(), pct, 4096, 3,
+                                                  slices)
+            before = (tp.gated_reduce.launches,
+                      tp.gated_reduce.card_launches)
+            a, b = _card_twice(lambda: tp.gated_reduce(
+                x, pct, 4096, 3, spread="card", slices=slices, warps=warps))
+            assert (tp.gated_reduce.launches,
+                    tp.gated_reduce.card_launches) == (before[0] + 2,
+                                                       before[1] + 2)
+            if not (torch.equal(a, want) and torch.equal(a, b)
+                    and (slices > 1 or torch.equal(a, one_warp))):
+                failed.append((scale, slices, warps, int(a), int(b),
+                               int(want), int(one_warp)))
+    assert not failed, failed
+
+
 def _iteration_tables(k, dev):
     """6d's inputs: the probe's table scale, where no decision fires; the
     scale where decisions fire and ``acc mod 3`` moves the starts; and a
@@ -1394,10 +1460,13 @@ def test_probe_card_instances_refuse(cuda):
         tp.row_reads(tree, idx, 1, spread="card", slices=132, warps=5)
     assert (tp.row_reads.launches, tp.row_reads.card_launches) == before
     spread = (tp.extract8, tp.row_write, tp.scalar_load_dynsub,
-              tp.scalar_load_dyn_dyn, tp.row_store, tp.iteration_core)
+              tp.scalar_load_dyn_dyn, tp.row_store, tp.iteration_core,
+              tp.reduce_roundtrip, tp.gated_reduce)
     before = [(f.launches, f.card_launches) for f in spread]
+    x = tp.lane_row(cuda)
     args = {tp.row_store: (idx, rows, 1),
-            tp.iteration_core: (tree, idx, 1, 64, 1)}
+            tp.iteration_core: (tree, idx, 1, 64, 1),
+            tp.reduce_roundtrip: (x, 64, 1), tp.gated_reduce: (x, 15, 64, 1)}
     for fn in spread:
         for kw in (dict(spread="card", slices=132, warps=5),
                    dict(spread="card", slices=0), dict(spread="grid")):

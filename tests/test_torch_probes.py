@@ -342,6 +342,131 @@ def test_gated_reduce(jax_probe, pct):
     _same(tp.probe_gated_reduce(pct, **CPU), want)
 
 
+def test_f32_to_i32_converts_as_xla():
+    """The plain versions' word conversion against XLA's float32 -> int32
+    convert: toward zero, saturating at both ends, NaN to 0."""
+    xs = [3e9, -3e9, 2.0 ** 31, -2.0 ** 31, 2.0 ** 31 - 128, float("nan"),
+          float("inf"), -float("inf"), 2.9, -2.9, 0.0]
+    want = np.asarray(jnp.asarray(xs, jnp.float32).astype(jnp.int32))
+    assert [tp._f32_to_i32(np.float32(x)) for x in xs] == want.tolist()
+    assert want[:4].tolist() == [2 ** 31 - 1, -2 ** 31, 2 ** 31 - 1,
+                                 -2 ** 31] and want[5] == 0
+
+
+class _Jnp24:
+    """The script's ``jnp`` with ``arange`` scaled by 2^24 (exact): the
+    gated reduce's row then sums to 8,128 x 2^24, past 2^31, so each word
+    saturates."""
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    def arange(self, *a, **kw):
+        return jnp.arange(*a, **kw) * 2 ** 24
+
+
+@pytest.mark.parametrize("pct", [0, 15, 100])
+def test_gated_reduce_saturates_as_the_probe(jax_probe, monkeypatch, pct):
+    """Where each word passes 2^31 (arange x 2^24) the plain version
+    converts it as XLA and the kernels do (saturating) and gives the JAX
+    probe's int32 (it gave 0 at 15% when it wrapped the unbounded sum)."""
+    monkeypatch.setattr(decide18, "jnp", _Jnp24())
+    want = jax_probe(decide18.probe_gated_reduce, pct)
+    _same(tp.gated_reduce(tp.lane_row("cpu") * 2 ** 24, pct), want)
+    if pct == 15:
+        assert int(want[0, 0]) == -94220
+
+
+@pytest.mark.parametrize("pct", [0, 15, 100])
+def test_gated_reduce_card_plain_with_one_slice_is_the_jax_probe(jax_probe,
+                                                                 pct):
+    want = jax_probe(decide18.probe_gated_reduce, pct)
+    _same(tp.probe_gated_reduce(pct, spread="card", slices=1, warps=1, **CPU),
+          want)
+    if pct == 15:
+        assert int(want[0, 0]) == 865794560
+
+
+def _gated_oracle(v, pct, n_ops, t0, t1):
+    """decide18's gated reduce in numpy from ``acc = 0`` over the steps
+    ``t0`` to ``t1`` of the stream (step t at ``i = t mod n_ops``): each
+    word the float32 sum, truncated and clipped to int32 (NaN to 0)."""
+    def word(s):
+        s = float(s)
+        return 0 if s != s else int(np.clip(np.trunc(s), -2 ** 31,
+                                            2 ** 31 - 1))
+    f32, acc = np.float32, 0
+    for t in range(t0, t1):
+        i = t % n_ops
+        tt = f32(f32(acc) * f32(1e-20))
+        w = word(np.sum(v + tt, dtype=np.float32))
+        add = word(np.sum(v * f32(2) + tt, dtype=np.float32))
+        hit = tp._i32(w + i) % 100 < pct
+        acc = tp._i32(acc + w + (add if hit else 0))
+    return acc
+
+
+@pytest.mark.parametrize("slices", [7, 96, 4224])
+def test_gated_reduce_card_plain_against_numpy_oracle(slices):
+    """At more than one slice: each slice's chain from 0 by the numpy
+    oracle (a slice starts its gate at its first step's i), the results
+    added with int32 wrap; on the probe's row, where each word saturates
+    (arange x 2^24) and where it is negative."""
+    n_ops, reps, pct = 512, 4, 15
+    b = tp.slice_bounds(reps * n_ops, slices)
+    for scale in (1.0, 2.0 ** 24, -3.0):
+        x = tp.lane_row("cpu") * scale
+        want = 0
+        for p in range(slices):
+            want = tp._i32(want + _gated_oracle(
+                x.numpy().ravel(), pct, n_ops, int(b[p]), int(b[p + 1])))
+        got = tp.gated_reduce(x, pct, n_ops, reps, spread="card",
+                              slices=slices, warps=1)
+        assert int(got) == want != 0, (scale, int(got), want)
+
+
+@pytest.mark.parametrize("reps,batch", [(40, 1), (2, 4), (2, 8)])
+def test_reduce_roundtrip_card_plain_with_one_slice_is_the_jax_probe(
+        jax_probe, reps, batch):
+    want = jax_probe(decide15.bench_reduce_roundtrip, 4096, reps, batch)
+    _same(tp.bench_reduce_roundtrip(4096, reps, batch, spread="card",
+                                    slices=1, warps=1, **CPU), want)
+
+
+@pytest.mark.parametrize("slices", [7, 96, 4224])
+def test_reduce_roundtrip_card_plain_against_numpy_oracle(slices):
+    """At more than one slice: each slice's float32 chain from 0 by numpy,
+    then the partials added serially in slice order.  The row is arange
+    with element 0 set to 1: it sums to 8,129, so a step adds 8,129, 33,284
+    or 68,616 at b1, b4, b8 (2^0, 2^2, 2^3 times an odd number), and past
+    2^24, 2^26, 2^27 the float32 chain rounds (after ~2,000 of the 4,096
+    steps): 7 and 96 slices round otherwise than one; 4,224 slices, at most
+    one step each, add the steps in the serial chain's order."""
+    f32 = np.float32
+    x = tp.lane_row("cpu").clone()
+    x[0, 0] = 1.0
+    v = x.numpy().ravel()
+    n_ops, reps = 2048, 2
+    b = tp.slice_bounds(reps * n_ops, slices)
+    for batch in tp.BATCHES:
+        want = f32(0)
+        for p in range(slices):
+            acc = f32(0)
+            for _ in range(int(b[p + 1] - b[p])):
+                f = f32(f32(1) + acc * f32(1e-20))
+                s = f32(0)
+                for k in range(batch):
+                    sb = np.sum(v * f + f32(k), dtype=np.float32)
+                    s = sb if k == 0 else f32(s + sb)
+                acc = f32(acc + s)
+            want = f32(want + acc)
+        got = tp.reduce_roundtrip(x, n_ops, reps, batch, spread="card",
+                                  slices=slices, warps=1)
+        assert float(got) == float(want), (batch, float(got), float(want))
+        assert torch.equal(got, tp.reduce_roundtrip(x, n_ops, reps, batch)
+                           ) == (slices >= n_ops * reps)
+
+
 def test_row_store(jax_probe):
     want = jax_probe(decide18.probe_row_store, 64)
     out, scr = tp.probe_row_store(64, **CPU)
@@ -562,6 +687,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                           warps=tp.ITER_WARPS * 2)
     for fn, args in ((tp.row_reads, (tree, idx, 1)),
                      (tp.block_read, (tree, tp.indices(6, 8, "cpu"), 1)),
+                     (tp.reduce_roundtrip, (x, 4, 1)),
+                     (tp.gated_reduce, (x, 15, 4, 1)),
                      (tp.row_write, (tree, idx, 1)),
                      (tp.extract8, (tree, tp.indices(128, 8, "cpu"), 1)),
                      (tp.scalar_load_dynsub, (tree, idx, 1)),
@@ -584,14 +711,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                 fn(*args, **kw)
     # The plain versions launch nothing.
     before = [f.launches for f in tp.KERNELS]
-    spread = (tp.row_reads, tp.block_read, tp.row_write, tp.extract8,
-              tp.scalar_load_dynsub, tp.scalar_load_dyn_dyn, tp.row_store,
-              tp.iteration_core)
+    spread = (tp.row_reads, tp.block_read, tp.reduce_roundtrip, tp.row_write,
+              tp.extract8, tp.scalar_load_dynsub, tp.scalar_load_dyn_dyn,
+              tp.gated_reduce, tp.row_store, tp.iteration_core)
     cards = [f.card_launches for f in spread]
     tp.bench_row_reads(16, 8, 1, **CPU)
     tp.bench_row_reads(16, 8, 1, spread="card", slices=3, warps=1, **CPU)
     tp.bench_block_read(16, 8, 1, spread="card", slices=4, warps=2, **CPU)
     tp.bench_row_write(16, 8, 1, spread="card", slices=4, warps=4, **CPU)
+    tp.bench_reduce_roundtrip(8, 2, 4, spread="card", slices=6, warps=3,
+                              **CPU)
+    tp.probe_gated_reduce(15, n_ops=8, reps=2, spread="card", slices=6,
+                          warps=2, **CPU)
     for use_roll in (True, False):
         tp.bench_extract8(16, 8, 1, use_roll, chained=True, spread="card",
                           slices=6, warps=3, **CPU)
@@ -688,6 +819,13 @@ TOOL_ENTRIES = {
         "f", 2, 256, 2, d, tool18.FIRE_SCALE),
     "iteration core card where words fire": lambda d: tool18._iteration(
         "f", 4, 256, 2, d, tool18.FIRE_SCALE, tool15.CARD_SLICES),
+    "reduce roundtrip": lambda d: tool15._reduce_roundtrip("rt", 256, 2, 4,
+                                                           d),
+    "reduce roundtrip card": lambda d: tool15._reduce_roundtrip(
+        "rt", 4096, 2, 8, d, tool15.CARD_SLICES),
+    "gated": lambda d: tool18._gated("g", 15, 512, 2, d),
+    "gated card": lambda d: tool18._gated("g", 15, 4096, 2, d,
+                                          tool15.CARD_SLICES),
 }
 
 
