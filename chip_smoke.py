@@ -153,10 +153,11 @@ traversal probes.
     a shared-memory table, a table of the 1M octree's occupied cells,
     counted by the tool's ``octree_diagnostics``) and the iteration core
     where decisions fire, and beside each row read, block read, reduce
-    round trip, row write, scalar load, extract8, gated reduce, row store
-    and iteration core its card-wide instance (``spread="card"``:
-    the reads, writes or visits cut into slices, one warp each, or one
-    thread each for the scalar loads and extract8's one-hot variant, over
+    round trip, row write, scalar load, extract8, table read, gated
+    reduce, row store and iteration core its card-wide instance
+    (``spread="card"``: the reads, writes or visits cut into slices, one
+    warp each, or one thread each for the scalar loads, the table reads
+    and extract8's one-hot variant, over
     every SM; the row write, the scalar loads, the extract8 visits and the
     row reads also 204,800 x 1 on the octree's cells), then the tool's
     sweeps of the card-wide row reads over slices x warps a block and of
@@ -164,12 +165,15 @@ traversal probes.
     (each output equal bit for bit to the plain version of its slice
     count);
     ``where="shared"`` at 256 KB
-    raises before any launch; then each probe against its plain version
-    on the same inputs, bit for bit (the row write's and row store's whole
-    scratch tables too; each card-wide instance also to a second call of
-    itself; each card-wide instance of a dependent chain at one slice,
-    5c's, 6b's and 6d's, also to the one-warp kernel on the same inputs;
-    6b also where its words saturate, at ``arange x 2^24``), every output
+    raises before any launch, in both instances; then each probe against
+    its plain version on the same inputs, bit for bit (the row write's and
+    row store's whole scratch tables too; each card-wide instance also to
+    a second call of itself; each card-wide instance of a dependent chain
+    at one slice, 5c's, 6a's, 6b's and 6d's, also to the one-warp or
+    one-thread kernel on the same inputs; 6a also on offsets near +-2^31,
+    where ``s + acc mod 7`` wraps in int32, at its four sizes and two that
+    do not divide 2^32; 6b also where its words saturate, at ``arange x
+    2^24``), every output
     not 0 but where the probe's own inputs give 0,
     with its bound, the card-wide instances' share of it and their launch
     floor (an empty launch of the same grid), and the time of one PyTorch
@@ -344,6 +348,10 @@ STEPS_50M = 26         # at rebuild interval 24: one rebuild, at step 25
 # cores, HBM3 bandwidth.  A bound is the larger of ops/peak, bytes/peak.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# 6a's tables at the offsets near +-2^31 (phase 19): the probe's four sizes
+# and two that do not divide 2^32.
+SMEM_EDGE_TABLES = ((8192, "shared"), (32768, "shared"), (65536, "global"),
+                    (131072, "global"), (8191, "shared"), (131071, "global"))
 # The probe kernels of phase 19: wrapper name -> the script and the line of
 # the TPU kernel's pallas_call it replaces.
 PROBE_KERNELS = {
@@ -358,7 +366,8 @@ PROBE_KERNELS = {
     "scalar_load_dyn_dyn_card": ("decide15", 272),
     "extract8": ("decide15", 325),
     "extract8_card": ("decide15", 325),
-    "smem_table": ("decide18", 60), "gated_reduce": ("decide18", 99),
+    "smem_table": ("decide18", 60), "smem_table_card": ("decide18", 60),
+    "gated_reduce": ("decide18", 99),
     "gated_reduce_card": ("decide18", 99),
     "row_store": ("decide18", 135), "iteration_core": ("decide18", 198),
     "row_store_card": ("decide18", 135),
@@ -3952,10 +3961,11 @@ def main() -> int:
     # One-warp (one-thread) and card-wide instances.
     spread = (tp.row_reads, tp.block_read, tp.reduce_roundtrip, tp.row_write,
               tp.extract8, tp.scalar_load_dynsub, tp.scalar_load_dyn_dyn,
-              tp.gated_reduce, tp.row_store, tp.iteration_core)
+              tp.smem_table, tp.gated_reduce, tp.row_store,
+              tp.iteration_core)
     print(f"    SM clock before the probes: {sm_clock()}")
-    # Registers and spills of 6b's, 6c's and 6d's card-wide kernels and
-    # 5c's (phase 1's build).
+    # Registers and spills of 6a's-6d's card-wide kernels and 5c's (phase
+    # 1's build).
     for label, (regs, st, ld) in ptxas.items():
         if "_card_kernel" in label and ("probes_decide18" in label or
                                         "reduce_roundtrip" in label):
@@ -3993,26 +4003,33 @@ def main() -> int:
     print(f"    launches in the probe runs (one-warp and card-wide "
           f"instances apart): {probe_launches}")
     require(all(probe_launches.values()), probe_launches)
-    # A table past the opt-in limit is refused before any launch.
+    # A table past the opt-in limit is refused before any launch, by both
+    # instances.
     limit = tp.smem_optin_bytes(dev)
-    try:
-        tp.probe_smem_capacity(65536, where="shared")
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    require(refused is not None and tp.smem_table.launches
-            == probe_launches["smem_table"],
-            f"where='shared' at 256 KB (opt-in limit {limit} B): {refused}")
-    print(f"    where='shared' at 256 KB raises before launch: {refused}")
+    for kw in ({}, dict(spread="card", slices=decide15.CARD_SLICES)):
+        try:
+            tp.probe_smem_capacity(65536, where="shared", **kw)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        require(refused is not None and tp.smem_table.launches
+                == probe_launches["smem_table"] + probe_launches[
+                    "smem_table_card"],
+                f"where='shared' at 256 KB {kw} (opt-in limit {limit} B): "
+                f"{refused}")
+        print(f"    where='shared' at 256 KB {kw} raises before launch: "
+              f"{refused}")
     check_probes(entries, probes)
     print("    (latency probes: one warp or thread of one SM, so each sits "
           "far above its bytes-or-operations bound by design; the "
           "card-wide instances read each row as often as the probe does, "
           "where the bound counts each distinct row once)")
-    # 5c's, 6b's and 6d's chains at one slice (6b's and 6d's redesigned)
-    # beside the one-warp kernels on the same inputs: the same output.
+    # 5c's, 6a's, 6b's and 6d's chains at one slice (6a's, 6b's and 6d's
+    # redesigned) beside the one-warp or one-thread kernels on the same
+    # inputs: the same output.
     chains = {e["label"]: e for e in entries if e["kernel"] in (
-        tp.reduce_roundtrip, tp.gated_reduce, tp.iteration_core)}
+        tp.reduce_roundtrip, tp.smem_table, tp.gated_reduce,
+        tp.iteration_core)}
     for label, e in chains.items():
         if e["grid"]:
             continue
@@ -4022,6 +4039,30 @@ def main() -> int:
         print(f"    {label}: one slice {one['ns']:.2f} ns/{e['unit']}, the "
               f"one-warp kernel {e['ns']:.2f} ({one['ns'] / e['ns']:.3f}x), "
               f"both {float(got):.9g}")
+    # 6a on offsets near +-2^31, where s + acc mod 7 passes INT32_MAX and
+    # wraps (and, at n not dividing 2^32, the wrapped residue takes b2 !=
+    # b), and on the probe's offsets at those n: every instance against its
+    # plain version, bit for bit.
+    for n, where in SMEM_EDGE_TABLES:
+        for name, idx4 in (("near +-2^31", tp.smem_edge_inputs(dev)),
+                           ("arange", tp.smem_inputs(dev))):
+            if name == "arange" and n in decide18.SMEM_SIZES:
+                continue          # the tool's entries held these
+            serial = tp.smem_table_reference(idx4.cpu(), n)
+            card = tp.smem_table_card_reference(idx4.cpu(), n, 4096, 20,
+                                                decide15.CARD_SLICES)
+            got = [tp.smem_table(idx4, n, where=where, **kw).cpu()
+                   for kw in ({}, dict(spread="card", slices=1, warps=1),
+                              dict(spread="card",
+                                   slices=decide15.CARD_SLICES, warps=1))]
+            require(torch.equal(got[0], serial)
+                    and torch.equal(got[1], serial)
+                    and torch.equal(got[2], card),
+                    ("smem table", n, where, name, got, serial, card))
+            print(f"    smem {n} int32 ({where}) at offsets {name}: "
+                  f"one-thread, one slice and card-wide {int(got[0])}, "
+                  f"{int(got[1])}, {int(got[2])}, equal to the plain "
+                  f"versions")
     # 6b where each word saturates (arange x 2^24: both sums past 2^31),
     # every instance against its plain version.
     xs = tp.lane_row(dev) * 2 ** 24

@@ -104,6 +104,8 @@ SIGNATURES = {
     "spatialsim_probe_scalar_load": (_P, _P, _P, _I, _I, _I, _I, _P),
     "spatialsim_probe_extract8": (_P, _P, _P, _I, _I, _I, _I, _P),
     "spatialsim_probe_smem_table": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "spatialsim_probe_smem_table_card": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _P),
     "spatialsim_probe_gated_reduce": (_P, _P, _I, _I, _I, _P),
     "spatialsim_probe_gated_reduce_card": (_P, _P, _P, _I, _I, _I, _I, _I,
                                            _P),

@@ -12,9 +12,9 @@
 // `%` is the floor modulo of jnp (`fmod_floor`), so a negative value
 // would take the same residue as on the TPU.
 //
-// 6b, 6c and 6d also have card-wide instances (below the one-warp ones), as
-// 5a-5h in probes_decide15.cu: the probe's stores or steps as one stream
-// cut into P slices, one warp a slice.
+// 6a-6d also have card-wide instances (below the one-warp ones), as 5a-5h
+// in probes_decide15.cu: the probe's stores or steps as one stream cut into
+// P slices, one warp a slice (6a one thread a slice).
 
 #include <cuda_runtime.h>
 
@@ -206,7 +206,7 @@ __global__ void __launch_bounds__(32) iteration_core_kernel(
   if (lane == 0) out[0] = acc;
 }
 
-// ---- Card-wide instances of 6b, 6c and 6d -------------------------------
+// ---- Card-wide instances of 6a-6d -------------------------------------
 
 // Slice p of a stream of `total` stores or steps cut into `slices`: its
 // first element and its length (probes_decide15.cu's slice_of).
@@ -485,7 +485,7 @@ __global__ void __launch_bounds__(kIterWarps * 32) iteration_core_card_kernel(
   if (lane == 0) partial[p] = acc;
 }
 
-// 6b's and 6d's second pass: out = the slices' results summed with int32
+// 6a's, 6b's and 6d's second pass: out = the slices' results summed with int32
 // wrap.  Addition mod 2^32 does not depend on the order, so the block sums
 // them in parallel and gives slice order's bits.
 __global__ void __launch_bounds__(1024) sum_ints_kernel(
@@ -568,6 +568,147 @@ __global__ void __launch_bounds__(ONE_WARP ? 32 : 1024)
   if ((threadIdx.x & 31) == 0) partial[p] = acc;
 }
 
+// 6a, card-wide, with the modulo by n off the dependent chain.  The reps x
+// n_ops steps form one stream, step t at i = t mod n_ops, cut into slices by
+// slice_of, one thread a slice (32 `warps` threads a block, the last block
+// masked): the chain is a scalar, so a warp a slice would idle 31 lanes.
+// Each slice runs the probe's chain from acc = 0 and sum_ints_kernel adds
+// the slices' int32 results.  One slice is the probe's function: a redesign
+// of smem_table_kernel's chain.  SHARED: each block builds its own table in
+// dynamic shared memory, zero-filled, then the 256 writes; else one table in
+// device memory, built before the chain by smem_table_fill_kernel.
+//
+// A step's index (s + acc mod 7) mod n, s = wrap(idx[i mod 4] + 1009 i),
+// waits on acc only through r = acc mod 7, in [0, 6].  So b = s mod n is
+// formed a step ahead (table_step: a multiply by a reciprocal of n) and
+// acc's path holds r (a multiply), an add, one select, one conditional
+// subtract as an unsigned min, the load and the add (table_index).  Where
+// s + r passes INT32_MAX, the one-thread kernel's int32 add wraps to s + r
+// - 2^32, whose residue is (b2 + r) mod n, b2 = (b - 2^32 mod n) mod n: the
+// select takes b2 where r > lim = INT32_MAX - s.  b + r < 2n needs n > 6;
+// the entry point refuses smaller n.  tests/test_torch_probes.py mirrors
+// table_step and table_index in Python ints and holds them to the floor
+// modulo over the int32 edges.  The selects are PTX selp (isel), so the
+// loop holds no branch but its own.  What bounds it: the path's latency a
+// step at one slice; card-wide, the launches, each block's table staging
+// and the second pass (~19 steps a slice at P 4,224).
+
+struct ModN {
+  unsigned n, inv, c;  // inv = floor((2^32 - 1) / n), c = 2^32 mod n
+};
+
+__device__ __forceinline__ ModN mod_n_of(int n) {  // 7 <= n < 2^31
+  ModN d;
+  d.n = static_cast<unsigned>(n);
+  d.inv = 0xffffffffu / d.n;
+  d.c = (0xffffffffu - d.inv * d.n + 1u) % d.n;
+  return d;
+}
+
+// (x - c) mod n for x, c in [0, n): where x < c, x - c wraps past 2^32 - n
+// and the min takes x - c + n.
+__device__ __forceinline__ unsigned sub_mod(unsigned x, unsigned c,
+                                            unsigned n) {
+  return min(x - c, x - c + n);
+}
+
+struct TableStep {
+  unsigned b, b2;  // s mod n; b2 = (b - 2^32 mod n) mod n
+  int lim;         // min(INT32_MAX - s, 7): s + r wraps where r > lim
+};
+
+// umulhi(u, inv) is floor(u / n) or one less for every u < 2^32, so r lies
+// in [0, 2n) and the min takes u mod n; s < 0 is u - 2^32.
+__device__ __forceinline__ TableStep table_step(int s, ModN d) {
+  const unsigned u = static_cast<unsigned>(s);
+  const unsigned r = u - __umulhi(u, d.inv) * d.n;
+  const unsigned bu = min(r, r - d.n);
+  TableStep t;
+  t.b = static_cast<unsigned>(
+      isel(s < 0, static_cast<int>(sub_mod(bu, d.c, d.n)),
+           static_cast<int>(bu)));
+  t.b2 = sub_mod(t.b, d.c, d.n);
+  t.lim = static_cast<int>(min(0x7fffffffu - u, 7u));
+  return t;
+}
+
+// The step's index (s + acc mod 7) mod n from acc, without a branch.
+// acc mod 7 (floor) is v + s7: x = acc, or -1 - acc where acc < 0, lies
+// below 2^31, where umulhi(x, 0x92492493) >> 2 is floor(x / 7); v is x mod
+// 7, or -1 - (x mod 7) where acc < 0, and s7 = 7 there (the floor residue
+// of -1 - x is 6 - (x mod 7)).  s7 is known from acc's sign bit, so the
+// compare r > lim (as v > lim - s7) and the adds b + s7 + v wait on v
+// alone; then a select and one conditional subtract as an unsigned min.
+__device__ __forceinline__ int table_index(const TableStep& t, int acc,
+                                           unsigned n) {
+  const int sg = acc >> 31;
+  const unsigned x = static_cast<unsigned>(acc ^ sg);
+  const int v =
+      static_cast<int>(x - 7u * (__umulhi(x, 0x92492493u) >> 2)) ^ sg;
+  const int s7 = sg & 7;
+  const unsigned r7 = static_cast<unsigned>(s7), rv = static_cast<unsigned>(v);
+  const unsigned k = static_cast<unsigned>(
+      isel(v > t.lim - s7, static_cast<int>(t.b2 + r7 + rv),
+           static_cast<int>(t.b + r7 + rv)));
+  return static_cast<int>(min(k, k - n));
+}
+
+// The probe's writes tbl[997 i mod n] = i (i < 256) over a zeroed table,
+// by the block's threads in any order: writers i < i' collide where n
+// divides 997 (i' - i), that is where n / gcd(n, 997) divides i' - i (997
+// is prime), so only the last, i + n / gcd(n, 997) >= 256, writes.
+__device__ __forceinline__ void write_table(int* tbl, int n) {
+  const int period = n % 997 == 0 ? n / 997 : n;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    if (i + period >= 256) tbl[i * 997 % n] = i;
+}
+
+__global__ void __launch_bounds__(256) smem_table_fill_kernel(
+    int* __restrict__ tbl, int n) {
+  write_table(tbl, n);
+}
+
+template <bool SHARED>
+__global__ void __launch_bounds__(1024) smem_table_card_kernel(
+    const int* __restrict__ idx4, const int* __restrict__ gtable,
+    int* __restrict__ partial, int n, int n_ops, long long total,
+    int slices) {
+  extern __shared__ int4 sm_tbl4[];
+  __shared__ int s_idx[4];
+  int* sm = reinterpret_cast<int*>(sm_tbl4);
+  if (SHARED) {
+    for (int k = threadIdx.x; k < n / 4; k += blockDim.x)
+      sm_tbl4[k] = make_int4(0, 0, 0, 0);
+    for (int k = n / 4 * 4 + threadIdx.x; k < n; k += blockDim.x) sm[k] = 0;
+    __syncthreads();
+    write_table(sm, n);
+  }
+  if (threadIdx.x < 4) s_idx[threadIdx.x] = idx4[threadIdx.x];
+  __syncthreads();
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= slices) return;
+  const ModN d = mod_n_of(n);
+  long long t0, cnt;
+  slice_of(p, total, slices, &t0, &cnt);
+  int i = n_ops ? static_cast<int>(t0 % n_ops) : 0;
+  auto step_at = [&](int j) {
+    return table_step(
+        wrap_add(s_idx[j & 3], static_cast<int>(static_cast<unsigned>(j) *
+                                                1009u)),
+        d);
+  };
+  TableStep cur = step_at(i);
+  int acc = 0;
+  for (long long k = 0; k < cnt; ++k) {
+    i = isel(i + 1 == n_ops, 0, i + 1);
+    const TableStep nxt = step_at(i);  // the next step's, off the path
+    const int at = table_index(cur, acc, d.n);
+    acc = wrap_add(acc, SHARED ? sm[at] : gtable[at]);
+    cur = nxt;
+  }
+  partial[p] = acc;
+}
+
 // The card-wide instances take 1-32 warps a block (6d 1-kIterWarps) and a
 // whole number of blocks.
 bool bad_spread(int slices, int warps, int most) {
@@ -593,6 +734,42 @@ extern "C" int spatialsim_probe_smem_table(const int* idx4, int* gtable,
     smem_table_kernel<false><<<1, 32, 0, st>>>(idx4, gtable, out, n, n_ops,
                                                 reps);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatialsim_probe_smem_table_card(const int* idx4, int* gtable,
+                                                int* partial, int* out, int n,
+                                                int n_ops, int reps,
+                                                int shared, int slices,
+                                                int warps, void* stream) {
+  if (bad_spread(slices, warps, 32) || n < 7 || n_ops < 0 || reps < 0 ||
+      (shared && n > (1 << 20)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = warps * 32;  // a thread a slice
+  const int blocks = (slices + threads - 1) / threads;
+  const long long total = (long long)reps * n_ops;
+  cudaError_t e;
+  if (shared) {
+    const int bytes = n * 4;
+    e = cudaFuncSetAttribute(smem_table_card_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_table_card_kernel<true><<<blocks, threads, bytes, st>>>(
+        idx4, gtable, partial, n, n_ops, total, slices);
+  } else {
+    e = cudaMemsetAsync(gtable, 0, (size_t)n * 4, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_table_fill_kernel<<<1, 256, 0, st>>>(gtable, n);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_table_card_kernel<false><<<blocks, threads, 0, st>>>(
+        idx4, gtable, partial, n, n_ops, total, slices);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sum_ints_kernel<<<1, 1024, 0, st>>>(partial, out, slices);
   return static_cast<int>(cudaGetLastError());
 }
 

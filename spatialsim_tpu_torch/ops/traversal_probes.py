@@ -23,9 +23,9 @@ Four layers, per probe:
 * the wrapper (``row_reads``, ``gated_reduce``, ...) -- takes the inputs;
   a CUDA tensor launches the kernel on the current stream (or raises) and
   adds one to the wrapper's ``launches``; a CPU tensor takes the plain
-  version.  5a-5d, 5f-5h and 6b-6d also take ``spread="card"``: the
+  version.  5a-5d, 5f-5h and 6a-6d also take ``spread="card"``: the
   same reads, writes or steps cut into ``slices`` contiguous slices, one
-  warp each (one thread each for 5f, 5g and 5h's one-hot variant),
+  warp each (one thread each for 5f, 5g, 6a and 5h's one-hot variant),
   ``warps`` warps a block, the partials summed in slice order (their
   ``card_launches`` count those calls).
 * ``*_reference`` -- the plain version, in the probe's order of
@@ -53,9 +53,11 @@ WHERE = ("global", "shared")
 WIDTHS = (1, 2, 4, 8)     # row-read chains: decide15's widths
 BATCHES = (1, 4, 8)       # reduce round trip: decide15's batches
 K_RUNS = (1, 2, 4)        # iteration core: decide18's runs a step
-SPREADS = ("warp", "card")  # 5a-5d, 5f-5h, 6b-6d: one warp, or slices
+SPREADS = ("warp", "card")  # 5a-5d, 5f-5h, 6a-6d: one warp, or slices
 MAX_WARPS = 32            # warps a block of the card-wide instances
 ITER_WARPS = 8            # 6d's: K = 4 holds three steps of rows
+SMEM_MIN_N = 7            # 6a card-wide: b + acc mod 7 < 2n needs n > 6
+SMEM_CARD_BYTES = 16      # 6a card-wide: a block's static shared offsets
 
 
 # ---- inputs, made as the TPU probes make them ------------------------------
@@ -105,6 +107,17 @@ def extract8_inputs(n_cells, n_visits, device="cuda"):
 def smem_inputs(device="cuda") -> torch.Tensor:
     """6a: the four run-time offsets, ``arange(4)`` as int32."""
     return torch.arange(4, dtype=torch.int32, device=device)
+
+
+def smem_edge_inputs(device="cuda") -> torch.Tensor:
+    """6a: four offsets near +-2^31.  ``s = idx[i mod 4] + 1009 i`` is
+    INT32_MAX at steps 3 and 1,000 and INT32_MAX - 2 at step 201, where
+    ``s + acc mod 7`` passes INT32_MAX and the int32 add wraps; past those
+    steps s itself wraps to near -2^31, where ``idx[2]`` starts."""
+    top = 2 ** 31 - 1
+    return torch.tensor([top - 1009 * 1000, top - 2 - 1009 * 201,
+                         5 - 2 ** 31, top - 1009 * 3], dtype=torch.int32,
+                        device=device)
 
 
 def smem_optin_bytes(device) -> int:
@@ -799,54 +812,113 @@ def bench_extract8(n_cells=8192, n_visits=4096, reps=10, use_roll=True, *,
 
 # ---- 6a. table in on-chip memory (decide18.py:60) ---------------------------
 
-def smem_table_reference(idx4, n_i32, n_ops=4096, reps=20):
-    """Step by step in int32: ``tbl[997 i mod n] = i`` (i < 256) over a
-    zeroed table, then ``acc += tbl[(idx[i mod 4] + 1009 i + acc mod 7)
-    mod n]``."""
+def _smem_chain(tbl, ids, n_ops, t0, steps) -> int:
+    """``steps`` steps of the probe's int32 chain from ``acc = 0`` on the
+    table ``tbl`` (a list of n ints), from step ``t0`` of the stream (step
+    t at ``i = t mod n_ops``): ``acc += tbl[(idx[i mod 4] + 1009 i + acc
+    mod 7) mod n]``, each add wrapped to int32, ``%`` the floor modulo."""
+    n, acc, i = len(tbl), 0, t0 % n_ops if n_ops else 0
+    for _ in range(steps):
+        acc = _i32(acc + tbl[_i32(_i32(ids[i % 4] + i * 1009) + acc % 7)
+                             % n])
+        i = 0 if i + 1 == n_ops else i + 1
+    return acc
+
+
+def _smem_tables(idx4, n_i32):
+    """The probe's table, ``tbl[997 i mod n] = i`` (i < 256, the last
+    write winning) over zeros, and the four offsets as Python ints."""
     tbl = [0] * n_i32
     for i in range(256):
         tbl[(i * 997) % n_i32] = i
-    ids = [int(v) for v in idx4.tolist()]
-    acc = 0
-    for _ in range(reps):
-        for i in range(n_ops):
-            k = _i32(_i32(ids[i % 4] + i * 1009) + acc % 7) % n_i32
-            acc = _i32(acc + tbl[k])
+    return tbl, [int(v) for v in idx4.tolist()]
+
+
+def smem_table_reference(idx4, n_i32, n_ops=4096, reps=20):
+    """Step by step in int32 over the probe's table: ``acc +=
+    tbl[(idx[i mod 4] + 1009 i + acc mod 7) mod n]`` (:func:`_smem_chain`)
+    for ``reps`` passes of ``n_ops`` steps."""
+    acc = _smem_chain(*_smem_tables(idx4, n_i32), n_ops, 0,
+                      max(n_ops, 0) * max(reps, 0))
     return torch.tensor([[acc]], dtype=torch.int32, device=idx4.device)
 
 
-def smem_table(idx4, n_i32, n_ops=4096, reps=20, *, where="shared"):
+def smem_table_card_reference(idx4, n_i32, n_ops=4096, reps=20, slices=1):
+    """The card-wide instance's function: the ``reps x n_ops`` steps as one
+    stream cut into ``slices`` (:func:`slice_bounds`), each slice's chain
+    from ``acc = 0`` (:func:`_smem_chain`), the results added with int32
+    wrap.  ``slices=1`` is :func:`smem_table_reference`'s chain."""
+    tbl, ids = _smem_tables(idx4, n_i32)
+    b = slice_bounds(max(n_ops, 0) * max(reps, 0), slices)
+    out = 0
+    for p in range(slices):
+        out = _i32(out + _smem_chain(tbl, ids, n_ops, int(b[p]),
+                                     int(b[p + 1] - b[p])))
+    return torch.tensor([[out]], dtype=torch.int32, device=idx4.device)
+
+
+def smem_table(idx4, n_i32, n_ops=4096, reps=20, *, where="shared",
+               spread="warp", slices=None, warps=1):
     """6a: the table in dynamic shared memory (``where="shared"``; raises
-    ``ValueError`` before any launch where ``4 n_i32`` bytes exceed the
-    card's opt-in limit) or in device memory (``"global"``)."""
+    ``ValueError`` before any launch where the table, and the card-wide
+    kernel's 16 B of offsets, exceed the card's opt-in limit) or in device
+    memory (``"global"``).  ``spread="warp"`` is one thread, the probe's
+    chain; ``spread="card"``: the steps cut into ``slices``, one thread
+    each, 32 ``warps`` threads a block, each block's own table in shared
+    memory (or one in device memory), each slice's chain from 0 with the
+    modulo by n taken off the chain, the results added by a second kernel
+    (:func:`smem_table_card_reference`); ``slices=1`` is the probe's
+    chain.  The card-wide instance takes ``SMEM_MIN_N <= n_i32 < 2^31``."""
     if where not in WHERE:
         raise ValueError(f"smem_table: where={where!r} not in {WHERE}")
+    _check_spread("smem_table", spread, slices, warps)
+    card = spread == "card"
+    if card and not SMEM_MIN_N <= n_i32 <= 2 ** 31 - 1:
+        raise ValueError(f"smem_table: spread='card' takes {SMEM_MIN_N} <= "
+                         f"n_i32 < 2^31, got {n_i32}")
     if not _on_card("smem_table", idx4):
+        if card:
+            return smem_table_card_reference(idx4, n_i32, n_ops, reps,
+                                             slices)
         return smem_table_reference(idx4, n_i32, n_ops, reps)
     _check("smem_table: idx4", idx4, torch.int32, (4,))
     shared = where == "shared"
-    if shared and 4 * n_i32 > smem_optin_bytes(idx4.device):
+    need = 4 * n_i32 + (SMEM_CARD_BYTES if card else 0)
+    if shared and need > smem_optin_bytes(idx4.device):
         raise ValueError(
-            f"smem_table: a {4 * n_i32} B table exceeds the "
+            f"smem_table: a {need} B block exceeds the "
             f"{smem_optin_bytes(idx4.device)} B of shared memory a block "
             f"can opt in to")
-    gtable = torch.zeros(0 if shared else n_i32, dtype=torch.int32,
-                         device=idx4.device)
     out = torch.empty((1, 1), dtype=torch.int32, device=idx4.device)
-    _kernels.check(_kernels.entry.spatialsim_probe_smem_table(
-        idx4.data_ptr(), gtable.data_ptr(), out.data_ptr(), int(n_i32),
-        int(n_ops), int(reps), int(shared), _kernels.stream(idx4)),
-        "probe_smem_table")
+    if card:
+        # The entry point zeroes a device-memory table itself.
+        gtable = torch.empty(0 if shared else n_i32, dtype=torch.int32,
+                             device=idx4.device)
+        partial = torch.empty(slices, dtype=torch.int32, device=idx4.device)
+        _kernels.check(_kernels.entry.spatialsim_probe_smem_table_card(
+            idx4.data_ptr(), gtable.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), int(n_i32), int(n_ops), int(reps), int(shared),
+            slices, warps, _kernels.stream(idx4)), "probe_smem_table_card")
+        smem_table.card_launches += 1
+    else:
+        gtable = torch.zeros(0 if shared else n_i32, dtype=torch.int32,
+                             device=idx4.device)
+        _kernels.check(_kernels.entry.spatialsim_probe_smem_table(
+            idx4.data_ptr(), gtable.data_ptr(), out.data_ptr(), int(n_i32),
+            int(n_ops), int(reps), int(shared), _kernels.stream(idx4)),
+            "probe_smem_table")
     smem_table.launches += 1
     return out
 
 
 smem_table.launches = 0
+smem_table.card_launches = 0
 
 
 def probe_smem_capacity(n_i32, *, where="shared", n_ops=4096, reps=20,
-                        device="cuda"):
-    return smem_table(smem_inputs(device), n_i32, n_ops, reps, where=where)
+                        spread="warp", slices=None, warps=1, device="cuda"):
+    return smem_table(smem_inputs(device), n_i32, n_ops, reps, where=where,
+                      spread=spread, slices=slices, warps=warps)
 
 
 # ---- 6b. gated reduce (decide18.py:99) --------------------------------------

@@ -240,17 +240,20 @@ def _once(fn):
     return call
 
 
-def _chain_spread(slices, most=CARD_WARPS):
+def _chain_spread(slices, most=CARD_WARPS, threads=False):
     """(label suffix, wrapper keywords, grid) of a dependent chain's
     instance: the one-warp kernel (``slices`` None), or the card-wide one
     at ``slices`` (``CARD_WARPS`` warps a block, at most ``most``; one
-    warp at one slice)."""
+    warp at one slice).  ``threads``: a thread a slice, one warp a block
+    (``THREAD_WARPS``), the last block masked."""
     if not slices:
         return "", dict(spread="warp"), None
-    warps = min(CARD_WARPS, most) if slices > 1 else 1
+    warps = (THREAD_WARPS if threads else min(CARD_WARPS, most)
+             if slices > 1 else 1)
+    per_block = 32 * warps if threads else warps
     return (f" card P={slices}/{warps}",
             dict(spread="card", slices=slices, warps=warps),
-            (slices // warps, 32 * warps))
+            (-(-slices // per_block), 32 * warps))
 
 
 def _reduce_roundtrip(label, n_ops, reps, batch, device, slices=None, *,

@@ -13,14 +13,16 @@ The probe's table scale (1e-6) fires no decision, so the iteration core
 returns 0 there; each k also runs on the table at 2^18 x 1e-6, where
 decisions fire and ``acc mod 3`` moves the next step's starts (so each
 step's reads wait on the last step's word, as a traversal's do).
-Beside each gated reduce, the row store and each iteration core stands
-its card-wide instance (``spread="card"``, ``tools/decide15.py``'s
-``CARD_SLICES`` slices, one warp each, 8 warps a block, timed as that
-tool times its card-wide lines), and beside each gated reduce and
-iteration core the card-wide instance at one slice (``P=1/1``): the
-probe's chain redesigned (the second reduce issued beside the first on
-every step; the iteration core's reads off the dependent path), ns an
-iteration or run beside the one-warp kernel's.  With
+Beside each table read, gated reduce, the row store and each iteration
+core stands its card-wide instance (``spread="card"``,
+``tools/decide15.py``'s ``CARD_SLICES`` slices, one warp each, 8 warps a
+block; the table read one thread a slice, one warp a block; timed as that
+tool times its card-wide lines), and beside each table read, gated
+reduce and iteration core the card-wide instance at one slice
+(``P=1/1``): the probe's chain redesigned (the table read's modulo by n
+formed a step ahead; the second reduce issued beside the first on every
+step; the iteration core's reads off the dependent path), ns a read,
+iteration or run beside the one-thread or one-warp kernel's.  With
 ``--octree-cells`` (by default the 1M galaxy's octree's, counted on a
 card; 0 skips it, as on the CPU) the row store also runs 204,800 x 1 on
 a table of that many rows, past the L2.  The row store's library call is
@@ -50,15 +52,30 @@ SMEM_SIZES = (8192, 32768, 65536, 131072)     # int32 entries: 32-512 KB
 FIRE_SCALE = 1e-6 * 2 ** 18   # the iteration core's table where words fire
 
 
-def _smem(label, n_i32, where, n_ops, reps, device):
+def _smem(label, n_i32, where, n_ops, reps, device, slices=None, *,
+          serial=None):
+    """6a's entry: the one-thread kernel, or with ``slices`` the card-wide
+    instance at that many slices (a thread a slice, one warp a block).  The
+    one-thread kernel and the card-wide one at one slice run the probe's
+    chain, whose plain version is ``serial`` where given (a ``_once`` the
+    two entries share)."""
     idx4 = tp.smem_inputs(device)
+    suffix, kw, grid = _chain_spread(slices, threads=True)
+    plain = ((lambda: tp.smem_table_card_reference(
+        idx4.cpu(), n_i32, n_ops, reps, slices)) if slices and slices > 1
+        else serial or (lambda: tp.smem_table_reference(
+            idx4.cpu(), n_i32, n_ops, reps)))
     return entry(
-        label, tp.smem_table,
-        lambda: tp.smem_table(idx4, n_i32, n_ops, reps, where=where),
-        lambda: tp.smem_table_reference(idx4.cpu(), n_i32, n_ops, reps),
-        n_ops * reps, "read",
+        label + suffix, tp.smem_table,
+        lambda: tp.smem_table(idx4, n_i32, n_ops, reps, where=where, **kw),
+        plain, n_ops * reps, "read",
         # Per step: 1009 i, two adds, acc mod 7, mod n and the accumulate.
-        6 * n_ops * reps, 16 + 4)
+        6 * n_ops * reps, 16 + 4, grid=grid,
+        # Over no steps: the launches, each block's table (or the one in
+        # device memory) and the second pass over zero partials.
+        idle=grid and (f"{label}{suffix}",
+                       lambda: tp.smem_table(idx4, n_i32, 0, 1, where=where,
+                                             **kw)))
 
 
 def _gated(label, pct, n_ops, reps, device, slices=None, *, serial=None):
@@ -156,10 +173,11 @@ def _iteration(label, k, n_iters, reps, device, scale=1e-6, slices=None):
 
 
 def probes(device, quick=False, out=print, octree_cells=0):
-    """The script's probes in its order, the gated reduce, row store and
-    iteration core with their card-wide instances beside them; the tables that
-    shared memory cannot hold go to device memory, with a printed line
-    saying so; with ``octree_cells``, the row store at 204,800 x 1 on a
+    """The script's probes in its order, the table reads, gated reduce, row
+    store and iteration core with their card-wide instances beside them;
+    the tables that shared memory cannot hold go to device memory, with a
+    printed line saying so (the card-wide instance's 16 B of offsets
+    counted); with ``octree_cells``, the row store at 204,800 x 1 on a
     table of that many rows."""
     r = (lambda n: 1) if quick else (lambda n: n)
     limit = tp.smem_optin_bytes(device) if device.type == "cuda" else None
@@ -167,12 +185,15 @@ def probes(device, quick=False, out=print, octree_cells=0):
     for n in SMEM_SIZES:
         kb = n * 4 // 1024
         where = "shared"
-        if limit is not None and 4 * n > limit:
+        if limit is not None and 4 * n + tp.SMEM_CARD_BYTES > limit:
             out(f"  smem {kb}KB: {4 * n} B exceeds the {limit} B of shared "
                 f"memory one block can opt in to: read from device memory")
             where = "global"
-        res.append(_smem(f"smem {kb}KB ({where})", n, where, 4096, r(20),
-                         device))
+        serial = _once(lambda n=n: tp.smem_table_reference(
+            tp.smem_inputs("cpu"), n, 4096, r(20)))
+        res += [_smem(f"smem {kb}KB ({where})", n, where, 4096, r(20),
+                      device, slices, serial=serial)
+                for slices in (None, CARD_SLICES, 1)]
     for p in (0, 15, 100):
         serial = _once(lambda p=p: tp.gated_reduce_reference(
             tp.lane_row("cpu"), p, 4096, r(20)))

@@ -1400,6 +1400,44 @@ def test_probe_gated_reduce_card_matches_plain(cuda, pct):
     assert not failed, failed
 
 
+# 6a's tables: the probe's four sizes, in shared memory where a block can
+# hold them, and sizes that do not divide 2^32, where the residue of a
+# wrapped s + acc mod 7 is (b2 + r) mod n with b2 != b.
+SMEM_CASES = ((8192, "shared"), (32768, "shared"), (65536, "global"),
+              (131072, "global"), (8191, "shared"), (8191, "global"),
+              (131071, "global"))
+
+
+@pytest.mark.parametrize("n_i32,where", SMEM_CASES)
+def test_probe_smem_table_card_matches_plain(cuda, n_i32, where):
+    """6a's card-wide instance (4,096 steps x 3 passes) on the probe's
+    offsets and on offsets near +-2^31, where s + acc mod 7 wraps: at every
+    spread equal to its plain version and to a second call, each call
+    counted once; one slice, the redesigned chain, gives the one-thread
+    kernel's int32."""
+    from spatialsim_tpu_torch.ops import traversal_probes as tp
+    failed = []
+    for idx4 in (tp.smem_inputs(cuda), tp.smem_edge_inputs(cuda)):
+        one_thread = tp.smem_table(idx4, n_i32, 4096, 3, where=where).cpu()
+        assert torch.equal(one_thread, tp.smem_table_reference(
+            idx4.cpu(), n_i32, 4096, 3)), idx4
+        for slices, warps in CARD_SPREADS:
+            want = tp.smem_table_card_reference(idx4.cpu(), n_i32, 4096, 3,
+                                                slices)
+            before = (tp.smem_table.launches, tp.smem_table.card_launches)
+            a, b = _card_twice(lambda: tp.smem_table(
+                idx4, n_i32, 4096, 3, where=where, spread="card",
+                slices=slices, warps=warps))
+            assert (tp.smem_table.launches,
+                    tp.smem_table.card_launches) == (before[0] + 2,
+                                                     before[1] + 2)
+            if not (torch.equal(a, want) and torch.equal(a, b)
+                    and (slices > 1 or torch.equal(a, one_thread))):
+                failed.append((idx4.tolist(), slices, warps, int(a), int(b),
+                               int(want), int(one_thread)))
+    assert not failed, failed
+
+
 def _iteration_tables(k, dev):
     """6d's inputs: the probe's table scale, where no decision fires; the
     scale where decisions fire and ``acc mod 3`` moves the starts; and a
@@ -1448,7 +1486,8 @@ def test_probe_iteration_core_card_matches_plain(cuda, k):
 
 def test_probe_card_instances_refuse(cuda):
     """A shared table past the opt-in limit (with the card-wide
-    instance's mbarrier) raises before any launch; the empty launch runs."""
+    instance's mbarrier, or 6a's offsets) raises before any launch; the
+    empty launch runs."""
     from spatialsim_tpu_torch.ops import traversal_probes as tp
     rows = (tp.smem_optin_bytes(cuda) - 16) // 512 + 1
     tree, idx = tp.table(rows, cuda), tp.indices(rows, 64, cuda)
@@ -1461,17 +1500,26 @@ def test_probe_card_instances_refuse(cuda):
     assert (tp.row_reads.launches, tp.row_reads.card_launches) == before
     spread = (tp.extract8, tp.row_write, tp.scalar_load_dynsub,
               tp.scalar_load_dyn_dyn, tp.row_store, tp.iteration_core,
-              tp.reduce_roundtrip, tp.gated_reduce)
+              tp.reduce_roundtrip, tp.gated_reduce, tp.smem_table)
     before = [(f.launches, f.card_launches) for f in spread]
-    x = tp.lane_row(cuda)
+    x, idx4 = tp.lane_row(cuda), tp.smem_inputs(cuda)
     args = {tp.row_store: (idx, rows, 1),
             tp.iteration_core: (tree, idx, 1, 64, 1),
-            tp.reduce_roundtrip: (x, 64, 1), tp.gated_reduce: (x, 15, 64, 1)}
+            tp.reduce_roundtrip: (x, 64, 1), tp.gated_reduce: (x, 15, 64, 1),
+            tp.smem_table: (idx4, 256, 64, 1)}
     for fn in spread:
         for kw in (dict(spread="card", slices=132, warps=5),
                    dict(spread="card", slices=0), dict(spread="grid")):
             with pytest.raises(ValueError):
                 fn(*args.get(fn, (tree, idx, 1)), **kw)
+    # 6a's card-wide table: n of at least SMEM_MIN_N, and a shared block
+    # (the table and 16 B of offsets) within the opt-in limit.
+    with pytest.raises(ValueError):
+        tp.smem_table(idx4, tp.SMEM_MIN_N - 1, spread="card", slices=132,
+                      warps=1)
+    with pytest.raises(ValueError):
+        tp.smem_table(idx4, (tp.smem_optin_bytes(cuda) - 12) // 4,
+                      where="shared", spread="card", slices=132, warps=1)
     # 6d's blocks hold at most ITER_WARPS warps.
     with pytest.raises(ValueError):
         tp.iteration_core(tree, idx, 1, 64, 1, spread="card", slices=96,

@@ -10,7 +10,11 @@ output compared here is integer-valued (sums of ``arange`` rows below
 2^24, or int32 chains), so the comparison is exact.
 
 * 6a runs at ``n_i32=256``, where the probe writes every table entry
-  (997 is odd): at larger sizes its table holds unwritten memory.
+  (997 is odd): at larger sizes its table holds unwritten memory.  Its
+  card-wide plain version equals the JAX probe at one slice and a numpy
+  oracle of the slices' chains at more; the card-wide kernel's split
+  index, mirrored in Python ints, equals the floor modulo over the int32
+  edges.
 * 5d and 6c run at 64 cells, where some index is 0, so the row they
   return is written; their whole scratch tables are held to numpy (6c's
   card-wide plain version, a last-writer table and then the stores, to
@@ -334,6 +338,164 @@ def test_smem_table_reads_zeros_past_the_writes():
         for i in range(n_ops):
             acc += int(tbl[(i % 4 + i * 1009 + acc % 7) % n])
     assert int(tp.smem_table_reference(idx4, n, n_ops, reps)) == acc
+
+
+@pytest.mark.parametrize("where", ["shared", "global"])
+def test_smem_table_card_plain_with_one_slice_is_the_jax_probe(jax_probe,
+                                                               where):
+    want = jax_probe(decide18.probe_smem_capacity, 256)
+    _same(tp.probe_smem_capacity(256, where=where, spread="card", slices=1,
+                                 warps=1, **CPU), want)
+
+
+def _smem_oracle(idx4, n, n_ops, reps, slices):
+    """decide18's table read in Python ints from ``acc = 0`` over each
+    slice's steps of the stream (step t at ``i = t mod n_ops``), the
+    slices' results summed by numpy and wrapped to int32."""
+    def wrap(x):
+        return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
+    tbl = np.zeros(n, np.int64)
+    for i in range(256):
+        tbl[i * 997 % n] = i
+    ids = [int(v) for v in idx4]
+    total = n_ops * reps
+    parts = np.zeros(slices, np.int64)
+    for p in range(slices):
+        acc = 0
+        for t in range(p * total // slices, (p + 1) * total // slices):
+            i = t % n_ops
+            k = wrap(wrap(ids[i % 4] + 1009 * i) + acc % 7) % n
+            acc = wrap(acc + int(tbl[k]))
+        parts[p] = acc
+    return wrap(int(parts.sum()))
+
+
+@pytest.mark.parametrize("slices", [2, 7, 64])
+def test_smem_table_card_plain_against_numpy_oracle(slices):
+    """At more than one slice: each slice's chain from 0, the results added
+    with int32 wrap; on the probe's offsets and on offsets near +-2^31,
+    at n 1,000 (which does not divide 2^32) and 8,192."""
+    n_ops, reps = 512, 3
+    for idx4 in (tp.smem_inputs("cpu"), tp.smem_edge_inputs("cpu")):
+        for n in (1000, 8192):
+            want = _smem_oracle(idx4.tolist(), n, n_ops, reps, slices)
+            got = tp.smem_table(idx4, n, n_ops, reps, where="global",
+                                spread="card", slices=slices, warps=1)
+            assert int(got) == want != 0, (idx4.tolist(), n, int(got), want)
+
+
+# The card-wide 6a kernel's index (csrc/probes_decide18.cu table_step and
+# table_index) in Python ints, as its 32-bit unsigned arithmetic.
+_M32 = 0xFFFFFFFF
+
+
+def _split(s, n):
+    """``table_step``: (b, b2, lim) of the int32 s: b = s mod n through the
+    reciprocal floor((2^32 - 1) / n) and an unsigned min, b2 = (b - 2^32
+    mod n) mod n, lim = min(INT32_MAX - s, 7)."""
+    u, inv = s & _M32, _M32 // n
+    c = (_M32 - inv * n + 1) % n
+
+    def sub_mod(x):
+        return min((x - c) & _M32, (x - c + n) & _M32)
+    r = (u - ((u * inv) >> 32) * n) & _M32
+    bu = min(r, (r - n) & _M32)
+    b = sub_mod(bu) if s < 0 else bu
+    return b, sub_mod(b), min((0x7FFFFFFF - u) & _M32, 7)
+
+
+def _mod7_parts(acc):
+    """``table_index``'s acc mod 7 as (v, s7): x = acc, or -1 - acc where
+    acc < 0; umulhi(x, 0x92492493) >> 2; v = x mod 7, or -1 - (x mod 7)
+    where acc < 0, and s7 = 7 there."""
+    sg = -1 if acc < 0 else 0
+    x = (acc ^ sg) & _M32
+    return (x - 7 * (((x * 0x92492493) >> 32) >> 2)) ^ sg, sg & 7
+
+
+def _index(split, acc, n):
+    """``table_index``: the select of b2 where v > lim - s7 (r > lim), the
+    adds b + s7 + v and one conditional subtract as an unsigned min."""
+    b, b2, lim = split
+    v, s7 = _mod7_parts(acc)
+    k = ((b2 if v > lim - s7 else b) + s7 + v) & _M32
+    return min(k, (k - n) & _M32)
+
+
+_EDGES = ([-2 ** 31 + k for k in range(9)] + list(range(-8, 9))
+          + [2 ** 31 - 1 - k for k in range(9)])
+# acc at every residue mod 7, at both signs and both int32 ends.
+_ACCS = [r + 7 * m for r in range(7)
+         for m in (-306_783_378, -2, -1, 0, 1, 306_783_377)] + [-2 ** 31,
+                                                                1 - 2 ** 31]
+
+
+@pytest.mark.parametrize("n", [7, 8, 255, 256, 8191, 8192, 131072,
+                               2 ** 31 - 1])
+def test_smem_split_index_is_the_floor_modulo(n):
+    """The kernel's split index equals fmod_floor(wrap(s + acc mod 7), n)
+    for s at the int32 edges, near 0 and at random, and acc at every
+    residue mod 7 at both signs."""
+    rand = np.random.default_rng(n).integers(-2 ** 31, 2 ** 31, 100)
+    for s in _EDGES + [int(v) for v in rand]:
+        split = _split(s, n)
+        for acc in _ACCS:
+            assert _index(split, acc, n) == tp._i32(s + acc % 7) % n, (
+                s, acc, n)
+
+
+def test_smem_mod7_is_the_floor_modulo():
+    near7 = [7 * k + d for k in (-306783379, -2, -1, 0, 1, 306783378)
+             for d in (-1, 0, 1)]
+    rand = np.random.default_rng(7).integers(-2 ** 31, 2 ** 31, 3000)
+    for a in (_EDGES + _ACCS + [tp._i32(v) for v in near7]
+              + [int(v) for v in rand]):
+        assert sum(_mod7_parts(a)) == a % 7, a
+
+
+def test_smem_edge_inputs_fire_the_wrap():
+    """On the offsets near +-2^31 the probe's chain (at n 8,191, which does
+    not divide 2^32) passes INT32_MAX in ``s + acc mod 7`` at some steps,
+    where the kernel's select takes b2 != b; at every step the split index
+    is the plain version's."""
+    n, n_ops, reps = 8191, 4096, 2
+    tbl, ids = tp._smem_tables(tp.smem_edge_inputs("cpu"), n)
+    acc, fired = 0, 0
+    for t in range(n_ops * reps):
+        i = t % n_ops
+        s = tp._i32(ids[i % 4] + 1009 * i)
+        split = _split(s, n)
+        k = _index(split, acc, n)
+        assert k == tp._i32(s + acc % 7) % n, (t, s, acc)
+        fired += acc % 7 > split[2] and split[0] != split[1]
+        acc = tp._i32(acc + tbl[k])
+    assert fired >= reps
+    assert int(tp.smem_table_reference(tp.smem_edge_inputs("cpu"), n, n_ops,
+                                       reps)) == acc
+
+
+def test_smem_table_card_refuses_before_any_launch(monkeypatch):
+    """A bad spread, n below SMEM_MIN_N, and (as on a card whose opt-in
+    limit is 232,448 B) a shared table whose block needs more: each raises
+    before any launch."""
+    idx4 = tp.smem_inputs("cpu")
+    before = (tp.smem_table.launches, tp.smem_table.card_launches)
+    for kw in (dict(spread="gpu"), dict(spread="warp", slices=4),
+               dict(spread="card"), dict(spread="card", slices=0),
+               dict(spread="card", slices=4, warps=3),
+               dict(spread="card", slices=66, warps=33)):
+        with pytest.raises(ValueError):
+            tp.smem_table(idx4, 256, **kw)
+    for n in (0, 6, 2 ** 31):
+        with pytest.raises(ValueError, match="n_i32"):
+            tp.smem_table(idx4, n, spread="card", slices=4, warps=1)
+    monkeypatch.setattr(tp, "_on_card", lambda *a: True)
+    monkeypatch.setattr(tp, "smem_optin_bytes", lambda dev: 232_448)
+    for n, kw in ((58_109, dict(spread="card", slices=4, warps=1)),
+                  (58_113, {})):
+        with pytest.raises(ValueError, match="opt in"):
+            tp.smem_table(idx4, n, where="shared", **kw)
+    assert (tp.smem_table.launches, tp.smem_table.card_launches) == before
 
 
 @pytest.mark.parametrize("pct", [0, 15, 100])
@@ -823,6 +985,9 @@ TOOL_ENTRIES = {
                                                            d),
     "reduce roundtrip card": lambda d: tool15._reduce_roundtrip(
         "rt", 4096, 2, 8, d, tool15.CARD_SLICES),
+    "smem": lambda d: tool18._smem("t", 256, "shared", 64, 2, d),
+    "smem card": lambda d: tool18._smem("t", 1000, "global", 512, 2, d,
+                                        tool15.CARD_SLICES),
     "gated": lambda d: tool18._gated("g", 15, 512, 2, d),
     "gated card": lambda d: tool18._gated("g", 15, 4096, 2, d,
                                           tool15.CARD_SLICES),
