@@ -70,6 +70,7 @@ from spatialsim_tpu_torch.ops.bounds import compute_bounds
 from spatialsim_tpu_torch.ops.integrator import integrate
 from spatialsim_tpu_torch.ops.morton import morton_encode
 from spatialsim_tpu_torch.ops.octree import build_octree, level_capacity
+from spatialsim_tpu_torch.utils.profiling import count, span
 
 _I64 = torch.int64
 _I32 = torch.int32
@@ -123,6 +124,30 @@ class BHLists(NamedTuple):
     # (ng, K) int32 near-group ids read as extra exact sources (-1 or
     # >= ng = none); None when K = 0.
     near: Optional[torch.Tensor] = None
+
+
+def _synced(fn, *args, **kw):
+    """``fn(*args, **kw)``, a call that makes the host wait for the card (a
+    read of a device value, or a copy from pageable host memory), inside a
+    ``bh.sync`` span.  Every such call on the step's path goes through
+    here, so that a trace can count and time them."""
+    with span("bh.sync"):
+        return fn(*args, **kw)
+
+
+def _any(mask) -> bool:
+    return bool(mask.any())
+
+
+def _n_true(mask) -> int:
+    return int(mask.sum())
+
+
+def _put(t, index, value):
+    """``t[index] = value`` for a Python number ``value`` and an index that
+    selects one element or is a tensor: PyTorch copies the number to the
+    card and waits for the copy, so the write is a :func:`_synced` call."""
+    _synced(t.__setitem__, index, value)
 
 
 def _excl(x):
@@ -192,7 +217,7 @@ def _covered_intervals(near, wg, gsz, group_offset=0):
     """
     ng, K = near.shape
     dev = near.device
-    big = torch.tensor(_BIG_GROUP, dtype=_I64, device=dev)
+    big = _synced(torch.tensor, _BIG_GROUP, dtype=_I64, device=dev)
     gid = torch.arange(ng, dtype=_I64, device=dev) + group_offset
     nr = near.to(_I64)
     starts = torch.cat([(gid - wg)[:, None],
@@ -312,8 +337,8 @@ def _tile_assemble(counts, payload_tiles, cap, tile=_COMPACT_TILE):
     run_base[rpos] = base
     # Bases of nonempty tiles strictly increase: distinct marks.
     mark = _spare(cap, 0, _I64, dev)
-    mark[torch.where(has, torch.clamp(base, max=cap),
-                     torch.full_like(base, cap))] = 1
+    _put(mark, torch.where(has, torch.clamp(base, max=cap),
+                           torch.full_like(base, cap)), 1)
     seg = (torch.cumsum(mark[:cap], 0) - 1).clamp(0, T - 1)
     slot = torch.arange(cap, dtype=_I64, device=dev)
     live = slot < total
@@ -495,7 +520,7 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
     cells0 = torch.arange(c0, dtype=_I64, device=dev).repeat(ng)
     wl_c[:pad_to] = torch.where(cells0 < levels[0].n_cells, cells0,
                                 torch.full_like(cells0, -1))
-    wl_n = torch.tensor(pad_to, dtype=_I64, device=dev)
+    wl_n = _synced(torch.tensor, pad_to, dtype=_I64, device=dev)
 
     wl_sizes = [wl_n]
     wl_demand = [wl_n]
@@ -611,9 +636,10 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
                         fc[flat] = A[r]
                 counts = torch.zeros((ng,), dtype=_I64, device=dev)
                 counts.index_add_(0, gidx, ok.to(_I64))
-            if bool(over.any()):
+            if _synced(_any, over):
                 # Entries past the per-group cap fold into the residual.
-                fold = torch.nonzero(over).squeeze(1)
+                fold = _synced(torch.nonzero, over).squeeze(1)
+                count("bh.folded_entries", fold.shape[0])
                 # Values mode folds the gathered moments (cell 0's under
                 # "gather_cell"); the geometry table's modes re-gather them.
                 MV = mv_levels[li][:, (torch.zeros_like(fold)
@@ -633,7 +659,7 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
 
         if "sliver" in ablate:
             sl_n = sl_n + emit_sl.sum()
-        elif bool(emit_sl.any()):
+        elif _synced(_any, emit_sl):
             sl_n = _emit_slivers(emit_sl, cstart, cend, gidx, intervals, ng,
                                  M, sl_start, sl_end, sl_n)
 
@@ -659,8 +685,8 @@ def _traverse_global(tree, bbox_min, bbox_max, ng, *, theta, soft_sq, skin,
             run_g[rpos] = wl_g
             run_base[rpos] = base
             mark = _spare(W_next, 0, _I64, dev)
-            mark[torch.where(has & (base < W_next), base,
-                             torch.full_like(base, W_next))] = 1
+            _put(mark, torch.where(has & (base < W_next), base,
+                                   torch.full_like(base, W_next)), 1)
             seg = (torch.cumsum(mark[:W_next], 0) - 1).clamp(0, W - 1)
             slot = torch.arange(W_next, dtype=_I64, device=dev)
             wl_n = base[-1] + cc[-1]
@@ -881,8 +907,9 @@ def build_lists(pos, vel, mass, acc=None, *, theta, softening, skin=4.0,
     (:func:`_finish_ablated`), only for a pooled ranges or cell-id build
     (else ``ValueError``).
     """
-    half, order, order_pad, s_codes, s_pos, s_vel, s_mass, s_acc = \
-        _sort_state(pos, vel, mass, acc, max_depth, group_size)
+    with span("bh.rebuild.sort"):
+        half, order, order_pad, s_codes, s_pos, s_vel, s_mass, s_acc = \
+            _sort_state(pos, vel, mass, acc, max_depth, group_size)
     return _build_from_sorted(
         s_codes, s_pos, s_vel, s_mass, s_acc, order, order_pad, pos,
         pos.shape[1], half, theta=theta, softening=softening, skin=skin,
@@ -963,25 +990,27 @@ def _build_from_sorted(s_codes, s_pos, s_vel, s_mass, s_acc, order,
     gsz = group_size
     npad = s_pos.shape[1]
 
-    tree = build_octree(s_codes, s_pos, s_mass, half, max_depth=max_depth,
-                        start_level=2, n=npad, sorted_vel=s_vel,
-                        sorted_acc=s_acc, with_quadrupole=quadrupole,
-                        level_caps=tuple(tree_caps or ()))
-    n_levels = len(tree.levels)
-    ng_all = npad // gsz
-    ng = ng_all if n_groups is None else int(n_groups)
-    g0 = int(group_offset)
-    if ng < 1 or g0 < 0 or g0 + ng > ng_all:
-        raise ValueError(f"groups [{g0}, {g0 + ng}) do not lie in the "
-                         f"state's {ng_all} groups")
-    gpos = s_pos.reshape(3, ng_all, gsz)
-    bmin_all = gpos.amin(dim=2).T                                 # (ng, 3)
-    bmax_all = gpos.amax(dim=2).T
-    bbox_min, bbox_max = bmin_all[g0:g0 + ng], bmax_all[g0:g0 + ng]
-    near = (_select_near_groups(bmin_all, bmax_all, near_groups,
-                                window_groups, g0, ng) if near_groups > 0
-            else torch.zeros((ng, 0), dtype=_I32, device=s_pos.device))
-    intervals = _covered_intervals(near, window_groups, gsz, g0)
+    with span("bh.rebuild.octree"):
+        tree = build_octree(s_codes, s_pos, s_mass, half,
+                            max_depth=max_depth, start_level=2, n=npad,
+                            sorted_vel=s_vel, sorted_acc=s_acc,
+                            with_quadrupole=quadrupole,
+                            level_caps=tuple(tree_caps or ()))
+        n_levels = len(tree.levels)
+        ng_all = npad // gsz
+        ng = ng_all if n_groups is None else int(n_groups)
+        g0 = int(group_offset)
+        if ng < 1 or g0 < 0 or g0 + ng > ng_all:
+            raise ValueError(f"groups [{g0}, {g0 + ng}) do not lie in the "
+                             f"state's {ng_all} groups")
+        gpos = s_pos.reshape(3, ng_all, gsz)
+        bmin_all = gpos.amin(dim=2).T                             # (ng, 3)
+        bmax_all = gpos.amax(dim=2).T
+        bbox_min, bbox_max = bmin_all[g0:g0 + ng], bmax_all[g0:g0 + ng]
+        near = (_select_near_groups(bmin_all, bmax_all, near_groups,
+                                    window_groups, g0, ng) if near_groups > 0
+                else torch.zeros((ng, 0), dtype=_I32, device=s_pos.device))
+        intervals = _covered_intervals(near, window_groups, gsz, g0)
     near = near if near_groups > 0 else None
 
     budget = worklist_budget or _auto_budget(npad)
@@ -1003,50 +1032,53 @@ def _build_from_sorted(s_codes, s_pos, s_vel, s_mass, s_acc, order,
             tot += lv.code.shape[0]
         level_offs = tuple(offs + [tot])
 
-    far, far_range, far_n, sl_start, sl_end, sl_n, res, _ = _traverse_global(
-        tree, bbox_min, bbox_max, ng, theta=float(theta),
-        soft_sq=float(softening) ** 2, skin=float(skin), gsz=gsz,
-        intervals=intervals, list_cap=list_cap, n_levels=n_levels,
-        wl_caps=wl_caps, with_acc=s_acc is not None, quadrupole=quadrupole,
-        emit_values=not emit_ranges,
-        emit_compact=compact,
-        level_offsets=level_offs,
-        ablate=tuple(a for a in ablate if a != "finish"))
+    with span("bh.rebuild.traverse"):
+        far, far_range, far_n, sl_start, sl_end, sl_n, res, _ = \
+            _traverse_global(
+                tree, bbox_min, bbox_max, ng, theta=float(theta),
+                soft_sq=float(softening) ** 2, skin=float(skin), gsz=gsz,
+                intervals=intervals, list_cap=list_cap, n_levels=n_levels,
+                wl_caps=wl_caps, with_acc=s_acc is not None,
+                quadrupole=quadrupole, emit_values=not emit_ranges,
+                emit_compact=compact, level_offsets=level_offs,
+                ablate=tuple(a for a in ablate if a != "finish"))
     cap = pooled and (pool_cap or pool_cap_tiles(
         budget, ng, pool_tile, npad,
         caps_total=sum(wl_caps) if explicit_caps else 0))
-    if finish_off:
-        return _finish_ablated(far_range, far_n, sl_start, sl_end, sl_n, res,
-                               order_pad, pos, n, tile=pool_tile,
-                               cap_tiles=cap, near=near)
-    if cellid:
-        return _finish_pool_cellid(
-            tree, level_offs, far_range, far_n, sl_start, sl_end, sl_n, res,
-            s_pos, s_vel, s_mass, order, order_pad, pos, n, list_cap,
-            tile=pool_tile, cap_tiles=cap, s_acc=s_acc, near=near)
-    del tree
-    if compact:
-        return _finish_pool_compact(
-            far_range, far_n, sl_start, sl_end, sl_n, res, s_pos, s_vel,
-            s_mass, order, order_pad, pos, n, list_cap, tile=pool_tile,
-            cap_tiles=cap, emit_offsets=_emit_offsets(wl_caps), s_acc=s_acc,
-            near=near)
-    if pooled and emit_ranges:
-        return _finish_pool_ranges(
-            far_range, far_n, sl_start, sl_end, sl_n, res, s_pos, s_vel,
-            s_mass, order, order_pad, pos, n, list_cap, tile=pool_tile,
-            cap_tiles=cap, s_acc=s_acc, near=near)
-    lists = _finish_lists(far, far_range if with_ranges else None, far_n,
-                          sl_start, sl_end, sl_n, res, s_pos, s_vel, s_mass,
-                          order, order_pad, pos, n, list_cap, s_acc=s_acc,
-                          near=near)
-    if pooled:
-        pool, pstart, far_n2 = build_pool(lists.far, lists.far_range,
-                                          lists.far_n, tile=pool_tile,
-                                          cap_tiles=cap)
-        lists = lists._replace(pool=pool, pstart=pstart, far_n=far_n2,
-                               far=None, far_range=None)
-    return lists
+    with span("bh.rebuild.finish"):
+        if finish_off:
+            return _finish_ablated(far_range, far_n, sl_start, sl_end, sl_n,
+                                   res, order_pad, pos, n, tile=pool_tile,
+                                   cap_tiles=cap, near=near)
+        if cellid:
+            return _finish_pool_cellid(
+                tree, level_offs, far_range, far_n, sl_start, sl_end, sl_n,
+                res, s_pos, s_vel, s_mass, order, order_pad, pos, n,
+                list_cap, tile=pool_tile, cap_tiles=cap, s_acc=s_acc,
+                near=near)
+        del tree
+        if compact:
+            return _finish_pool_compact(
+                far_range, far_n, sl_start, sl_end, sl_n, res, s_pos, s_vel,
+                s_mass, order, order_pad, pos, n, list_cap, tile=pool_tile,
+                cap_tiles=cap, emit_offsets=_emit_offsets(wl_caps),
+                s_acc=s_acc, near=near)
+        if pooled and emit_ranges:
+            return _finish_pool_ranges(
+                far_range, far_n, sl_start, sl_end, sl_n, res, s_pos, s_vel,
+                s_mass, order, order_pad, pos, n, list_cap, tile=pool_tile,
+                cap_tiles=cap, s_acc=s_acc, near=near)
+        lists = _finish_lists(far, far_range if with_ranges else None, far_n,
+                              sl_start, sl_end, sl_n, res, s_pos, s_vel,
+                              s_mass, order, order_pad, pos, n, list_cap,
+                              s_acc=s_acc, near=near)
+        if pooled:
+            pool, pstart, far_n2 = build_pool(lists.far, lists.far_range,
+                                              lists.far_n, tile=pool_tile,
+                                              cap_tiles=cap)
+            lists = lists._replace(pool=pool, pstart=pstart, far_n=far_n2,
+                                   far=None, far_range=None)
+        return lists
 
 
 def _finish_ablated(far_range, far_n, sl_start, sl_end, sl_n, res,
@@ -1139,15 +1171,18 @@ def _finish_lists(far, far_range, far_n, sl_start, sl_end, sl_n, res,
     # Append slivers; what does not fit below slot L - 1 folds into the
     # residual.
     fits = svalid & (far_n[:, None] + k < L - 1)
-    gi = torch.arange(ng, dtype=_I64, device=dev)[:, None].expand(ng, SC)
-    slot = (far_n[:, None] + k).expand(ng, SC)
-    gf, sf = gi[fits], slot[fits]
-    far[gf, :, sf] = svals.transpose(1, 2)[fits]
+    # One host read for every masked selection below: a boolean index is
+    # its own torch.nonzero, in the same row-major order.
+    sel = _synced(torch.nonzero, fits, as_tuple=True)
+    gf, sf = sel[0], (far_n[:, None] + k).expand(ng, SC)[sel]
+    far[gf, :, sf] = svals.transpose(1, 2)[sel]
     if far_range is not None:
-        far_range[gf, 0, sf] = sl_start[fits]
-        far_range[gf, 1, sf] = sl_end[fits]
+        far_range[gf, 0, sf] = sl_start[sel]
+        far_range[gf, 1, sf] = sl_end[sel]
     over = svalid & ~fits
-    if bool(over.any()):
+    n_over = _synced(_n_true, over)
+    count("bh.folded_entries", n_over)
+    if n_over:
         om = torch.where(over, sm, zero)
         parts = [om.sum(dim=1)[:, None],
                  (svals[:, 0:3] * om[:, None]).sum(dim=2),
@@ -1171,10 +1206,10 @@ def _finish_lists(far, far_range, far_n, sl_start, sl_end, sl_n, res,
                   else [zg] * 3)
     rrows += [zg] * (n_rows - len(rrows))
     rslot = torch.clamp(far_n, max=L - 1)
-    rg = torch.nonzero(has_res).reshape(-1)
+    rg = _synced(torch.nonzero, has_res).reshape(-1)
     far[rg, :, rslot[rg]] = torch.stack(rrows, dim=1)[rg]
     if far_range is not None:
-        far_range[rg, :, rslot[rg]] = 0
+        _put(far_range, (rg, slice(None), rslot[rg]), 0)
         far_range = far_range.to(_I32)
     far_n = torch.clamp(far_n + has_res.to(_I64), max=L)
 
@@ -1244,11 +1279,13 @@ def _finish_pool_cellid(tree, level_offsets, fr_id, far_n, sl_start, sl_end,
                        torch.full_like(k * gi, ng * L))
     sl_ids = C_tot + (gi * SC + k)
     fr_id[flat.reshape(-1)] = sl_ids.reshape(-1)
-    fr_id[ng * L] = zid
+    _put(fr_id, ng * L, zid)
     far_n = torch.clamp(far_n + sl_n, max=L - 1)
 
     over = take & ~fits
-    if bool(over.any()):
+    n_over = _synced(_n_true, over)
+    count("bh.folded_entries", n_over)
+    if n_over:
         om = over.to(_F32)
         res = res + torch.stack([(seg_sl[i] * om).sum(dim=1)
                                  for i in range(n_pref)], dim=1)
@@ -1258,7 +1295,9 @@ def _finish_pool_cellid(tree, level_offsets, fr_id, far_n, sl_start, sl_end,
     tiles_try = (far_n + 1 + tile - 1) // tile                # +1: residual
     start_try = _excl(tiles_try)
     unfit = start_try + tiles_try > cap_tiles - ng
-    if bool(unfit.any()):
+    n_unfit = _synced(_n_true, unfit)
+    count("bh.groups_folded", n_unfit)
+    if n_unfit:
         fi2 = fr_id[:ng * L].reshape(ng, L)
         CH = 512 if L % 512 == 0 else L
         add = torch.zeros((ng, n_pref), dtype=_F32, device=dev)
@@ -1334,7 +1373,7 @@ def _assemble_pool(slot_rows, far_n, res, L, tile, cap_tiles, with_acc,
                  else [zg] * 3)
     res_rows += [zg] * (POOL_ROWS - len(res_rows))
     rslot = torch.clamp(far_n_tot - 1, min=0)
-    rg = torch.nonzero(has_res).reshape(-1)
+    rg = _synced(torch.nonzero, has_res).reshape(-1)
     pool[(pstart + rslot // tile)[rg], :, (rslot % tile)[rg]] = \
         torch.stack(res_rows, dim=1)[rg]
 
@@ -1373,7 +1412,9 @@ def build_pool(far, far_range, far_n, *, tile, cap_tiles):
     far_n = far_n.to(_I64)
     tiles_try = (far_n + tile - 1) // tile
     unfit = _excl(tiles_try) + tiles_try > cap_tiles - ng
-    if bool(unfit.any()):
+    n_unfit = _synced(_n_true, unfit)
+    count("bh.groups_folded", n_unfit)
+    if n_unfit:
         k = torch.arange(L, dtype=_I64, device=dev)[None, :]
         em = ((k < far_n[:, None]) & unfit[:, None]).to(_F32)
         w = far[:, 6, :] * em
@@ -1498,8 +1539,8 @@ def _finish_pool_compact(emits, far_n, sl_start, sl_end, sl_n, res, s_pos,
     cnt_seg = torch.cat([emits.cnt, sl_cnt[None, :]])           # (n_seg, ng)
     Bt = torch.cat([cnt_seg.new_zeros((1, ng)), torch.cumsum(cnt_seg, 0)])
     lgs = torch.cumsum(emits.cnt, 1) - emits.cnt               # (levels, ng)
-    offs = torch.tensor(emit_offsets[:n_levels], dtype=_I64,
-                        device=dev)[:, None]
+    offs = _synced(torch.tensor, emit_offsets[:n_levels], dtype=_I64,
+                   device=dev)[:, None]
     sl_base = emit_offsets[n_levels] + SC * torch.arange(
         ng, dtype=_I64, device=dev)
     src_base = torch.cat([offs + lgs, sl_base[None, :]])       # (n_seg, ng)
@@ -1547,7 +1588,9 @@ def _pool_from_ranges(ranges_of, far_n, sl_over, sl_start, sl_end, res,
     pref = _state_prefix(s_pos, s_vel, s_mass, s_acc)
     res = res.double()
 
-    if bool(sl_over.any()):
+    n_over = _synced(_n_true, sl_over)
+    count("bh.folded_entries", n_over)
+    if n_over:
         seg_sl = _comp_seg(pref, sl_start, sl_end)             # (P, ng, SC)
         om = sl_over.double()
         res = res + torch.stack([(seg_sl[i].double() * om).sum(dim=1)
@@ -1555,7 +1598,9 @@ def _pool_from_ranges(ranges_of, far_n, sl_over, sl_start, sl_end, res,
 
     tiles_try = (far_n + 1 + tile - 1) // tile                # +1: residual
     unfit = _excl(tiles_try) + tiles_try > cap_tiles - ng
-    if bool(unfit.any()):
+    n_unfit = _synced(_n_true, unfit)
+    count("bh.groups_folded", n_unfit)
+    if n_unfit:
         CH = 512 if L % 512 == 0 else L
         g2 = torch.arange(ng, dtype=_I64, device=dev)[:, None].expand(ng, CH)
         add = torch.zeros((ng, n_pref), dtype=torch.float64, device=dev)
@@ -1810,6 +1855,11 @@ def make_window_step(config, n: int, substeps: int = 1):
     ``step.rebuilds`` and its refreshes in ``step.refreshes``.  Pooled and
     dense lists take the same step.
 
+    Traced (:func:`~spatialsim_tpu_torch.utils.profiling.span`): a rebuild
+    is one ``bh.rebuild`` span (``.sort``, ``.octree``, ``.traverse``,
+    ``.finish`` and ``.resort`` inside it), an evaluation one ``bh.eval``,
+    and every call that makes the host wait for the card one ``bh.sync``.
+
     Unlike the JAX package, the decision is taken before every substep at
     every N: above 4M bodies JAX splits the step into two programs and
     defers a due rebuild to the next frame boundary (up to ``substeps-1``
@@ -1831,20 +1881,23 @@ def make_window_step(config, n: int, substeps: int = 1):
         lists = state.lists
         need = lists.steps_build >= interval
         if not need and drift_mode == "max":
-            drift = float((state.pos - lists.ref_pos).abs().max())
+            drift = _synced(float,
+                            (state.pos - lists.ref_pos).abs().max())
             need = drift > skin * 0.5
         pos, vel, mass = state.pos, state.vel, state.mass
         if need:
-            pos, vel, mass, lists = _resort_state(
-                pos, vel, mass, lists.order, lists.inv_order, kw,
-                acc=state.acc if advance2 else None)
+            with span("bh.rebuild"):
+                pos, vel, mass, lists = _resort_state(
+                    pos, vel, mass, lists.order, lists.inv_order, kw,
+                    acc=state.acc if advance2 else None)
             step.rebuilds += 1
         elif refresh_iv and lists.steps_since >= refresh_iv:
             lists = refresh_lists(lists, pos, vel, mass,
                                   state.acc if advance2 else None, dt,
                                   ekw["tau_clamp"])
             step.refreshes += 1
-        acc = eval_accel_sorted(lists, pos, mass, dt, **ekw)
+        with span("bh.eval"):
+            acc = eval_accel_sorted(lists, pos, mass, dt, **ekw)
         pos, vel = integrate(pos, vel, acc, dt, damping)
         lists = lists._replace(steps_since=lists.steps_since + 1,
                                steps_build=lists.steps_build + 1)
@@ -1870,18 +1923,19 @@ def _resort_state(pos, vel, mass, prev_order, prev_inv, kw, acc=None):
     """
     n = pos.shape[1]
     nl = build_lists(pos, vel, mass, acc, **kw)
-    o = nl.order.long()                 # (npad,) new slot -> previous slot
-    o_real = o[:n]
-    pos2 = pos[:, o_real]
-    vel2 = vel[:, o_real]
-    mass2 = mass[o_real]
-    to_orig = prev_order.long()[o]      # new slot -> original body id
-    o_inv = torch.empty((n,), dtype=_I64, device=pos.device)
-    o_inv[o_real] = torch.arange(n, dtype=_I64, device=pos.device)
-    inv_new = o_inv[prev_inv.long()]    # original id -> new slot
-    # ref_pos is its own tensor: nothing may alias the live positions.
-    nl = nl._replace(order=to_orig.to(_I32), inv_order=inv_new.to(_I32),
-                     ref_pos=pos2.clone())
+    with span("bh.rebuild.resort"):
+        o = nl.order.long()             # (npad,) new slot -> previous slot
+        o_real = o[:n]
+        pos2 = pos[:, o_real]
+        vel2 = vel[:, o_real]
+        mass2 = mass[o_real]
+        to_orig = prev_order.long()[o]  # new slot -> original body id
+        o_inv = torch.empty((n,), dtype=_I64, device=pos.device)
+        o_inv[o_real] = torch.arange(n, dtype=_I64, device=pos.device)
+        inv_new = o_inv[prev_inv.long()]    # original id -> new slot
+        # ref_pos is its own tensor: nothing may alias the live positions.
+        nl = nl._replace(order=to_orig.to(_I32), inv_order=inv_new.to(_I32),
+                         ref_pos=pos2.clone())
     return pos2, vel2, mass2, nl
 
 
@@ -1897,10 +1951,11 @@ def init_window_state(pos, vel, mass, config) -> WindowBHState:
     n = pos.shape[1]
     advance2 = getattr(config, "advance_order", 2) >= 2
     acc0 = torch.zeros_like(pos) if advance2 else None
-    lists = build_lists(pos, vel, mass, acc0, **_build_kw(config))
-    o_real = lists.order[:n].long()
-    pos_s = pos[:, o_real]
-    lists = lists._replace(ref_pos=pos_s.clone())
+    with span("bh.rebuild"):
+        lists = build_lists(pos, vel, mass, acc0, **_build_kw(config))
+        o_real = lists.order[:n].long()
+        pos_s = pos[:, o_real]
+        lists = lists._replace(ref_pos=pos_s.clone())
     return WindowBHState(pos_s, vel[:, o_real], mass[o_real], lists,
                          torch.zeros_like(pos_s) if advance2 else None)
 

@@ -4,6 +4,13 @@
 Cheap host counters (a moving-average step timer with ETA, the FPS HUD's
 kind of number), plus device traces through ``torch.profiler``, exported
 as a Chrome trace that Perfetto or ``chrome://tracing`` opens.
+
+The program's own spans and counters (:func:`span`, :func:`count`) record
+only while ``torch.profiler`` records (under :func:`trace`, or any
+``profile`` context): a span is then a CPU range on the profiler's
+timeline, beside the kernels it launched, and its entries and host
+seconds add up in an in-process table (:func:`span_totals`,
+:func:`counter_totals`, :func:`reset`).  Otherwise both return at once.
 """
 
 from __future__ import annotations
@@ -14,6 +21,74 @@ import tempfile
 import time
 from collections import deque
 from typing import Optional
+
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+_SPANS: dict = {}        # name -> [entries, host seconds]
+_COUNTS: dict = {}       # name -> total
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """A ``_RecordFunctionFast`` range (a CPU event only: a
+    ``record_function`` range would also be drawn on the device's
+    timeline, as a user annotation that covers the card's idle gaps) and
+    its host seconds."""
+
+    __slots__ = ("name", "range", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = _RecordFunctionFast(name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self.t0
+        self.range.__exit__(*exc)
+        total = _SPANS.setdefault(self.name, [0, 0.0])
+        total[0] += 1
+        total[1] += seconds
+        return False
+
+
+def span(name: str):
+    """``with span("bh.rebuild"): ...``: while the profiler records, a
+    named CPU range on its timeline and one entry and its host seconds in
+    :func:`span_totals`; otherwise a shared no-op context (no allocation,
+    no device work, no host read).  A span opened inside another lies
+    inside its interval."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add ``k`` (a host integer) to the counter ``name``, only while the
+    profiler records."""
+    if _profiler_enabled():
+        _COUNTS[name] = _COUNTS.get(name, 0) + int(k)
+
+
+def span_totals() -> dict:
+    """``{name: (entries, host seconds)}`` of the spans recorded since the
+    last :func:`reset`."""
+    return {name: (n, s) for name, (n, s) in _SPANS.items()}
+
+
+def counter_totals() -> dict:
+    """``{name: total}`` of the counters since the last :func:`reset`."""
+    return dict(_COUNTS)
+
+
+def reset() -> None:
+    """Clear the span and counter totals."""
+    _SPANS.clear()
+    _COUNTS.clear()
 
 
 class StepTimer:

@@ -1527,3 +1527,75 @@ def test_probe_card_instances_refuse(cuda):
     assert [(f.launches, f.card_launches) for f in spread] == before
     tp.empty_launch(528, 256, tree)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The window engine's spans on the card (utils/profiling.py span / count)
+# ---------------------------------------------------------------------------
+
+def _spans_sim(cuda):
+    """A pooled window simulation on the card whose next step rebuilds."""
+    from spatialsim_tpu_torch.config.nbody import NBodyConfig
+    from spatialsim_tpu_torch.models.nbody import NBodySimulation
+    cfg = NBodyConfig(num_bodies=65_536, engine="window", group_size=256,
+                      max_depth=8, list_capacity=1024, window_groups=2,
+                      rebuild_interval=2, pool_tile=512)
+    sim = NBodySimulation(config=cfg, seed=5, device=cuda)
+    for _ in range(2):
+        sim.step_raw(0.02)
+    torch.cuda.synchronize()
+    return sim
+
+
+def _sync_warnings(fn):
+    """The calls ``torch.cuda.set_sync_debug_mode("warn")`` reports while
+    ``fn`` runs, as (file, line) of their Python callers."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [(w.filename, w.lineno) for w in caught
+            if "synchronizing" in str(w.message)]
+
+
+def test_program_spans_are_host_ranges_only(cuda):
+    """Traced across a rebuild on the card, every span of the window
+    engine is a CPU event, and none is drawn on the device's timeline."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sim = _spans_sim(cuda)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sim.step_raw(0.02)
+        torch.cuda.synchronize()
+    cpu = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
+    assert {"bh.rebuild", "bh.rebuild.sort", "bh.rebuild.octree",
+            "bh.rebuild.traverse", "bh.rebuild.finish", "bh.rebuild.resort",
+            "bh.eval", "bh.sync"} <= cpu
+    assert [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and e.name.startswith("bh.")] == []
+
+
+def test_bh_sync_counts_every_synchronising_call(cuda):
+    """Across a rebuild step, the ``bh.sync`` entries equal the calls the
+    sync debug mode reports; a plain step makes none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spatialsim_tpu_torch.utils import profiling
+    sim = _spans_sim(cuda)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        syncs = _sync_warnings(lambda: sim.step_raw(0.02))
+        plain = _sync_warnings(lambda: sim.step_raw(0.02))
+    entries = profiling.span_totals()["bh.sync"][0]
+    profiling.reset()
+    assert sim.rebuilds == 1
+    assert plain == []
+    assert entries == len(syncs) > 0, syncs
