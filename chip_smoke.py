@@ -54,7 +54,9 @@ traversal probes.
 6. the recorder: the bar_galaxy preset at 1M in this process (a frame's
    steps timed, then a plain frame and a rebuild frame, steps and capture,
    under ``torch.cuda.set_sync_debug_mode("warn")``: a plain frame may not
-   synchronise), then the CLI at 1M (10 frames; its frame time beside the
+   synchronise), the capture's kernels launched once each a frame and
+   held to their plain versions bit for bit on that state
+   (``check_capture``), then the CLI at 1M (10 frames; its frame time beside the
    steps of a frame) and 8K (tiny_galaxy, 30 frames, the all-pairs
    engine), last frames decoded; then the port's headless playback of the
    8K session (``python -m spatialsim_tpu_torch.tools.playback``, every
@@ -233,7 +235,8 @@ traversal probes.
     ``NBodySimulation`` (the Plummer cluster, depth 9, group 1024, list
     cap 8192, pooled): set-up seconds, peak memory, per-group mass (1e-4),
     phase 5's protocol on 4,096 bodies (fresh <= 5%, tau = 23 reported)
-    and kernel 2 on the run's lists (T = 4) against its plain version;
+    and kernel 2 on the run's lists (T = 4) against its plain version,
+    the capture's kernels against theirs (``check_capture``);
     for this config and ``scripts/extreme_run.py``'s (reported): the list
     line, worklist demand against caps and the fresh-list error on 1,024
     and 4,096 bodies;
@@ -1119,6 +1122,39 @@ def force_errors(approx, exact):
             float(err.pow(2).mean().sqrt() / mag.pow(2).mean().sqrt()))
 
 
+def check_capture(sim, max_speed, label):
+    """The capture's kernels on ``sim``'s window state (``csrc/capture.cu``)
+    against their plain versions, bit for bit: ``capture_original`` of pos
+    and vel against the plain gather, ``capture_colors`` on its velocity
+    rows against the plain colours of the plain gather; each kernel's
+    milliseconds by CUDA events."""
+    import torch
+    from spatialsim_tpu_torch.ops.capture import (capture_colors,
+                                                  capture_original,
+                                                  original_order_reference)
+    from spatialsim_tpu_torch.ops.colors import colors_by_velocity_reference
+    st = sim.state
+    inv = st.lists.inv_order
+    rows = capture_original(inv, st.pos, st.vel)
+    want = original_order_reference(inv, st.pos, st.vel)
+    col = capture_colors(rows[1], max_speed)
+    want_c = colors_by_velocity_reference(want[1], max_speed)
+    torch.cuda.synchronize()
+    same = [torch.equal(g.contiguous().view(torch.int32),
+                        w.view(torch.int32)) for g, w in zip(rows, want)]
+    same_c = torch.equal(col.contiguous().view(torch.int32),
+                         want_c.view(torch.int32))
+    o_ms = cuda_ms(lambda: capture_original(inv, st.pos, st.vel), 5)
+    c_ms = cuda_ms(lambda: capture_colors(rows[1], max_speed), 5)
+    print(f"    {label} capture kernels against their plain versions, bit "
+          f"for bit: positions {same[0]}, velocities {same[1]}, colours "
+          f"{same_c}; capture_original {o_ms:.4f} ms, capture_colors "
+          f"{c_ms:.4f} ms (CUDA events, mean of 5, warm L2)")
+    require(all(same) and same_c, (label, same, same_c))
+    del rows, want, col, want_c
+    torch.cuda.empty_cache()
+
+
 def original_order(st):
     """A window state's (pos, vel, mass) in original body order."""
     inv = st.lists.inv_order.long()
@@ -1915,6 +1951,7 @@ def ten_million(dev, kernels):
     list_health(sim.state, c, "10M (bench config)", indented)
     demand_against_caps(sim.state, c, "10M (bench config)", indented)
     fresh_sample_errors(sim.state, c, "10M (bench config)", out=indented)
+    check_capture(sim, c.max_speed_color, "10M")
 
     # Phase 5's protocol: 5 warm-up steps at interval 4, then the lists
     # frozen to tau = 23; a sample of 4,096 against a direct sum.
@@ -2511,7 +2548,9 @@ def main() -> int:
     from spatialsim_tpu_torch.config.nbody import NBODY, resolve_config
     from spatialsim_tpu_torch.presets import get_preset_config
     from spatialsim_tpu_torch.tools.record import (
-        FrameOverlap, config_from_preset)
+        RECORD_MAX_SPEED_COLOR, FrameOverlap, config_from_preset)
+    from spatialsim_tpu_torch.ops.capture import (capture_colors,
+                                                  capture_original)
     from spatialsim_tpu_torch.config.boids import BOIDS
     from spatialsim_tpu_torch.models.boids import Flock
     from spatialsim_tpu_torch.ops import boids_ops as bo
@@ -2971,6 +3010,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix=".smoke_rec_", dir=ROOT) as tmp:
         fo = FrameOverlap(rsim, Path(tmp), SimpleNamespace(
             check_and_queue=lambda k: None), [])
+        capture_original.launches = capture_colors.launches = 0
         fo.capture(0)                     # allocates the pinned buffers
         plain_syncs = sync_warnings(
             lambda: (rsim.step_raw(rdt), fo.capture(1)))
@@ -2990,6 +3030,12 @@ def main() -> int:
             (serial if k < 9 else overlapped).append(
                 time.perf_counter() - t)
         fo.flush()
+    capture_launches = (capture_original.launches, capture_colors.launches)
+    print(f"    the capture's kernel launches over its 15 frames: "
+          f"capture_original {capture_launches[0]}, capture_colors "
+          f"{capture_launches[1]}")
+    require(capture_launches == (15, 15), capture_launches)
+    check_capture(rsim, RECORD_MAX_SPEED_COLOR, "1M bar_galaxy")
     print(f"    synchronising calls in a plain frame (3 steps and the "
           f"capture): {len(plain_syncs)} {plain_syncs[:3]}; in the frame of "
           f"a rebuild: {len(rebuild_syncs)} (the build sizes its outputs "

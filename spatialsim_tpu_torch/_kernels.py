@@ -83,6 +83,9 @@ SIGNATURES = {
     "spatialsim_boids_window": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _F, _F, _I, _I, _P),
     "spatialsim_boids_window_occupancy": (_I, _I, _I, _I, _P),
+    # The frame capture (csrc/capture.cu).
+    "spatialsim_capture_original": (_P, _P, _P, _P, _P, _P, _I, _P),
+    "spatialsim_capture_colors": (_P, _P, _I, _I, _I, _F, _P),
     # The traversal-primitive probes (csrc/probes_decide15.cu, 18.cu).
     "spatialsim_probe_row_reads": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "spatialsim_probe_block_read": (_P, _P, _P, _I, _I, _I, _P),

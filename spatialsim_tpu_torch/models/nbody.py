@@ -24,8 +24,10 @@ from spatialsim_tpu_torch import distributions
 from spatialsim_tpu_torch.config.nbody import (NBODY, NBodyConfig,
                                                resolve_config)
 from spatialsim_tpu_torch.ops.allpairs import allpairs_accel
+from spatialsim_tpu_torch.ops.capture import original_order
 from spatialsim_tpu_torch.ops.colors import colors_by_velocity
 from spatialsim_tpu_torch.ops.integrator import integrate
+from spatialsim_tpu_torch.utils.profiling import count
 
 
 class NBodyState(NamedTuple):
@@ -199,16 +201,18 @@ class NBodySimulation:
         """Moment refreshes the step has run (``refresh_interval > 0``)."""
         return getattr(self._step, "refreshes", 0)
 
-    def _original(self, arr):
-        """Tensor mapped to original body order (axis 1 = bodies)."""
-        if self.engine == "window":
-            return arr[:, self.state.lists.inv_order.long()]
-        return arr
-
     def device_frame(self):
-        """(pos, vel) device tensors, original body order -- capture path."""
-        return (self._original(self.state.pos),
-                self._original(self.state.vel))
+        """(pos, vel) device tensors, original body order -- capture path.
+
+        The window engine's state goes through ``ops/capture.py``
+        ``original_order`` (on the card, ``(3, N)`` views of fresh
+        ``(N, 3)`` rows); the other engines' state is in that order
+        already."""
+        if self.engine == "window":
+            return original_order(self.state.lists.inv_order,
+                                  self.state.pos, self.state.vel)
+        count("capture.plain_calls")
+        return self.state.pos, self.state.vel
 
     def update(self, dt: float):
         """Advance one frame (dt capped at ``config.max_dt``)."""
@@ -224,15 +228,15 @@ class NBodySimulation:
 
     # --- host-facing getters ---
     def get_positions(self) -> np.ndarray:
-        return self._original(self.state.pos).cpu().numpy().T
+        return self.device_frame()[0].cpu().numpy().T
 
     def get_velocities(self) -> np.ndarray:
-        return self._original(self.state.vel).cpu().numpy().T
+        return self.device_frame()[1].cpu().numpy().T
 
     def get_colors(self) -> np.ndarray:
         if self._color_cache is None:
             self._color_cache = colors_by_velocity(
-                self._original(self.state.vel),
+                self.device_frame()[1],
                 self.config.max_speed_color).cpu().numpy().T
         return self._color_cache
 

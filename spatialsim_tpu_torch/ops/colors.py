@@ -2,12 +2,18 @@
 
 The 7-segment blue -> white -> red gradient on
 ``t = clamp(speed / max_speed, 0, 1)``; band boundaries are listed in the
-JAX module's docstring.
+JAX module's docstring.  On the CPU the plain version,
+:func:`colors_by_velocity_reference`, runs; anywhere else the capture's
+colour kernel (``ops/capture.py`` ``capture_colors``), which refuses
+anything but a float32 CUDA input.
 """
 
 from __future__ import annotations
 
 import torch
+
+from spatialsim_tpu_torch.ops.capture import capture_colors
+from spatialsim_tpu_torch.utils.profiling import count
 
 
 def _select(conds, values, default):
@@ -19,7 +25,24 @@ def _select(conds, values, default):
 
 
 def colors_by_velocity(vel: torch.Tensor, max_speed: float) -> torch.Tensor:
-    """Map ``(3, N)`` velocities to ``(3, N)`` float32 RGB in [0, 1]."""
+    """Map ``(3, N)`` velocities to ``(3, N)`` float32 RGB in [0, 1].
+
+    A CPU input takes :func:`colors_by_velocity_reference`; any other
+    :func:`capture_colors` (float32, any strides), whose result is the
+    ``(3, N)`` view of fresh ``(N, 3)`` rows.  Adds one to the
+    profiler-only counter ``capture.plain_calls`` or
+    ``capture.kernel_calls``."""
+    if vel.device.type == "cpu":
+        count("capture.plain_calls")
+        return colors_by_velocity_reference(vel, max_speed)
+    count("capture.kernel_calls")
+    return capture_colors(vel, max_speed)
+
+
+def colors_by_velocity_reference(vel: torch.Tensor,
+                                 max_speed: float) -> torch.Tensor:
+    """The plain version of :func:`colors_by_velocity`, on any device:
+    contiguous ``(3, N)`` float32."""
     # sqrt in float64: some CPU builds of torch round the float32 sqrt
     # off by an ulp; the float64 root rounds to the exact float32 one.
     speed = torch.sqrt(torch.sum(vel * vel, dim=0).double()).float()

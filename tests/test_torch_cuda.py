@@ -1599,3 +1599,174 @@ def test_bh_sync_counts_every_synchronising_call(cuda):
     assert sim.rebuilds == 1
     assert plain == []
     assert entries == len(syncs) > 0, syncs
+
+
+# -- the frame capture (csrc/capture.cu) ------------------------------------
+
+def _permutation(n, seed, device):
+    """A random ``inv_order`` (original id -> sorted slot), int32."""
+    inv = np.random.default_rng(seed).permutation(n).astype(np.int32)
+    return torch.as_tensor(inv, device=device)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 31, 4097, 1_000_003])
+def test_capture_original_matches_plain(cuda, n):
+    """The staged gather gives the plain gather's rows bit for bit, NaN,
+    infinities and -0 included, as ``(3, n)`` views of ``(n, 3)`` rows
+    whose ``.T.contiguous()`` is the same storage."""
+    from spatialsim_tpu_torch.ops.capture import (capture_original,
+                                                  original_order_reference)
+    inv = _permutation(n, n, cuda)
+    rng = np.random.default_rng(n + 1)
+    host = rng.standard_normal((2, 3, n)).astype(np.float32)
+    host.reshape(-1)[:4] = [np.nan, np.inf, -np.inf, -0.0]
+    pos, vel = (torch.as_tensor(h, device=cuda) for h in host)
+    want = original_order_reference(inv, pos, vel)
+    before = capture_original.launches
+    got = capture_original(inv, pos, vel)
+    torch.cuda.synchronize()
+    assert capture_original.launches == before + 1
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        assert g.shape == (3, n) and g.T.is_contiguous()
+        assert g.T.contiguous().data_ptr() == g.data_ptr()
+        assert torch.equal(_bits(g), _bits(w))
+
+
+BAND_EDGES = (0.15, 0.30, 0.45, 0.55, 0.90, 0.95, 0.99)
+
+
+def _edge_speeds(max_speed):
+    """Speeds whose ``t = speed * fl(1 / max_speed)`` (float32) is each
+    band edge and the float32 one ulp either side of it."""
+    inv = np.float32(1) / np.float32(max_speed)
+    out = []
+    for e in BAND_EDGES:
+        e32 = np.float32(e)
+        targets = {np.nextafter(e32, np.float32(0)), e32,
+                   np.nextafter(e32, np.float32(2))}
+        lo = hi = np.float32(e32 / inv)
+        near = [lo]
+        for _ in range(16):
+            lo = np.nextafter(lo, np.float32(0))
+            hi = np.nextafter(hi, np.float32(np.inf))
+            near += [lo, hi]
+        hit = {}
+        for v in near:
+            t = np.float32(v * inv)
+            if t in targets:
+                hit.setdefault(t, v)
+        assert set(hit) == targets, (e, hit)
+        out += list(hit.values())
+    return np.array(out, np.float32)
+
+
+def _colour_velocities(max_speed, n_random, seed):
+    """(3, m) velocities: every band edge and its neighbours along each
+    axis and both signs, zero, -0, above ``max_speed``, NaN, infinity, a
+    subnormal, then random directions at speeds up to 1.2 ``max_speed``."""
+    edges = _edge_speeds(max_speed)
+    cols = []
+    for axis in range(3):
+        for sign in (1, -1):
+            v = np.zeros((3, edges.size), np.float32)
+            v[axis] = sign * edges
+            cols.append(v)
+    special = np.array([[0, -0.0, 2 * max_speed, np.nan, np.inf, 1e-40],
+                        [0, 0, 0, 0, 0, 0], [0, 0, 0, 0, 0, 1e-40]],
+                       np.float32)
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((3, n_random))
+    d /= np.linalg.norm(d, axis=0)
+    d *= rng.uniform(0, 1.2 * max_speed, n_random)
+    return np.concatenate(cols + [special, d.astype(np.float32)], axis=1)
+
+
+def test_capture_colors_match_plain(cuda):
+    """The colour kernel on the ``(n, 3)``-backed and on the contiguous
+    ``(3, n)`` input equals the plain version on the contiguous input (the
+    capture's path before the kernel) bit for bit, at every band edge and
+    one ulp either side, zero, above the top speed, NaN and infinity."""
+    from spatialsim_tpu_torch.ops.capture import capture_colors
+    from spatialsim_tpu_torch.ops.colors import colors_by_velocity_reference
+    max_speed = 15.0
+    vel = torch.as_tensor(_colour_velocities(max_speed, 200_000, 3),
+                          device=cuda)
+    rows_view = vel.T.contiguous().T
+    assert rows_view.stride() == (1, 3)
+    want = colors_by_velocity_reference(vel, max_speed)
+    before = capture_colors.launches
+    for v in (rows_view, vel):
+        got = capture_colors(v, max_speed)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.T.is_contiguous()
+        assert got.T.contiguous().data_ptr() == got.data_ptr()
+        same = _bits(got) == _bits(want)
+        assert bool(same.all()), (v.stride(), int((~same).sum()))
+    assert capture_colors.launches == before + 2
+
+
+def test_capture_dispatch_counts_and_launches(cuda):
+    """CUDA inputs take the kernels, and a float64 one is refused, never
+    handed to the plain versions; under the profiler each call adds one to
+    ``capture.kernel_calls``, and each kernel call one launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spatialsim_tpu_torch.ops.capture import (capture_colors,
+                                                  capture_original,
+                                                  original_order)
+    from spatialsim_tpu_torch.ops.colors import colors_by_velocity
+    from spatialsim_tpu_torch.utils import profiling
+    n = 4097
+    inv = _permutation(n, 0, cuda)
+    pos, vel = torch.randn(2, 3, n, device=cuda).unbind(0)
+    launches = (capture_original.launches, capture_colors.launches)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _, vel_o = original_order(inv, pos, vel)
+        colors_by_velocity(vel_o, 15.0)
+        with pytest.raises(ValueError, match="float32"):
+            colors_by_velocity(vel.double(), 15.0)
+        with pytest.raises(ValueError, match="float32"):
+            original_order(inv, pos.double(), vel.double())
+        torch.cuda.synchronize()
+    counts = profiling.counter_totals()
+    profiling.reset()
+    assert counts == {"capture.kernel_calls": 4}
+    assert (capture_original.launches, capture_colors.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    colors_by_velocity(vel, 15.0)
+    assert profiling.counter_totals() == {}      # off outside the profiler
+
+
+def test_simulation_capture_on_the_card(cuda):
+    """``device_frame``, the getters and the colours on the window engine:
+    the plain path's values, ``(3, n)`` views of ``(n, 3)`` rows."""
+    from spatialsim_tpu_torch.config.nbody import NBodyConfig
+    from spatialsim_tpu_torch.models.nbody import NBodySimulation
+    from spatialsim_tpu_torch.ops.capture import original_order_reference
+    from spatialsim_tpu_torch.ops.colors import (colors_by_velocity,
+                                                 colors_by_velocity_reference)
+    cfg = NBodyConfig(num_bodies=3000, engine="window", group_size=64,
+                      max_depth=6, list_capacity=512, rebuild_interval=2)
+    sim = NBodySimulation(config=cfg, seed=4, device=cuda)
+    for _ in range(3):                  # crosses a rebuild (re-sort)
+        sim.step_raw(0.02)
+    pos_o, vel_o = sim.device_frame()
+    want_p, want_v = original_order_reference(sim.state.lists.inv_order,
+                                              sim.state.pos, sim.state.vel)
+    for got, want in ((pos_o, want_p), (vel_o, want_v)):
+        assert got.T.contiguous().data_ptr() == got.data_ptr()
+        assert torch.equal(_bits(got), _bits(want))
+    col = colors_by_velocity(vel_o, cfg.max_speed_color)
+    assert col.T.contiguous().data_ptr() == col.data_ptr()
+    want_c = colors_by_velocity_reference(want_v, cfg.max_speed_color)
+    assert torch.equal(_bits(col), _bits(want_c))
+    np.testing.assert_array_equal(sim.get_positions(), want_p.cpu().numpy().T)
+    np.testing.assert_array_equal(sim.get_velocities(),
+                                  want_v.cpu().numpy().T)
+    np.testing.assert_array_equal(sim.get_colors(), want_c.cpu().numpy().T)
